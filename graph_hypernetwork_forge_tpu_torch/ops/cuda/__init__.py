@@ -1,0 +1,32 @@
+"""Hand-written CUDA kernels of the port and their plain PyTorch versions.
+
+Each wrapper takes the plain version for tensors on the CPU and launches
+its kernel for tensors on a CUDA device; there is no other fallback.
+"""
+
+from graph_hypernetwork_forge_tpu_torch.ops.cuda.edge_transform import (
+    edge_transform_sorted_combined,
+    edge_transform_sorted_combined_plain,
+)
+from graph_hypernetwork_forge_tpu_torch.ops.cuda.segment_sum import (
+    csr_segment_sum,
+    csr_segment_sum_plain,
+)
+
+KERNEL_SOURCES = ("segment_sum", "edge_transform")
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    csr_segment_sum.launches = 0
+    edge_transform_sorted_combined.launches = 0
+
+
+__all__ = [
+    "KERNEL_SOURCES",
+    "csr_segment_sum",
+    "csr_segment_sum_plain",
+    "edge_transform_sorted_combined",
+    "edge_transform_sorted_combined_plain",
+    "reset_launch_counts",
+]

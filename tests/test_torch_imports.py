@@ -1,0 +1,30 @@
+"""The port imports neither JAX nor anything of the JAX package."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+
+_PROBE = """
+import importlib, pkgutil, sys
+import graph_hypernetwork_forge_tpu_torch as port
+names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+ref = "graph_hypernetwork_forge_tpu"
+bad = sorted(
+    k for k in sys.modules
+    if k == "jax" or k.startswith("jax.") or k == ref or k.startswith(ref + ".")
+)
+print(len(names), bad)
+"""
+
+
+def test_port_and_all_submodules_import_no_jax():
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=REPO, capture_output=True, text=True,
+        timeout=300, check=True,
+    ).stdout.split()
+    assert int(out[0]) >= 15, "submodules were not found"
+    assert out[1:] == ["[]"]

@@ -1,0 +1,40 @@
+"""Inputs for the kernel tests of the PyTorch port, made with numpy from a
+seed. Imports no JAX, so the card tests can use them where JAX is absent."""
+
+import numpy as np
+
+from graph_hypernetwork_forge_tpu_torch.data.encoding import encode_graph
+
+
+def segment_case(seed, e, n, d, skew):
+    """Sorted ids with empty segments (a hot node, gaps, an empty tail):
+    ``(x [e, d] f32, ids [e] int32, splits [n + 1] int32)``."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, n - 3, e)  # the last 3 segments stay empty
+    if skew:
+        ids = np.where(rng.random(e) < 0.4, 1, ids)  # long segment 1
+    ids = np.sort(ids).astype(np.int32)
+    splits = np.searchsorted(ids, np.arange(n + 1), side="left").astype(np.int32)
+    x = rng.standard_normal((e, d)).astype(np.float32)
+    return x, ids, splits
+
+
+def edge_case(seed, d, tail_cut):
+    """Group-padded relation-sorted rows whose bank has relations with no
+    rows, cut to a length that is not a multiple of 256 when ``tail_cut``:
+    ``(x_src, x_dst, rel, w_msg, w_self, bias)``."""
+    rng = np.random.default_rng(seed)
+    n, e, u = 40, 600, 6
+    ei = np.stack([rng.integers(0, n, e), rng.integers(0, n, e)])
+    texts = [f"relation kind {i}" for i in range(u)]
+    etexts = [texts[i] for i in rng.integers(0, u, e)]
+    graph = encode_graph(ei, etexts, n, sort_by_relation=True, group_pad=256)
+    rel = graph.rel_ids[: graph.rel_ids.shape[0] - tail_cut]
+    e_rows = rel.shape[0]
+    u_pad = graph.char_ids.shape[0]  # 8: relations 6 and 7 have no rows
+    xs = rng.standard_normal((e_rows, d)).astype(np.float32)
+    xd = rng.standard_normal((e_rows, d)).astype(np.float32)
+    wm = (rng.standard_normal((u_pad, d, d)) / np.sqrt(d)).astype(np.float32)
+    ws = (rng.standard_normal((u_pad, d, d)) / np.sqrt(d)).astype(np.float32)
+    b = rng.standard_normal((u_pad, d)).astype(np.float32)
+    return xs, xd, rel, wm, ws, b
