@@ -7,6 +7,11 @@ mapping goes key for key over the tree of
 with a ``KeyError`` on a missing key. Its input holds numpy arrays
 (``jax.tree_util.tree_map(np.asarray, params)``); this module imports no
 JAX.
+
+Only parameters carry across, not optimizer state: training in either
+package starts Adam from fresh zero moments (``optax.adam(...).init`` and
+``training.create_train_state``), so a run moved to the port at step 0
+needs nothing else.
 """
 
 from __future__ import annotations

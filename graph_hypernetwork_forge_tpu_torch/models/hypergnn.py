@@ -14,18 +14,22 @@ with ``hidden_dim=max(64, 2*text_dim)`` and two hidden layers, one
 LayerNorm per layer, the count-clamped mean aggregation, a residual on
 every layer. Relation identity enters only through the text.
 
-This slice of the port serves (inference); training mode with dropout and
-``remat`` come with the training slice.
+Training mode puts dropout after each layer's residual ReLU (and in the
+weight generators' hidden layers), its masks drawn from an explicit
+``torch.Generator``; ``remat`` recomputes each layer in the backward
+through ``torch.utils.checkpoint``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import List, Sequence
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from graph_hypernetwork_forge_tpu_torch.data.encoding import (
     GROUP_PAD,
@@ -42,6 +46,7 @@ from graph_hypernetwork_forge_tpu_torch.models.text_encoder import (
 from graph_hypernetwork_forge_tpu_torch.models.weight_generator import (
     WeightGeneratorConfig,
     apply_weight_generator,
+    draw_dropout_masks,
     init_weight_generator,
 )
 from graph_hypernetwork_forge_tpu_torch.ops.message_passing import (
@@ -137,6 +142,7 @@ def apply_hypergnn(
     text_lengths: torch.Tensor,
     *,
     train: bool = False,
+    gen: torch.Generator | None = None,
     return_all_layers: bool = False,
     sort_plan=None,
 ):
@@ -144,12 +150,12 @@ def apply_hypergnn(
 
     With ``return_all_layers=True``, the list of per-layer outputs
     (post-norm). ``sort_plan`` is the layout's SortPlan with tensors on the
-    arrays' device.
+    arrays' device. Dropout is active when ``train`` and ``config.dropout >
+    0``, and then needs ``gen``, a generator on the arrays' device.
     """
-    if train and config.dropout > 0.0:
-        raise NotImplementedError(
-            "training mode with dropout comes with the training slice of the port"
-        )
+    use_dropout = train and config.dropout > 0.0
+    if use_dropout and gen is None:
+        raise ValueError("dropout requires a torch.Generator in training mode")
     if config.precision != "highest" or config.compute_dtype != "float32":
         raise NotImplementedError(
             "the port runs precision='highest', compute_dtype='float32' only; "
@@ -158,13 +164,12 @@ def apply_hypergnn(
     h = torch.relu(linear_apply(params["input_proj"], node_features))
     text_embs = apply_text_encoder(params["text_encoder"], char_ids, text_lengths)
     n = node_features.shape[0]
+    p = config.dropout
 
-    per_layer: List[torch.Tensor] = []
-    for gen_params, norm_params in zip(
-        params["weight_generators"], params["layer_norms"]
-    ):
+    def layer_fn(h, gen_params, norm_params, wg_keep, h_keep):
         weights = apply_weight_generator(
-            config.weight_generator, gen_params, text_embs, train=train
+            config.weight_generator, gen_params, text_embs, train=train,
+            keep=wg_keep,
         )
         h_new = relational_message_passing(
             h,
@@ -181,8 +186,35 @@ def apply_hypergnn(
             sort_plan=sort_plan,
             group_padded=config.group_padded,
         )
-        # residual (hidden → hidden) → ReLU → LayerNorm
-        h = layer_norm_apply(norm_params, torch.relu(h_new + h))
+        # residual (hidden → hidden) → ReLU → dropout → LayerNorm
+        h_new = torch.relu(h_new + h)
+        if h_keep is not None:
+            h_new = torch.where(h_keep, h_new / (1.0 - p), 0.0)
+        return layer_norm_apply(norm_params, h_new)
+
+    per_layer: List[torch.Tensor] = []
+    for gen_params, norm_params in zip(
+        params["weight_generators"], params["layer_norms"]
+    ):
+        wg_keep = h_keep = None
+        if use_dropout:
+            # Drawn here, outside the checkpointed layer: the recompute of
+            # a remat layer restores the global RNG state, not gen's, and
+            # would otherwise draw other masks than the forward used.
+            wg_keep = draw_dropout_masks(
+                config.weight_generator, text_embs.shape[0], gen
+            )
+            h_keep = (
+                torch.rand((n, config.hidden_dim), generator=gen, device=gen.device)
+                < 1.0 - p
+            )
+        if config.remat:
+            h = checkpoint(
+                layer_fn, h, gen_params, norm_params, wg_keep, h_keep,
+                use_reentrant=False,
+            )
+        else:
+            h = layer_fn(h, gen_params, norm_params, wg_keep, h_keep)
         per_layer.append(h)
     return per_layer if return_all_layers else h
 
@@ -196,6 +228,11 @@ class HyperGNN(nn.Module):
     (relation-sorted, group-padded, with a sort plan), which the config
     promises. The parameters are the leaves of ``self.params``, a tree with
     the JAX package's keys, registered as this module's parameters.
+
+    Like any ``nn.Module`` it starts in training mode: the forward records
+    the graph for a backward and applies dropout, drawing its masks from a
+    generator the model holds (seeded from ``seed``) unless one is passed.
+    After :meth:`eval` the forward runs under ``torch.inference_mode()``.
     """
 
     def __init__(
@@ -232,6 +269,7 @@ class HyperGNN(nn.Module):
         self.leaves = nn.ParameterDict(
             {path.replace(".", "/"): p for path, p in named_leaves(self.params)}
         )
+        self.dropout_gen = torch.Generator(device=self.device).manual_seed(seed)
 
     @torch.no_grad()
     def load_params(self, params: dict) -> None:
@@ -254,20 +292,24 @@ class HyperGNN(nn.Module):
             sort_by_relation=True, with_sort_plan=True, group_pad=GROUP_PAD,
         )
 
-    @torch.inference_mode()
-    def forward_encoded(self, node_features, graph: EncodedGraph) -> torch.Tensor:
+    def forward_encoded(
+        self, node_features, graph: EncodedGraph, *, gen: torch.Generator | None = None
+    ) -> torch.Tensor:
         validate_graph_for_config(graph, self.config)
-        feats = torch.as_tensor(
-            node_features, dtype=torch.float32, device=self.device
-        )
-        src, dst, rel_ids, edge_mask, char_ids, lengths = (
-            torch.as_tensor(a, device=self.device) for a in graph.arrays
-        )
-        plan = None if graph.sort_plan is None else graph.sort_plan.to(self.device)
-        return apply_hypergnn(
-            self.config, self.params, feats, src, dst, rel_ids, edge_mask,
-            char_ids, lengths, train=self.training, sort_plan=plan,
-        )
+        mode = contextlib.nullcontext() if self.training else torch.inference_mode()
+        with mode:
+            feats = torch.as_tensor(
+                node_features, dtype=torch.float32, device=self.device
+            )
+            src, dst, rel_ids, edge_mask, char_ids, lengths = (
+                torch.as_tensor(a, device=self.device) for a in graph.arrays
+            )
+            plan = None if graph.sort_plan is None else graph.sort_plan.to(self.device)
+            return apply_hypergnn(
+                self.config, self.params, feats, src, dst, rel_ids, edge_mask,
+                char_ids, lengths, train=self.training,
+                gen=self.dropout_gen if gen is None else gen, sort_plan=plan,
+            )
 
     def forward(
         self, node_features, edge_index, edge_texts: Sequence[str]

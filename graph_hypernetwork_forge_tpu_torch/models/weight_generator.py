@@ -12,15 +12,17 @@ three MLP heads (``W_msg [d_in, d_out]``, ``W_self [d_in, d_out]``,
 - ``ValueError`` on non-positive ``text_dim``/``d_in``/``d_out``.
 
 For U relation texts the whole ``[U, d_in, d_out]`` bank comes out at once
-and stays at relation granularity. Evaluation only: training with dropout
-comes with the training slice of the port.
+and stays at relation granularity. In training mode with ``dropout > 0``,
+dropout follows each hidden ReLU (torch ``nn.Dropout`` semantics: kept
+entries scaled by ``1 / (1 - p)``), its keep masks drawn from an explicit
+``torch.Generator`` or handed in by the caller.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -72,31 +74,55 @@ def init_weight_generator(config: WeightGeneratorConfig, gen: torch.Generator) -
     return params
 
 
+def draw_dropout_masks(
+    config: WeightGeneratorConfig, batch: int, gen: torch.Generator
+) -> Dict[str, List[torch.Tensor]]:
+    """Keep masks ``{head: [[batch, hidden_dim] bool] * num_hidden}``, each
+    entry kept with probability ``1 - dropout``, drawn from ``gen`` on its
+    device."""
+    return {
+        name: [
+            torch.rand((batch, config.hidden_dim), generator=gen, device=gen.device)
+            < 1.0 - config.dropout
+            for _ in range(config.num_hidden)
+        ]
+        for name, _ in config.weight_specs
+    }
+
+
 def apply_weight_generator(
     config: WeightGeneratorConfig,
     params: dict,
     text_emb: torch.Tensor,
     *,
     train: bool = False,
+    gen: torch.Generator | None = None,
+    keep: Dict[str, List[torch.Tensor]] | None = None,
 ) -> Dict[str, torch.Tensor]:
     """``{"W_msg": [B, d_in, d_out], "W_self": ..., "bias": [B, d_out]}``.
 
     Accepts ``[text_dim]`` (returns unbatched) or ``[B, text_dim]``.
+    Dropout between hidden layers is active only when ``train`` and
+    ``config.dropout > 0``; its masks are ``keep`` (as
+    :func:`draw_dropout_masks` makes them) or else drawn from ``gen``.
     """
-    if train and config.dropout > 0.0:
-        raise NotImplementedError(
-            "WeightGenerator dropout in training mode comes with the training "
-            "slice of the port"
-        )
     single = text_emb.dim() == 1
     if single:
         text_emb = text_emb[None, :]
+    p = config.dropout
+    use_dropout = train and p > 0.0
+    if use_dropout and keep is None:
+        if gen is None:
+            raise ValueError("dropout requires a torch.Generator in training mode")
+        keep = draw_dropout_masks(config, text_emb.shape[0], gen)
     out: Dict[str, torch.Tensor] = {}
     for name, shape in config.weight_specs:
         x = text_emb
         layers = params["heads"][name]
-        for layer in layers[:-1]:
+        for i, layer in enumerate(layers[:-1]):
             x = torch.relu(linear_apply(layer, x))
+            if use_dropout:
+                x = torch.where(keep[name][i], x / (1.0 - p), 0.0)
         flat = linear_apply(layers[-1], x)  # [B, prod(shape)]
         w = flat.reshape((x.shape[0],) + shape) * torch.exp(params["log_scales"][name])
         out[name] = w[0] if single else w

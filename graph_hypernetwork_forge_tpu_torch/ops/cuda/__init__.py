@@ -8,24 +8,31 @@ from graph_hypernetwork_forge_tpu_torch.ops.cuda.edge_transform import (
     edge_transform_sorted_combined,
     edge_transform_sorted_combined_plain,
 )
+from graph_hypernetwork_forge_tpu_torch.ops.cuda.edge_transform_bwd import (
+    edge_transform_combined_bwd,
+    edge_transform_combined_bwd_plain,
+)
 from graph_hypernetwork_forge_tpu_torch.ops.cuda.segment_sum import (
     csr_segment_sum,
     csr_segment_sum_plain,
 )
 
-KERNEL_SOURCES = ("segment_sum", "edge_transform")
+KERNEL_SOURCES = ("segment_sum", "edge_transform", "edge_transform_bwd")
 
 
 def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
     csr_segment_sum.launches = 0
     edge_transform_sorted_combined.launches = 0
+    edge_transform_combined_bwd.launches = 0
 
 
 __all__ = [
     "KERNEL_SOURCES",
     "csr_segment_sum",
     "csr_segment_sum_plain",
+    "edge_transform_combined_bwd",
+    "edge_transform_combined_bwd_plain",
     "edge_transform_sorted_combined",
     "edge_transform_sorted_combined_plain",
     "reset_launch_counts",

@@ -8,12 +8,16 @@ import torch
 
 
 def require_inference(kernel: str, *tensors: torch.Tensor) -> None:
-    """Refuse inputs that want a gradient: the kernels have no backward yet."""
+    """Refuse inputs that want a gradient at a raw launch, which records
+    nothing for autograd: gradients go through the differentiable entry
+    points, whose autograd Functions launch with grad mode off."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{kernel} has no backward kernel yet; it comes with the "
-            "training slice of the port. Run the forward under "
-            "torch.inference_mode() or torch.no_grad()."
+            f"{kernel} is a forward-only launch and would drop the gradient; "
+            "call the differentiable entry points instead "
+            "(ops.segment.sorted_segment_sum / sorted_segment_sum_by_plan / "
+            "take_rows_pair, ops.cuda.edge_transform_sorted_combined), or "
+            "run under torch.inference_mode() or torch.no_grad()."
         )
 
 

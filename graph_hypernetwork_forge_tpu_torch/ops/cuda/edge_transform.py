@@ -6,6 +6,12 @@ group-padded, so each 256-row tile holds one relation and takes it from
 its first row (a ragged last tile too). This is the function of the TPU
 kernel ``edge_transform_sorted_combined``
 (``graph_hypernetwork_forge_tpu/ops/pallas/edge_transform.py:239``).
+
+:func:`edge_transform_sorted_combined` is differentiable through a
+``torch.autograd.Function`` with the JAX package's VJP (``_combined_bwd``,
+same file :277-315): kernel 3 (``ops/cuda/edge_transform_bwd.py``) gives
+``dx_src``, ``dx_dst``, ``dW_msg`` and ``dW_self`` in one pass, and ``dbias``
+is the segment-sum of ``g`` over ``rel_splits`` (kernel 1).
 """
 
 from __future__ import annotations
@@ -18,6 +24,10 @@ import torch
 from graph_hypernetwork_forge_tpu_torch.data.encoding import GROUP_PAD
 from graph_hypernetwork_forge_tpu_torch.ops.cuda import _common
 from graph_hypernetwork_forge_tpu_torch.ops.cuda.build import load
+from graph_hypernetwork_forge_tpu_torch.ops.cuda.edge_transform_bwd import (
+    edge_transform_combined_bwd,
+)
+from graph_hypernetwork_forge_tpu_torch.ops.cuda.segment_sum import csr_segment_sum
 
 _NAME = "edge_transform_sorted_combined"
 
@@ -55,26 +65,8 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def edge_transform_sorted_combined(
-    x_src: torch.Tensor,
-    x_dst: torch.Tensor,
-    rel_sorted: torch.Tensor,
-    w_msg: torch.Tensor,
-    w_self: torch.Tensor,
-    bias: torch.Tensor,
-) -> torch.Tensor:
-    """Per-edge ``msg + self`` contribution over single-relation tiles → ``[E, d_out]``.
-
-    Args:
-        x_src, x_dst: ``[E, d_in]`` gathered source / destination rows.
-        rel_sorted: ``[E]`` relation ids, non-decreasing, each relation's
-            group starting on a 256-row boundary.
-        w_msg, w_self: ``[U, d_in, d_out]`` weight banks; bias ``[U, d_out]``.
-
-    CPU tensors take :func:`edge_transform_sorted_combined_plain`; CUDA
-    tensors launch the kernel (float32 data, int32 ids, all contiguous) or
-    raise.
-    """
+def _launch(x_src, x_dst, rel_sorted, w_msg, w_self, bias) -> torch.Tensor:
+    """Kernel 2 on CUDA tensors, the plain version on CPU tensors."""
     if x_src.device.type == "cpu":
         return edge_transform_sorted_combined_plain(
             x_src, x_dst, rel_sorted, w_msg, w_self, bias
@@ -112,6 +104,61 @@ def edge_transform_sorted_combined(
     _common.raise_on_error(_NAME, code)
     edge_transform_sorted_combined.launches += 1
     return out
+
+
+class _EdgeTransformSortedCombined(torch.autograd.Function):
+    """Kernel 2 forward; kernel 3 plus the ``dbias`` segment-sum backward."""
+
+    @staticmethod
+    def forward(ctx, x_src, x_dst, rel_sorted, w_msg, w_self, bias, rel_splits):
+        # The residuals of the JAX VJP: both gathered streams and the banks.
+        ctx.save_for_backward(x_src, x_dst, rel_sorted, w_msg, w_self, rel_splits)
+        return _launch(x_src, x_dst, rel_sorted, w_msg, w_self, bias)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x_src, x_dst, rel_sorted, w_msg, w_self, rel_splits = ctx.saved_tensors
+        g = g.contiguous()
+        dx_src, dx_dst, dw_msg, dw_self = edge_transform_combined_bwd(
+            g, x_src, x_dst, rel_sorted, w_msg, w_self
+        )
+        u = w_msg.shape[0]
+        if rel_splits is not None:
+            dbias = csr_segment_sum(g, rel_splits, u)
+        else:
+            dbias = g.new_zeros((u, g.shape[1])).index_add_(0, rel_sorted, g)
+        return dx_src, dx_dst, None, dw_msg, dw_self, dbias, None
+
+
+def edge_transform_sorted_combined(
+    x_src: torch.Tensor,
+    x_dst: torch.Tensor,
+    rel_sorted: torch.Tensor,
+    w_msg: torch.Tensor,
+    w_self: torch.Tensor,
+    bias: torch.Tensor,
+    rel_splits: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Per-edge ``msg + self`` contribution over single-relation tiles → ``[E, d_out]``.
+
+    Args:
+        x_src, x_dst: ``[E, d_in]`` gathered source / destination rows.
+        rel_sorted: ``[E]`` relation ids, non-decreasing, each relation's
+            group starting on a 256-row boundary.
+        w_msg, w_self: ``[U, d_in, d_out]`` weight banks; bias ``[U, d_out]``.
+        rel_splits: optional ``[U + 1]`` int32 CSR bounds of the relation
+            groups (``SortPlan.rel_splits``); the backward then reduces
+            ``dbias`` through kernel 1 instead of ``index_add_``.
+
+    Differentiable in every float input. CPU tensors take
+    :func:`edge_transform_sorted_combined_plain` (and kernel 3's plain
+    version in the backward); CUDA tensors launch the kernels (float32
+    data, int32 ids, all contiguous) or raise.
+    """
+    return _EdgeTransformSortedCombined.apply(
+        x_src, x_dst, rel_sorted, w_msg, w_self, bias, rel_splits
+    )
 
 
 edge_transform_sorted_combined.launches = 0

@@ -29,16 +29,20 @@ _NAME = "csr_segment_sum"
 def csr_segment_sum_plain(
     x_sorted: torch.Tensor, splits: torch.Tensor, num_segments: int
 ) -> torch.Tensor:
-    """Plain PyTorch version: ``index_add_`` over ids expanded from ``splits``."""
+    """Plain PyTorch version: ``index_add_`` over ids expanded from ``splits``.
+
+    Sums in float32, or in float64 for float64 rows (the gradient checks).
+    """
     s = splits[: num_segments + 1].long()
     ids = torch.repeat_interleave(
         torch.arange(num_segments, device=x_sorted.device), s[1:] - s[:-1]
     )
+    dtype = torch.promote_types(x_sorted.dtype, torch.float32)
     out = torch.zeros(
         (num_segments,) + tuple(x_sorted.shape[1:]),
-        dtype=torch.float32, device=x_sorted.device,
+        dtype=dtype, device=x_sorted.device,
     )
-    return out.index_add_(0, ids, x_sorted[s[0]: s[-1]].float())
+    return out.index_add_(0, ids, x_sorted[s[0]: s[-1]].to(dtype))
 
 
 @functools.cache

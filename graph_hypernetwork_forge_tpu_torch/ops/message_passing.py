@@ -21,12 +21,18 @@ Two backends:
     edge transform kernel (``ops/cuda/edge_transform.py``) writes each
     edge's ``msg + self`` contribution and the CSR segment-sum kernel
     (``ops/cuda/segment_sum.py``) reduces them in dst order; one divide by
-    the clamped count. On CPU tensors both run their plain versions.
+    the clamped count. On CPU tensors both run their plain versions. It is
+    differentiable: the gathers, the transform and the tail are autograd
+    Functions whose backwards run the fused backward kernel and reduce
+    every cotangent through the CSR segment-sum, sort-free.
 
 ``gather``
     Per-edge weight gather and batched matvec: the parity oracle, with the
-    two true divides of the JAX package. It gathers ``[chunk, d, d]``
-    weights a chunk of edges at a time, so its peak memory stays bounded.
+    two true divides of the JAX package, differentiated by PyTorch's own
+    autograd (so it is the oracle for gradients too). It gathers
+    ``[chunk, d, d]`` weights a chunk of edges at a time, so its forward's
+    peak memory stays bounded; under autograd every chunk's gathered
+    weights are kept for the backward.
 
 The JAX package's ``dense``, ``grouped`` and ``chunked`` backends are not
 ported yet and raise ``NotImplementedError``.
@@ -174,16 +180,21 @@ def relational_message_passing(
 
     if chosen == "cuda":
         _check_cuda_layout(rel_sorted, group_padded, sort_plan)
-        x_src, x_dst = take_rows_pair(h, src, dst)
-        contrib = edge_transform_sorted_combined(
-            x_src, x_dst, rel_ids, w_msg, w_self, bias
+        plan = sort_plan
+        x_src, x_dst = take_rows_pair(
+            h, src, dst,
+            plan.src_perm, plan.src_sorted, plan.src_splits,
+            plan.dst_perm, plan.dst_sorted, plan.dst_splits,
         )
-        cnt = sort_plan.in_degree[:n].clamp(min=1.0)[:, None]
+        contrib = edge_transform_sorted_combined(
+            x_src, x_dst, rel_ids, w_msg, w_self, bias, plan.rel_splits
+        )
+        cnt = plan.in_degree[:n].clamp(min=1.0)[:, None]
         if edge_mask is not None:
             contrib = contrib * edge_mask[:, None]
         total = sorted_segment_sum_by_plan(
-            contrib, sort_plan.dst_perm, sort_plan.dst_sorted, n,
-            sort_plan.dst_splits,
+            contrib, plan.dst_perm, plan.inv_dst_perm, plan.dst_sorted, n,
+            plan.dst_splits,
         )
         return total / cnt
 

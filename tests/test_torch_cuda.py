@@ -10,20 +10,37 @@ import numpy as np
 import pytest
 import torch
 
+from graph_hypernetwork_forge_tpu_torch.data.encoding import encode_graph
 from graph_hypernetwork_forge_tpu_torch.data.knowledge_graph import ToyKnowledgeGraph
 from graph_hypernetwork_forge_tpu_torch.device import resolve_device
-from graph_hypernetwork_forge_tpu_torch.models.hypergnn import HyperGNN
+from graph_hypernetwork_forge_tpu_torch.models.hypergnn import (
+    HyperGNN,
+    HyperGNNConfig,
+    init_hypergnn,
+)
 from graph_hypernetwork_forge_tpu_torch.ops import cuda as kernels
 from graph_hypernetwork_forge_tpu_torch.ops.cuda.edge_transform import (
     edge_transform_sorted_combined,
     edge_transform_sorted_combined_plain,
 )
+from graph_hypernetwork_forge_tpu_torch.ops.cuda.edge_transform_bwd import (
+    edge_transform_combined_bwd,
+    edge_transform_combined_bwd_plain,
+)
 from graph_hypernetwork_forge_tpu_torch.ops.cuda.segment_sum import csr_segment_sum
+from graph_hypernetwork_forge_tpu_torch.training.train import (
+    adam,
+    create_train_state,
+    make_train_step,
+)
+from graph_hypernetwork_forge_tpu_torch.utils.initializers import named_leaves, tree_map
 from torch_cases import edge_case, segment_case
 
 pytestmark = pytest.mark.cuda
 
-# Kernel 2: f32 dot products of at most 2 * 128 order-1 terms.
+# Kernels 2 and 3's dx: f32 dot products of at most 2 * 128 order-1 terms.
+# Kernel 3's dW and the gradients: sums over hundreds of rows, compared
+# after dividing by max(1, max|plain|).
 ATOL = 1e-4
 
 
@@ -97,13 +114,77 @@ def test_edge_transform_kernel_matches_plain(dev, d, tail_cut):
 
 
 def test_kernels_refuse_inputs_that_want_a_gradient(dev):
+    # The raw launches record nothing for autograd and refuse such inputs;
+    # the combined transform is differentiable and takes them.
     args = [torch.from_numpy(a).to(dev) for a in edge_case(9, 16, 0)]
-    args[3].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        edge_transform_sorted_combined(*args)
     x = torch.zeros(4, 8, device=dev, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match="differentiable entry points"):
         csr_segment_sum(x, torch.zeros(3, dtype=torch.int32, device=dev), 2)
+    g = torch.ones_like(args[0], requires_grad=True)
+    with pytest.raises(NotImplementedError, match="differentiable entry points"):
+        edge_transform_combined_bwd(g, *args[:5])
+    args[3].requires_grad_(True)
+    out = edge_transform_sorted_combined(*args)
+    out.sum().backward()
+    assert args[3].grad is not None and args[3].grad.shape == args[3].shape
+
+
+def _close_scaled(got, want, msg):
+    scale = max(1.0, want.abs().max().item())
+    torch.testing.assert_close(got / scale, want / scale, rtol=0, atol=ATOL, msg=msg)
+
+
+@pytest.mark.parametrize("d", [40, 64, 128])
+@pytest.mark.parametrize("tail_cut", [0, 100])
+def test_edge_transform_bwd_kernel_matches_plain(dev, d, tail_cut):
+    xs, xd, rel, wm, ws, _ = (torch.from_numpy(a).to(dev) for a in edge_case(10, d, tail_cut))
+    g = torch.randn(xs.shape, generator=torch.Generator().manual_seed(d)).to(dev)
+    kernels.reset_launch_counts()
+    got = edge_transform_combined_bwd(g, xs, xd, rel, wm, ws)
+    again = edge_transform_combined_bwd(g, xs, xd, rel, wm, ws)
+    torch.cuda.synchronize()
+    assert edge_transform_combined_bwd.launches == 2
+    assert csr_segment_sum.launches == 2  # one dW reduction per call
+    want = edge_transform_combined_bwd_plain(g, xs, xd, rel, wm, ws)
+    for name, a, b, w in zip(("dx_src", "dx_dst", "dW_msg", "dW_self"), got, again, want):
+        assert torch.equal(a, b), f"{name}: two runs differ"
+        _close_scaled(a.cpu(), w.cpu(), name)
+    for dw in got[2:]:
+        assert not dw[6:].any(), "relations without rows must be exactly zero"
+
+
+def test_training_step_on_the_card_matches_the_cpu(dev):
+    kg = ToyKnowledgeGraph()
+    graph = encode_graph(kg.edge_index, kg.edge_texts, kg.num_nodes,
+                         sort_by_relation=True, with_sort_plan=True, group_pad=256)
+    cfg = HyperGNNConfig(64, 16, 32, rel_sorted=True, group_padded=True)
+    init = init_hypergnn(cfg, torch.Generator().manual_seed(4))
+    lr, runs = 1e-3, []
+    for device in (dev, torch.device("cpu")):
+        state = create_train_state(tree_map(lambda t: t.to(device), init), adam(lr))
+        feats = torch.as_tensor(kg.node_features, dtype=torch.float32, device=device)
+        arrays = [torch.as_tensor(a, device=device) for a in graph.arrays]
+        kernels.reset_launch_counts()
+        params, _, loss = make_train_step(cfg, neg_mode="roll")(
+            state.params, state.opt_state, feats, *arrays,
+            torch.Generator(device=device), neg_dst=3,
+            sort_plan=graph.sort_plan.to(device))
+        if device.type == "cuda":
+            # One step at 2 layers: kernel 1 in 2 forward tails, per layer 2
+            # gather cotangents + dbias + kernel 3's dW, and 2 in the loss.
+            launches = (csr_segment_sum.launches,
+                        edge_transform_sorted_combined.launches,
+                        edge_transform_combined_bwd.launches)
+            assert launches == (12, 2, 2)
+        runs.append((loss.item(), {p: (t.detach().cpu(), t.grad.cpu())
+                                   for p, t in named_leaves(params)}))
+    (l_card, card), (l_cpu, cpu) = runs
+    assert abs(l_card - l_cpu) <= 1e-5 * max(1.0, abs(l_cpu))
+    for path, (p_cpu, g_cpu) in cpu.items():
+        _close_scaled(card[path][1], g_cpu, f"grad {path}")
+        # Adam's first step is about lr·sign(g); a gradient at rounding
+        # noise may take the other sign on the card: at most 2·lr apart.
+        torch.testing.assert_close(card[path][0], p_cpu, rtol=0, atol=2 * lr, msg=path)
 
 
 def test_hypergnn_on_the_card_matches_the_cpu(dev):

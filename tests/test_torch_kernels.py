@@ -1,9 +1,12 @@
-"""The port's two CUDA kernels, through their plain PyTorch versions.
+"""The port's CUDA kernels, through their plain PyTorch versions, and the
+autograd Functions around them.
 
 On the CPU each wrapper runs its plain version; these tests hold those
 against the JAX package's Pallas kernels run in interpret mode, on the same
-numpy inputs, at f32 atol 3e-5 (the parity gate). The kernels themselves
-are held against these plain versions on the card by test_torch_cuda.py.
+numpy inputs, at f32 atol 3e-5 (the parity gate), and each Function's
+backward against ``torch.autograd.gradcheck`` in float64 and against the
+JAX VJP of its counterpart. The kernels themselves are held against these
+plain versions on the card by test_torch_cuda.py.
 """
 
 import jax
@@ -12,6 +15,9 @@ import numpy as np
 import pytest
 import torch
 
+from graph_hypernetwork_forge_tpu.ops.pallas.edge_transform import (
+    _combined_bwd_fused_impl,
+)
 from graph_hypernetwork_forge_tpu.ops.pallas.edge_transform import (
     edge_transform_sorted_combined as jax_edge_transform,
 )
@@ -25,14 +31,30 @@ from graph_hypernetwork_forge_tpu_torch.ops.cuda.edge_transform import (
     edge_transform_sorted_combined,
     edge_transform_sorted_combined_plain,
 )
+from graph_hypernetwork_forge_tpu_torch.ops.cuda.edge_transform_bwd import (
+    edge_transform_combined_bwd,
+    edge_transform_combined_bwd_plain,
+)
 from graph_hypernetwork_forge_tpu_torch.ops.cuda.segment_sum import (
     csr_segment_sum,
     csr_segment_sum_plain,
 )
+from graph_hypernetwork_forge_tpu_torch.ops import segment as pseg
 from graph_hypernetwork_forge_tpu_torch.ops.segment import sorted_segment_sum
 from torch_cases import edge_case, segment_case
 
 ATOL = 3e-5
+
+
+def _assert_grad_close(got, want, err_msg=""):
+    """The gradient gate: f32 atol 3e-5 after dividing both by
+    ``max(1, max|want|)`` (tests/test_pallas_kernels.py:447-451), since a
+    gradient sums many per-edge terms."""
+    want = np.asarray(want)
+    scale = max(1.0, float(np.abs(want).max(initial=0.0)))
+    np.testing.assert_allclose(
+        np.asarray(got) / scale, want / scale, rtol=0, atol=ATOL, err_msg=err_msg
+    )
 
 
 @pytest.mark.parametrize("skew", [False, True])
@@ -116,21 +138,184 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
         edge_transform_sorted_combined(*args),
         edge_transform_sorted_combined_plain(*args), rtol=0, atol=0,
     )
+    g = torch.ones(args[0].shape)
+    for got, want in zip(
+        edge_transform_combined_bwd(g, *args[:5]),
+        edge_transform_combined_bwd_plain(g, *args[:5]),
+    ):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert csr_segment_sum.launches == 0
     assert edge_transform_sorted_combined.launches == 0
+    assert edge_transform_combined_bwd.launches == 0
 
 
 def test_inputs_that_want_a_gradient_are_refused():
+    # The raw launches record nothing for autograd, so they refuse inputs
+    # that want a gradient and name the differentiable entry points.
     t = torch.zeros(2, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match="differentiable entry points"):
         _common.require_inference("k", t)
     with torch.no_grad():
         _common.require_inference("k", t)
 
 
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("tail_cut", [0, 100])
+def test_edge_transform_bwd_plain_matches_pallas(d, tail_cut):
+    xs, xd, rel, wm, ws, _ = edge_case(10, d, tail_cut)
+    g = np.random.default_rng(11).standard_normal((rel.shape[0], d)).astype(np.float32)
+    want = _combined_bwd_fused_impl(
+        *(jnp.asarray(a) for a in (g, xs, xd, rel, wm, ws)),
+        interpret=True, precision=jax.lax.Precision.HIGHEST,
+    )
+    got = edge_transform_combined_bwd_plain(
+        *(torch.from_numpy(a) for a in (g, xs, xd, rel, wm, ws))
+    )
+    for name, a, b in zip(("dx_src", "dx_dst", "dW_msg", "dW_self"), got, want):
+        assert tuple(a.shape) == b.shape, name
+        _assert_grad_close(a.numpy(), b, err_msg=name)
+    # Relations 6 and 7 of the bank have no rows: exactly zero.
+    for dw in got[2:]:
+        assert not dw[6:].any()
+
+
+def _f64(*arrays):
+    return [torch.from_numpy(np.asarray(a, dtype=np.float64)).requires_grad_(True)
+            for a in arrays]
+
+
+def _sorted_case(seed, e=60, n=12, d=3):
+    """Unsorted ids with empty segments, their sort plan and CSR bounds."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, n - 3, e).astype(np.int32)
+    perm = np.argsort(ids, kind="stable").astype(np.int32)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(e, dtype=np.int32)
+    ids_sorted = ids[perm]
+    splits = np.searchsorted(ids_sorted, np.arange(n + 1)).astype(np.int32)
+    x = rng.standard_normal((e, d))
+    table = rng.standard_normal((n, d))
+    return dict(ids=ids, perm=perm, inv=inv, ids_sorted=ids_sorted,
+                splits=splits, x=x, table=table, n=n)
+
+
+@pytest.mark.parametrize("with_splits", [False, True])
+def test_segment_functions_pass_gradcheck(with_splits):
+    c = _sorted_case(12)
+    t = {k: torch.from_numpy(v) for k, v in c.items() if isinstance(v, np.ndarray)}
+    splits = t["splits"] if with_splits else None
+    n = c["n"]
+    x, table = _f64(c["x"], c["table"])
+    checks = [
+        (lambda v: pseg.sorted_segment_sum(v, t["ids_sorted"], n, splits),
+         x[t["perm"].long()].detach().requires_grad_(True)),
+        (lambda v: pseg.sorted_segment_sum_by_plan(
+            v, t["perm"], t["inv"], t["ids_sorted"], n, splits), x),
+        (lambda v: pseg.permute_rows(v, t["perm"], t["inv"]), x),
+        (lambda tb: pseg.take_rows_sorted(
+            tb, t["ids"], t["perm"], t["ids_sorted"], splits), table),
+        (lambda tb: pseg.take_rows_sorted(
+            tb, t["ids_sorted"], None, t["ids_sorted"], splits), table),
+        (lambda tb: pseg.take_rows_pair(
+            tb, t["ids"], t["ids_sorted"], t["perm"], t["ids_sorted"], splits,
+            None, t["ids_sorted"], splits), table),
+    ]
+    for fn, inp in checks:
+        assert torch.autograd.gradcheck(fn, (inp,), eps=1e-6, atol=1e-8)
+
+
+@pytest.mark.parametrize("with_splits", [False, True])
+def test_edge_transform_function_passes_gradcheck(with_splits):
+    rng = np.random.default_rng(13)
+    e, d, u = 300, 3, 4  # tiles: [0,256) relation 0, [256,300) relation 2
+    rel = np.repeat(np.array([0, 2], dtype=np.int32), [256, 44])
+    rel_splits = torch.from_numpy(
+        np.searchsorted(rel, np.arange(u + 1)).astype(np.int32)
+    )
+    xs, xd = _f64(*rng.standard_normal((2, e, d)))
+    wm, ws = _f64(*rng.standard_normal((2, u, d, d)))
+    (b,) = _f64(rng.standard_normal((u, d)))
+    fn = lambda *a: edge_transform_sorted_combined(
+        a[0], a[1], torch.from_numpy(rel), *a[2:],
+        rel_splits if with_splits else None,
+    )
+    assert torch.autograd.gradcheck(fn, (xs, xd, wm, ws, b), eps=1e-6, atol=1e-8)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_edge_transform_vjp_matches_jax(d):
+    xs, xd, rel, wm, ws, b = edge_case(14, d, 0)
+    g = np.random.default_rng(15).standard_normal((rel.shape[0], d)).astype(np.float32)
+    rel_splits = np.searchsorted(rel, np.arange(wm.shape[0] + 1)).astype(np.int32)
+    jx = [jnp.asarray(a) for a in (xs, xd, wm, ws, b)]
+
+    def jfn(xs_, xd_, wm_, ws_, b_):
+        return jax_edge_transform(
+            xs_, xd_, jnp.asarray(rel), wm_, ws_, b_, jnp.asarray(rel_splits),
+            256, True,
+        )
+
+    _, vjp = jax.vjp(jfn, *jx)
+    want = vjp(jnp.asarray(g))
+    tx = [torch.from_numpy(a).requires_grad_(True) for a in (xs, xd, wm, ws, b)]
+    out = edge_transform_sorted_combined(
+        tx[0], tx[1], torch.from_numpy(rel), *tx[2:], torch.from_numpy(rel_splits)
+    )
+    out.backward(torch.from_numpy(g))
+    for name, t, w in zip(("x_src", "x_dst", "w_msg", "w_self", "bias"), tx, want):
+        _assert_grad_close(t.grad.numpy(), w, err_msg=name)
+
+
+def test_segment_function_vjps_match_jax():
+    from graph_hypernetwork_forge_tpu.ops import segment as jseg
+
+    c = _sorted_case(16, e=400, n=50, d=16)
+    n = c["n"]
+    x32, tb32 = c["x"].astype(np.float32), c["table"].astype(np.float32)
+    rng = np.random.default_rng(17)
+    g_rows = rng.standard_normal((400, 16)).astype(np.float32)
+    g_nodes = rng.standard_normal((n, 16)).astype(np.float32)
+    t = {k: torch.from_numpy(v) for k, v in c.items() if isinstance(v, np.ndarray)}
+    j = {k: jnp.asarray(v) for k, v in c.items() if isinstance(v, np.ndarray)}
+    cases = [
+        ("sorted_segment_sum", x32, g_nodes,
+         lambda v: pseg.sorted_segment_sum(v, t["ids_sorted"], n, t["splits"]),
+         lambda v: jseg.sorted_segment_sum(v, j["ids_sorted"], n, j["splits"])),
+        ("sorted_segment_sum_by_plan", x32, g_nodes,
+         lambda v: pseg.sorted_segment_sum_by_plan(
+             v, t["perm"], t["inv"], t["ids_sorted"], n, t["splits"]),
+         lambda v: jseg.sorted_segment_sum_by_plan(
+             v, j["perm"], j["inv"], j["ids_sorted"], n, j["splits"])),
+        ("permute_rows", x32, g_rows,
+         lambda v: pseg.permute_rows(v, t["perm"], t["inv"]),
+         lambda v: jseg.permute_rows(v, j["perm"], j["inv"])),
+        ("take_rows_sorted", tb32, g_rows,
+         lambda v: pseg.take_rows_sorted(
+             v, t["ids"], t["perm"], t["ids_sorted"], t["splits"]),
+         lambda v: jseg.take_rows_sorted(
+             n, v, j["ids"], j["perm"], j["ids_sorted"], j["splits"])),
+        ("take_rows_pair", tb32, (g_rows, g_rows[::-1].copy()),
+         lambda v: pseg.take_rows_pair(
+             v, t["ids"], t["ids_sorted"], t["perm"], t["ids_sorted"],
+             t["splits"], None, t["ids_sorted"], t["splits"]),
+         lambda v: jseg.take_rows_pair(
+             n, v, j["ids"], j["ids_sorted"], j["perm"], j["ids_sorted"],
+             j["splits"], None, j["ids_sorted"], j["splits"])),
+    ]
+    for name, inp, g, pfn, jfn in cases:
+        gs = g if isinstance(g, tuple) else (g,)
+        v = torch.from_numpy(inp).requires_grad_(True)
+        out = pfn(v)
+        outs = out if isinstance(out, tuple) else (out,)
+        torch.autograd.backward(outs, [torch.from_numpy(a) for a in gs])
+        _, vjp = jax.vjp(jfn, jnp.asarray(inp))
+        jg = tuple(jnp.asarray(a) for a in gs)
+        (want,) = vjp(jg if isinstance(g, tuple) else jg[0])
+        _assert_grad_close(v.grad.numpy(), want, err_msg=name)
+
+
 def test_segment_ops_match_jax():
     from graph_hypernetwork_forge_tpu.ops import segment as jseg
-    from graph_hypernetwork_forge_tpu_torch.ops import segment as pseg
 
     rng = np.random.default_rng(9)
     e, n, d = 400, 50, 16
@@ -144,8 +329,8 @@ def test_segment_ops_match_jax():
     ids_sorted = ids[perm]
     splits = np.searchsorted(ids_sorted, np.arange(n + 1)).astype(np.int32)
     t = {k: torch.from_numpy(v) for k, v in dict(
-        x=x, ids=ids, w=w, table=table, perm=perm, ids_sorted=ids_sorted,
-        splits=splits).items()}
+        x=x, ids=ids, w=w, table=table, perm=perm, inv=inv,
+        ids_sorted=ids_sorted, splits=splits).items()}
     j = {k: jnp.asarray(v.numpy()) for k, v in t.items()}
     pairs = [
         (pseg.segment_sum(t["x"], t["ids"], n), jseg.segment_sum(j["x"], j["ids"], n)),
@@ -153,13 +338,15 @@ def test_segment_ops_match_jax():
          jseg.segment_count(j["ids"], n, j["w"])),
         *zip(pseg.segment_mean_clamped(t["x"], t["ids"], n, t["w"]),
              jseg.segment_mean_clamped(j["x"], j["ids"], n, j["w"])),
-        (pseg.permute_rows(t["x"], t["perm"]),
-         jseg.permute_rows(j["x"], j["perm"], jnp.asarray(inv))),
-        *zip(pseg.take_rows_pair(t["table"], t["ids"], t["ids_sorted"]),
+        (pseg.permute_rows(t["x"], t["perm"], t["inv"]),
+         jseg.permute_rows(j["x"], j["perm"], j["inv"])),
+        *zip(pseg.take_rows_pair(t["table"], t["ids"], t["ids_sorted"], t["perm"],
+                                 t["ids_sorted"], None, None, t["ids_sorted"], None),
              (j["table"][j["ids"]], j["table"][j["ids_sorted"]])),
-        *[(pseg.sorted_segment_sum_by_plan(t["x"], t["perm"], t["ids_sorted"], n, s),
+        *[(pseg.sorted_segment_sum_by_plan(
+              t["x"], t["perm"], t["inv"], t["ids_sorted"], n, s),
            jseg.sorted_segment_sum_by_plan(
-               j["x"], j["perm"], jnp.asarray(inv), j["ids_sorted"], n))
+               j["x"], j["perm"], j["inv"], j["ids_sorted"], n))
           for s in (None, t["splits"])],
     ]
     for got, want in pairs:

@@ -84,10 +84,19 @@ def test_weight_generator_rejects_non_positive_dims(bad):
 
 
 def test_weight_generator_training_dropout_waits_for_the_training_slice():
+    # Training-mode dropout needs an explicit generator (JAX: an rng key);
+    # given one, it draws masks, and eval mode ignores it.
     cfg = pwg.WeightGeneratorConfig(text_dim=8, d_in=4, d_out=4, dropout=0.1)
     params = pwg.init_weight_generator(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="Generator"):
         pwg.apply_weight_generator(cfg, params, torch.zeros(8), train=True)
+    emb = torch.ones(8)
+    a, b = (pwg.apply_weight_generator(cfg, params, emb, train=True,
+                                       gen=torch.Generator().manual_seed(s))
+            for s in (1, 2))
+    assert not torch.equal(a["W_msg"], b["W_msg"])
+    c = pwg.apply_weight_generator(cfg, params, emb, gen=torch.Generator())
+    torch.testing.assert_close(c["W_msg"], pwg.apply_weight_generator(cfg, params, emb)["W_msg"])
 
 
 def test_wrappers_run_on_cpu_when_asked():
