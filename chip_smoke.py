@@ -8,16 +8,17 @@ It imports the port (``graph_hypernetwork_forge_tpu_torch``) and nothing of
 JAX, and fails (non-zero exit, no result line) on any failed phase:
 
 1. device: require CUDA, print the card's name and power limit, TF32 off;
-2. build: compile the three CUDA kernels from ``csrc/`` with nvcc, in
+2. build: compile the four CUDA sources of ``csrc/`` with nvcc, in
    parallel;
-3. kernels: each kernel against its plain PyTorch version at the xl
-   shapes (N=50,000 nodes, E_pad≈1.03M group-padded edge rows, U_pad=240)
-   at d=64 and d=128, on a layout with an empty relation and a node with no
-   in-edges: max abs error against the stated tolerance, CUDA-event times
-   of kernel, plain version and one PyTorch library call (for kernel 3, the
-   nearest composition of two ``bmm``), and the bound (bytes over 3.35 TB/s
-   or f32 operations over 67 TFLOP/s); kernels 1 and 3 must be bitwise
-   deterministic, and kernel 3's dW of relations no tile visits exactly 0;
+3. kernels: each of the six kernels against its plain PyTorch version at
+   the xl shapes (N=50,000 nodes, E_pad≈1.03M group-padded edge rows,
+   U_pad=240) at d=64 and d=128, on a layout with an empty relation and a
+   node with no in-edges: max abs error against the stated tolerance,
+   CUDA-event times of kernel, plain version and one PyTorch library call
+   (for kernels 3 and 6, the nearest composition of ``bmm`` calls), and
+   the bound (bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s);
+   kernels 1, 3, 6 and 7 must be bitwise deterministic, and kernels 3 and
+   6's dW of relations no tile visits exactly 0;
 4. serving: the xl model at full width (text=64, F=H=64, 2 layers, random
    weights from seed 0) answers 3 zero-shot requests, each wiring two edges
    of a never-seen relation text into the xl graph, then encoding, running
@@ -36,7 +37,23 @@ JAX, and fails (non-zero exit, no result line) on any failed phase:
    E=10k, U=50, d=64,
    group-padded) 3 steps with the same roll shifts on the card's ``cuda``
    backend must agree with the card's ``gather`` oracle and with the CPU;
-6. the training line, the kernels line, the card line and the result line,
+   kernels 5, 6 and 7 must launch 0 times in the serving and training runs;
+6. two-stream layer: one xl message-passing layer at d=64 and d=128
+   through ``edge_contributions_cuda_sorted`` (kernel 5) and the
+   two-stream tail, forward and backward (kernels 5, 6 and 1), against the
+   same layer through the ``cuda`` backend (kernels 2, 3 and 1): output and
+   the gradients of ``Σ out · R`` within the f32 gate, the launches equal
+   to the count derived from the code, CUDA-event ms of both;
+7. grouped: the xl model (weights at scale 1) on the relation-sorted
+   layout with a sort plan and no group padding, where ``auto`` picks the
+   ``grouped`` backend as the JAX package does, against the ``cuda``
+   backend on the group-padded layout of the same graph: per-layer
+   embeddings and parameter gradients of ``Σ out · R``, launches, and ms
+   per forward + backward (1 warm-up, 3 timed) of both;
+8. dense and chunked: the bench config in the stored edge order, per-layer
+   embeddings and parameter gradients against the card's ``gather`` oracle
+   and against the CPU;
+9. the training line, the kernels line, the card line and the result line,
    which is last: ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
    "count": 1}}``.
 """
@@ -69,10 +86,16 @@ from graph_hypernetwork_forge_tpu_torch.device import resolve_device  # noqa: E4
 from graph_hypernetwork_forge_tpu_torch.models.hypergnn import (  # noqa: E402
     HyperGNN,
     HyperGNNConfig,
+    apply_hypergnn,
     init_hypergnn,
 )
 from graph_hypernetwork_forge_tpu_torch.ops import cuda as kernels  # noqa: E402
 from graph_hypernetwork_forge_tpu_torch.ops.cuda import build  # noqa: E402
+from graph_hypernetwork_forge_tpu_torch.ops.message_passing import (  # noqa: E402
+    relational_message_passing,
+    resolve_backend,
+    two_stream_tail,
+)
 from graph_hypernetwork_forge_tpu_torch.ops.scoring import score_all_tails  # noqa: E402
 from graph_hypernetwork_forge_tpu_torch.training import (  # noqa: E402
     adam,
@@ -136,6 +159,28 @@ KERNELS = {
             "_combined_bwd_fused_impl (kernel body :334-365)"
         ),
     ),
+    "edge_transform_sorted": dict(
+        source="graph_hypernetwork_forge_tpu_torch/csrc/edge_transform.cu",
+        replaces=(
+            "graph_hypernetwork_forge_tpu/ops/pallas/edge_transform.py:108 "
+            "_edge_transform_fwd_impl (pallas_call :140), the kernel of "
+            "edge_transform_sorted (:530)"
+        ),
+    ),
+    "segment_outer": dict(
+        source="graph_hypernetwork_forge_tpu_torch/csrc/segment_outer.cu",
+        replaces=(
+            "graph_hypernetwork_forge_tpu/ops/pallas/edge_transform.py:473 "
+            "_segment_outer_impl (pallas_call :504)"
+        ),
+    ),
+    "dual_sorted_segment_sum": dict(
+        source="graph_hypernetwork_forge_tpu_torch/csrc/segment_sum.cu",
+        replaces=(
+            "graph_hypernetwork_forge_tpu/ops/pallas/segment_sum.py:463 "
+            "dual_sorted_segment_sum_pallas (pallas_call in _dual_impl :396)"
+        ),
+    ),
 }
 
 # Launches of each kernel per training step, counted from the code: kernel
@@ -147,7 +192,27 @@ STEP_LAUNCHES = {
     "csr_segment_sum": LAYERS * 5 + 2,
     "edge_transform_sorted_combined": LAYERS,
     "edge_transform_combined_bwd": LAYERS,
+    "edge_transform_sorted": 0,
+    "segment_outer": 0,
+    "dual_sorted_segment_sum": 0,
 }
+# A forward (serving) runs kernels 1 and 2 once per layer.
+FORWARD_LAUNCHES = {
+    name: LAYERS if name in ("csr_segment_sum", "edge_transform_sorted_combined") else 0
+    for name in STEP_LAUNCHES
+}
+# One two-stream layer, forward and backward: kernel 5 in the forward and
+# once more for dx; kernel 6 for dW_msg and dW_self; kernel 1 in the tail,
+# in each kernel 6 call, for dbias and for the h[src] and h[dst] cotangents.
+TWO_STREAM_LAUNCHES = dict(
+    {name: 0 for name in STEP_LAUNCHES},
+    csr_segment_sum=6, edge_transform_sorted=2, segment_outer=2,
+)
+# One forward and backward of the model on the grouped backend with a sort
+# plan: per layer kernel 1 in the tail and for the h[src], h[dst] and bias
+# cotangents; the per-relation products are PyTorch matmuls.
+GROUPED_LAUNCHES = dict({name: 0 for name in STEP_LAUNCHES}, csr_segment_sum=4 * LAYERS)
+GROUPED_TIMED = 3
 
 FAILURES: list[str] = []
 
@@ -188,6 +253,11 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def scaled_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Max abs difference after dividing both by max(1, max|want|)."""
+    return (got - want).abs().max().item() / max(1.0, want.abs().max().item())
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -257,6 +327,12 @@ def phase_kernels(dev) -> dict:
     log(f"kernels: E_pad={e_rows} N={n} U_pad={u_pad} "
         f"longest dst segment={int(np.diff(g.sort_plan.dst_splits).max())} rows")
     pad_sorted = torch.as_tensor(g.edge_mask[g.sort_plan.dst_perm] == 0, device=dev)
+    pad_src_sorted = torch.as_tensor(g.edge_mask[g.sort_plan.src_perm] == 0, device=dev)
+    visited = set(g.rel_ids[::256].tolist())
+    unvisited = [r for r in range(u_pad) if r not in visited]
+    # The bounds count what the kernels need of this data: one relation id
+    # per 256-row tile and the banks of the visited relations only.
+    u_vis = len(visited)
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
     for d in (64, 128):
@@ -305,7 +381,7 @@ def phase_kernels(dev) -> dict:
         x_cat = torch.cat([xs, xd], dim=1).view(tiles, 256, 2 * d)
         w_cat = torch.cat([wm, ws], dim=1)[tile_rel]
         b_tile = bias[tile_rel][:, None, :]
-        nbytes = (2 * e_rows * d + e_rows + 2 * u_pad * d * d + u_pad * d
+        nbytes = (2 * e_rows * d + tiles + 2 * u_vis * d * d + u_vis * d
                   + e_rows * d) * 4
         b_ms, b_by = bound(nbytes, 2 * 2 * e_rows * d * d + e_rows * d)
         results[("edge_transform_sorted_combined", d)] = dict(
@@ -331,14 +407,11 @@ def phase_kernels(dev) -> dict:
         torch.cuda.synchronize()
         check(all(torch.equal(a, b) for a, b in zip(out, again)),
               f"edge_transform_combined_bwd d={d}: two runs differ")
-        visited = set(g.rel_ids[::256].tolist())
-        unvisited = [r for r in range(u_pad) if r not in visited]
         check(bool(unvisited) and not any(dw[unvisited].any() for dw in out[2:]),
               f"edge_transform_combined_bwd d={d}: dW of the unvisited "
               f"relations {unvisited} is not exactly 0")
         err = max((a - b).abs().max().item() for a, b in zip(out[:2], plain[:2]))
-        dw_err = max((a - b).abs().max().item() / max(1.0, b.abs().max().item())
-                     for a, b in zip(out[2:], plain[2:]))
+        dw_err = max(scaled_err(a, b) for a, b in zip(out[2:], plain[2:]))
         # The nearest library composition: one bmm of the g tiles against
         # tile-gathered [W_msgᵀ | W_selfᵀ] for both dx, one bmm of the
         # [x_src | x_dst]ᵀ tiles against g for the per-tile dW; neither the
@@ -346,7 +419,7 @@ def phase_kernels(dev) -> dict:
         g_tiles = g_out.view(tiles, 256, d)
         w_t = torch.cat([wm, ws], dim=1)[tile_rel].transpose(1, 2).contiguous()
         x_t = x_cat.transpose(1, 2)
-        nbytes = (5 * e_rows * d + e_rows + 4 * u_pad * d * d) * 4
+        nbytes = (5 * e_rows * d + tiles + 2 * u_vis * d * d + 2 * u_pad * d * d) * 4
         b_ms, b_by = bound(nbytes, 8 * e_rows * d * d)
         results[("edge_transform_combined_bwd", d)] = dict(
             max_abs_err=err, dw_scaled_err=dw_err,
@@ -359,7 +432,94 @@ def phase_kernels(dev) -> dict:
             ),
             bound_ms=b_ms, bound_by=b_by,
         )
-        del xs, xd, wm, ws, bias, g_out, args, out, again, plain, x_cat, w_t, x_t
+        del args, out, again, plain, x_cat, w_t, x_t
+
+        # Kernel 5, the two-output transform, on kernel 2's rows and banks.
+        # Library: two batched products over the tile-gathered banks.
+        args = (xs, xd, rel, wm, ws, bias)
+        fn = kernels.edge_transform_sorted
+        out = fn(*args)
+        plain = kernels.edge_transform_sorted_plain(*args)
+        torch.cuda.synchronize()
+        err = max((a - b).abs().max().item() for a, b in zip(out, plain))
+        xs_t, xd_t = xs.view(tiles, 256, d), xd.view(tiles, 256, d)
+        wm_t, ws_t = wm[tile_rel], ws[tile_rel]
+        b_tile = bias[tile_rel][:, None, :]
+        nbytes = (2 * e_rows * d + tiles + 2 * u_vis * d * d + u_vis * d
+                  + 2 * e_rows * d) * 4
+        b_ms, b_by = bound(nbytes, 2 * 2 * e_rows * d * d + e_rows * d)
+        results[("edge_transform_sorted", d)] = dict(
+            max_abs_err=err,
+            ms=cuda_ms(lambda: fn(*args)),
+            plain_ms=cuda_ms(lambda: kernels.edge_transform_sorted_plain(*args)),
+            library_ms=cuda_ms(
+                lambda: (torch.baddbmm(b_tile, xs_t, wm_t), torch.bmm(xd_t, ws_t))
+            ),
+            bound_ms=b_ms, bound_by=b_by,
+        )
+        del args, out, plain, wm_t, ws_t, b_tile
+
+        # Kernel 6, the segment outer product, of x_src against kernel 3's
+        # cotangent. Its wrapper launches kernel 6 and then kernel 1 over
+        # the per-tile partials; its time is the whole wrapper's. Library:
+        # one bmm of the xᵀ tiles against the g tiles, without the reduction.
+        args = (xs, g_out, rel, u_pad)
+        fn = kernels.segment_outer
+        out = fn(*args)
+        again = fn(*args)
+        plain = kernels.segment_outer_plain(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(out, again), f"segment_outer d={d}: two runs differ")
+        check(not out[unvisited].any(),
+              f"segment_outer d={d}: dW of the unvisited relations is not exactly 0")
+        err = scaled_err(out, plain)
+        xs_tt = xs_t.transpose(1, 2)
+        b_ms, b_by = bound((2 * e_rows * d + tiles + u_pad * d * d) * 4,
+                           2 * e_rows * d * d)
+        results[("segment_outer", d)] = dict(
+            max_abs_err=(out - plain).abs().max().item(), dw_scaled_err=err,
+            checked=[err],
+            ms=cuda_ms(lambda: fn(*args)),
+            plain_ms=cuda_ms(lambda: kernels.segment_outer_plain(*args)),
+            library_ms=cuda_ms(lambda: torch.bmm(xs_tt, g_tiles)),
+            bound_ms=b_ms, bound_by=b_by,
+        )
+        del xs, xd, wm, ws, bias, g_out, args, out, again, plain, xs_t, xd_t, xs_tt
+        del g_tiles
+        torch.cuda.empty_cache()
+
+        # Kernel 7, the dual CSR segment-sum, over the src-sorted and
+        # dst-sorted rows with their own bounds: the cotangent pair of a
+        # layer's h[src], h[dst] gathers (pad rows zero, as there). Library:
+        # two torch.segment_reduce calls.
+        xa = torch.randn(e_rows, d, device=dev, generator=gen)
+        xa[pad_src_sorted] = 0.0
+        xb = torch.randn(e_rows, d, device=dev, generator=gen)
+        xb[pad_sorted] = 0.0
+        args = (xa, xb, n, plan.src_splits, plan.dst_splits)
+        fn = kernels.dual_sorted_segment_sum
+        out = fn(*args)
+        again = fn(*args)
+        plain = kernels.dual_sorted_segment_sum_plain(*args)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(out, again)),
+              f"dual_sorted_segment_sum d={d}: two runs differ")
+        err = max((a - b).abs().max().item() for a, b in zip(out, plain))
+        off_a = plan.src_splits[: n + 1].long()
+        rows_a = int(g.sort_plan.src_splits[n] - g.sort_plan.src_splits[0])
+        b_ms, b_by = bound(((rows_a + rows) * d + 2 * (n + 1) + 2 * n * d) * 4,
+                           (rows_a + rows) * d)
+        results[("dual_sorted_segment_sum", d)] = dict(
+            max_abs_err=err,
+            ms=cuda_ms(lambda: fn(*args)),
+            plain_ms=cuda_ms(lambda: kernels.dual_sorted_segment_sum_plain(*args)),
+            library_ms=cuda_ms(lambda: (
+                torch.segment_reduce(xa, "sum", offsets=off_a, unsafe=True),
+                torch.segment_reduce(xb, "sum", offsets=offsets, unsafe=True),
+            )),
+            bound_ms=b_ms, bound_by=b_by,
+        )
+        del xa, xb, args, out, again, plain
         torch.cuda.empty_cache()
 
     for (name, d), r in results.items():
@@ -369,9 +529,9 @@ def phase_kernels(dev) -> dict:
             f"(tol {KERNEL_ATOL}) | ms {r['ms']:.4f} bound {r['bound_ms']:.4f} "
             f"({r['bound_by']}) plain {r['plain_ms']:.4f} "
             f"library {r['library_ms']:.4f}")
-        check(r["max_abs_err"] <= KERNEL_ATOL
-              and r.get("dw_scaled_err", 0.0) <= KERNEL_ATOL,
-              f"{name} d={d} disagrees with its plain version")
+        # A dW sums thousands of products: it is held after scaling.
+        checked = r.get("checked", [r["max_abs_err"], r.get("dw_scaled_err", 0.0)])
+        check(max(checked) <= KERNEL_ATOL, f"{name} d={d} disagrees with its plain version")
     return results
 
 
@@ -416,9 +576,7 @@ def phase_serving(dev) -> dict:
         log(f"serving request {i}: host encode {lat['host_encode_ms']:.1f} ms, "
             f"device {lat['device_ms']:.1f} ms, total {lat['total_ms']:.1f} ms")
     log(f"serving launches: {launches}")
-    # A forward runs kernels 1 and 2 once per layer, and no backward.
-    want = {name: LAYERS * REQUESTS if name != "edge_transform_combined_bwd" else 0
-            for name in KERNELS}
+    want = {name: n * REQUESTS for name, n in FORWARD_LAUNCHES.items()}
     check(launches == want, f"serving launch counts {launches} != {want}")
 
     def request():
@@ -581,8 +739,7 @@ def phase_training_parity(dev) -> dict:
     for ref in ("gather", "cpu"):
         r_losses, r_grads, r_params = runs[ref]
         loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, r_losses))
-        grad_err = max((grads[p] - g).abs().max().item()
-                       / max(1.0, g.abs().max().item()) for p, g in r_grads.items())
+        grad_err = max(scaled_err(grads[p], g) for p, g in r_grads.items())
         diffs = torch.cat([(params[p] - t).abs().flatten() for p, t in r_params.items()])
         param_max = diffs.max().item()
         param_q999 = torch.quantile(diffs.double()[:: max(1, diffs.numel() // 2**24)],
@@ -600,6 +757,177 @@ def phase_training_parity(dev) -> dict:
     return report
 
 
+def phase_two_stream(dev, d: int) -> dict:
+    """One xl layer at width ``d`` through the two-stream path (kernels 5,
+    6 and 1) against the ``cuda`` backend (kernels 2, 3 and 1), forward and
+    backward of ``Σ out · R``."""
+    g = _kernel_graph()
+    plan = g.sort_plan.to(dev)
+    src, dst, rel, mask = (torch.as_tensor(a, device=dev) for a in g.arrays[:4])
+    u_pad = g.char_ids.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(d)
+    init = [
+        torch.randn(XL_N, d, device=dev, generator=gen),
+        torch.randn(u_pad, d, d, device=dev, generator=gen) / d**0.5,
+        torch.randn(u_pad, d, d, device=dev, generator=gen) / d**0.5,
+        torch.randn(u_pad, d, device=dev, generator=gen),
+    ]
+    r = torch.randn(XL_N, d, device=dev, generator=gen)
+
+    def two_stream(h, wm, ws, b):
+        msg, selfc = kernels.edge_contributions_cuda_sorted(
+            h, src, dst, rel, wm, ws, b, sort_plan=plan)
+        return two_stream_tail(msg, selfc, dst, XL_N, edge_mask=mask, sort_plan=plan)
+
+    def combined(h, wm, ws, b):
+        return relational_message_passing(
+            h, src, dst, rel, wm, ws, b, edge_mask=mask, backend="cuda",
+            rel_sorted=True, group_padded=True, sort_plan=plan)
+
+    def fwd_bwd(layer):
+        leaves = [t.clone().requires_grad_(True) for t in init]
+        out = layer(*leaves)
+        (out * r).sum().backward()
+        return out.detach(), [t.grad for t in leaves]
+
+    kernels.reset_launch_counts()
+    out, grads = fwd_bwd(two_stream)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    ref, ref_grads = fwd_bwd(combined)
+    err = (out - ref).abs().max().item()
+    grad_err = max(scaled_err(a, b) for a, b in zip(grads, ref_grads))
+    ms = cuda_ms(lambda: fwd_bwd(two_stream), iters=5, warmup=1)
+    ref_ms = cuda_ms(lambda: fwd_bwd(combined), iters=5, warmup=1)
+    log(f"two-stream layer d={d}: vs the cuda backend max_abs_err {err:.3e}, "
+        f"scaled grad err {grad_err:.3e} (tol {SERVING_ATOL}) | fwd+bwd "
+        f"{ms:.3f} ms, cuda backend {ref_ms:.3f} ms | launches {launches}")
+    check(err <= SERVING_ATOL and grad_err <= GRAD_ATOL,
+          f"two-stream layer d={d} disagrees with the cuda backend")
+    check(launches == TWO_STREAM_LAUNCHES,
+          f"two-stream layer d={d} launch counts {launches} != {TWO_STREAM_LAUNCHES}")
+    return dict(max_abs_err=err, grad_scaled_err=grad_err, ms=ms,
+                cuda_backend_ms=ref_ms, launches=launches)
+
+
+def _scale_one(params) -> dict:
+    """The parameter tree with the generated weights at scale 1 instead of
+    the 0.01 init, so message passing moves the output well beyond the
+    residual (as the parity tests set them)."""
+    for wg in params["weight_generators"]:
+        wg["log_scales"] = {k: torch.zeros_like(v) for k, v in wg["log_scales"].items()}
+    return params
+
+
+def _model_run(config, init, feats, graph, device):
+    """``run() -> (per-layer outputs, {path: grad})`` of ``Σ out · R`` for
+    the model on ``device``, R drawn from a seeded generator."""
+    feats = torch.as_tensor(feats, device=device)
+    arrays = [torch.as_tensor(a, device=device) for a in graph.arrays]
+    plan = None if graph.sort_plan is None else graph.sort_plan.to(device)
+    r = torch.randn(feats.shape[0], config.hidden_dim,
+                    generator=torch.Generator().manual_seed(7)).to(device)
+
+    def run():
+        params = tree_map(lambda t: t.to(device, copy=True).requires_grad_(True), init)
+        layers = apply_hypergnn(config, params, feats, *arrays,
+                                return_all_layers=True, sort_plan=plan)
+        (layers[-1] * r).sum().backward()
+        return ([h.detach() for h in layers],
+                {path: t.grad for path, t in named_leaves(params)})
+
+    return run
+
+
+def _compare_runs(label, got, want) -> tuple[float, float]:
+    (layers, grads), (ref_layers, ref_grads) = got, want
+    err = max((a.cpu() - b.cpu()).abs().max().item() for a, b in zip(layers, ref_layers))
+    grad_err = max(scaled_err(grads[p].cpu(), g.cpu()) for p, g in ref_grads.items())
+    log(f"{label}: per-layer max_abs_err {err:.3e} (tol {SERVING_ATOL}), "
+        f"parameter grad scaled err {grad_err:.3e} (tol {GRAD_ATOL})")
+    check(err <= SERVING_ATOL and grad_err <= GRAD_ATOL, f"{label}: disagree")
+    return err, grad_err
+
+
+def _host_ms(fn, timed: int) -> float:
+    """Host milliseconds per ``fn()`` over ``timed`` runs after one warm-up,
+    each ending in a synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / timed * 1e3
+
+
+def phase_grouped(dev) -> dict:
+    """The xl model on the relation-sorted layout with a sort plan and no
+    group padding, where ``auto`` picks ``grouped``, against the ``cuda``
+    backend on the group-padded layout of the same graph."""
+    feats, ei, etexts, _ = xl_edges()
+    sorted_graph = encode_graph(ei, etexts, XL_N, sort_by_relation=True,
+                                with_sort_plan=True)
+    padded_graph = encode(ei, etexts)
+    cfg = HyperGNNConfig(text_dim=TEXT_DIM, node_feat_dim=WIDTH, hidden_dim=WIDTH,
+                         num_layers=LAYERS, backend="auto", rel_sorted=True)
+    picked = resolve_backend(
+        "auto", XL_N, sorted_graph.char_ids.shape[0], sorted_graph.src.shape[0],
+        WIDTH, rel_sorted=True, group_padded=False, has_sort_plan=True)
+    check(picked == "grouped", f"grouped: auto picked {picked!r}, not 'grouped'")
+    init = _scale_one(init_hypergnn(cfg, torch.Generator().manual_seed(0)))
+    grouped = _model_run(cfg, init, feats, sorted_graph, dev)
+    padded = _model_run(train_config(), init, feats, padded_graph, dev)
+
+    kernels.reset_launch_counts()
+    got = grouped()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    err, grad_err = _compare_runs("grouped xl vs the cuda backend", got, padded())
+    check(launches == GROUPED_LAUNCHES,
+          f"grouped launch counts {launches} != {GROUPED_LAUNCHES}")
+    ms = _host_ms(grouped, GROUPED_TIMED)
+    cuda_backend_ms = _host_ms(padded, GROUPED_TIMED)
+    log(f"grouped xl: {ms:.3f} ms per forward + backward ({sorted_graph.src.shape[0]:,} "
+        f"rows), cuda backend on the padded layout {cuda_backend_ms:.3f} ms "
+        f"({padded_graph.src.shape[0]:,} rows) | launches {launches}")
+    profile = profile_device("one more grouped xl forward + backward", grouped)
+    busy = profile["device_ms"] / ms
+    log(f"grouped xl: device busy {100 * busy:.1f}% of a forward + backward")
+    return dict(ms=ms, cuda_backend_ms=cuda_backend_ms, max_abs_err=err,
+                grad_scaled_err=grad_err, launches=launches,
+                device_busy_share=busy, profile=profile)
+
+
+def phase_dense_chunked(dev) -> dict:
+    """The bench config in the stored edge order (no sort, no plan) through
+    ``dense`` and ``chunked``, against the card's ``gather`` oracle and the
+    same backend on the CPU."""
+    rng = np.random.default_rng(0)
+    feats = rng.standard_normal((BENCH_N, WIDTH)).astype(np.float32)
+    ei = np.stack([rng.integers(0, BENCH_N, BENCH_E),
+                   rng.integers(0, BENCH_N, BENCH_E)]).astype(np.int64)
+    texts = [f"relation type number {i} with descriptive text" for i in range(BENCH_U)]
+    etexts = [texts[i] for i in rng.integers(0, BENCH_U, BENCH_E)]
+    graph = encode_graph(ei, etexts, BENCH_N)
+
+    def config(backend):
+        return HyperGNNConfig(text_dim=TEXT_DIM, node_feat_dim=WIDTH,
+                              hidden_dim=WIDTH, num_layers=LAYERS, backend=backend)
+
+    init = _scale_one(init_hypergnn(config("gather"), torch.Generator().manual_seed(0)))
+    oracle = _model_run(config("gather"), init, feats, graph, dev)()
+    report = {}
+    for backend in ("dense", "chunked"):
+        got = _model_run(config(backend), init, feats, graph, dev)()
+        on_cpu = _model_run(config(backend), init, feats, graph, torch.device("cpu"))()
+        report[backend] = dict(
+            vs_gather=_compare_runs(f"{backend} bench vs the gather oracle", got, oracle),
+            vs_cpu=_compare_runs(f"{backend} bench card vs cpu", got, on_cpu),
+        )
+    return report
+
+
 def main() -> int:
     dev = phase_device()
     phase_build()
@@ -609,6 +937,9 @@ def main() -> int:
     # xl-d128 after xl: the kernels line keeps xl's launches.
     xl_d128 = phase_training(dev, 128)
     trained["parity"] = phase_training_parity(dev)
+    two_stream = {d: phase_two_stream(dev, d) for d in (64, 128)}
+    grouped = phase_grouped(dev)
+    dense_chunked = phase_dense_chunked(dev)
     if FAILURES:
         log(f"chip_smoke.py: {len(FAILURES)} check(s) failed: {FAILURES}")
         return 1
@@ -619,19 +950,28 @@ def main() -> int:
         return {key: measured[(name, d)][key] for key in keys
                 if key in measured[(name, d)]}
 
-    # launches: over the timed training steps, the main path of this slice.
+    # launches: kernels 1-3 over the timed training steps, kernels 5 and 6
+    # in the d=64 two-stream layer (their path); kernel 7 is on no path, as
+    # in the JAX package.
+    path_launches = dict(trained["launches"], edge_transform_sorted=two_stream[64][
+        "launches"]["edge_transform_sorted"], segment_outer=two_stream[64][
+        "launches"]["segment_outer"])
     line = {"kernels": [
         dict(
             name=name, route="cuda", source=k["source"], replaces=k["replaces"],
-            launches=trained["launches"][name],
-            launches_per_training_step=STEP_LAUNCHES[name],
+            launches=path_launches[name],
+            launches_per_training_step=trained["launches"][name] // TRAIN_STEPS,
             launches_per_forward=served["launches"][name] // REQUESTS,
+            launches_per_two_stream_layer=two_stream[64]["launches"][name],
+            launches_per_grouped_step=grouped["launches"][name],
             **numbers(name, 64), d128=numbers(name, 128),
         )
         for name, k in KERNELS.items()
     ]}
     print(json.dumps({"serving": served["latencies"], "profile": served["profile"]}))
     print(json.dumps({"training": trained, "training_xl_d128": xl_d128}))
+    print(json.dumps({"two_stream": two_stream, "grouped": grouped,
+                      "dense_chunked": dense_chunked}))
     print(json.dumps(line))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

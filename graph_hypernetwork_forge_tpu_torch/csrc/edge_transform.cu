@@ -1,23 +1,32 @@
-// Relation-grouped combined edge transform for Hopper (sm_90a).
+// Relation-grouped edge transforms for Hopper (sm_90a), in two forms.
 //
-//   out[e, :] = x_src[e, :] @ W_msg[r] + x_dst[e, :] @ W_self[r] + bias[r]
-//   r = rel_sorted[(e / 256) * 256]                                  (f32)
+// Combined (kernel 2):
+//   out[e, :]   = x_src[e, :] @ W_msg[r] + x_dst[e, :] @ W_self[r] + bias[r]
+// Two outputs (kernel 5):
+//   msg[e, :]   = x_src[e, :] @ W_msg[r] + bias[r]
+//   selfc[e, :] = x_dst[e, :] @ W_self[r]
+// with r = rel_sorted[(e / 256) * 256]                                 (f32)
 //
 // The edge rows come relation-sorted and group-padded so that every
 // 256-row tile holds one relation (encode_graph(sort_by_relation=True,
 // group_pad=256)); a tile takes its relation from its first row, and a
 // ragged last tile from that same first row.
 //
-// Replaces the TPU kernel edge_transform_sorted_combined
+// The combined form replaces the TPU kernel edge_transform_sorted_combined
 // (graph_hypernetwork_forge_tpu/ops/pallas/edge_transform.py:239), both as
 // the `pallas` backend runs it at d=128 and as the `pallas_packed` backend
 // runs it at d=64 through [U, 128, 128] block-diagonal banks. The block-
 // diagonal packing only fills the TPU's 128 lanes; here the product runs
-// directly at the model's width.
+// directly at the model's width. The two-output form replaces the TPU
+// kernel of edge_transform_sorted, _edge_transform_fwd_impl (same file,
+// :108, kernel body :77-105); its backward runs it again on the cotangents
+// with the banks transposed ([U, d_out, d_in]) and a zero bias, so d_in and
+// d_out are free and may differ.
 //
 // What bounds it on the H100: at d=64 bytes and f32 operations about
 // equally (~0.79 GB against ~17 GFLOP at E=1.03M); at d=128 the f32
-// operations (~68 GFLOP against ~1.6 GB). Tensor cores would take the
+// operations (~68 GFLOP against ~1.6 GB); kernel 5 writes one more
+// [E, d_out] output (~1.05 GB at d=64). Tensor cores would take the
 // product in TF32 or bf16 and break the f32 parity gate, so the work runs
 // as f32 FMAs on the CUDA cores, whose peak is the bound.
 //
@@ -27,6 +36,10 @@
 // memory in slices of 8, transposed for the rows so a thread reads its
 // 8 rows and 4 columns as float4s, and every thread keeps an 8x4 block of
 // outputs in registers: 32 FMAs for each 12 shared-memory words it reads.
+// The two-output form keeps the two K halves apart: the grid has a third
+// dimension of 2, and a block of plane 0 computes msg (K = d_in, with the
+// bias) while a block of plane 1 computes selfc, with the same blocking,
+// loop and registers as the combined form's.
 // A 128-row block never crosses a 256-row tile, so one relation serves the
 // whole block; the weight slices of a relation are re-read from L2 by each
 // of its blocks (the banks, at most ~31 MB at U=240, d=128, stay in the
@@ -50,6 +63,10 @@ static_assert(kTileRows % BM == 0, "a block must stay inside one tile");
 static_assert(BM * BK == 4 * kThreads, "A slice: four loads per thread");
 static_assert(BK * BN == 2 * kThreads, "B slice: two loads per thread");
 
+// kTwo = false: kernel 2, out = msg + selfc, both K halves in each block.
+// kTwo = true: kernel 5, one half per block: blockIdx.z 0 writes msg to
+// out, 1 writes selfc to out_self.
+template <bool kTwo>
 __global__ void __launch_bounds__(kThreads)
 edge_transform_kernel(const float* __restrict__ x_src,
                       const float* __restrict__ x_dst,
@@ -57,8 +74,8 @@ edge_transform_kernel(const float* __restrict__ x_src,
                       const float* __restrict__ w_msg,
                       const float* __restrict__ w_self,
                       const float* __restrict__ bias,
-                      float* __restrict__ out, int num_edges, int d_in,
-                      int d_out) {
+                      float* __restrict__ out, float* __restrict__ out_self,
+                      int num_edges, int d_in, int d_out) {
   __shared__ __align__(16) float As[BK][BM];
   __shared__ __align__(16) float Bs[BK][BN];
 
@@ -76,8 +93,10 @@ edge_transform_kernel(const float* __restrict__ x_src,
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
-  // Two passes over K: the message half, then the self-loop half.
-  for (int half = 0; half < 2; ++half) {
+  // Passes over K: the message half, then the self-loop half (kernel 5:
+  // the block's one half).
+  const int half_end = kTwo ? (int)blockIdx.z + 1 : 2;
+  for (int half = kTwo ? (int)blockIdx.z : 0; half < half_end; ++half) {
     const float* __restrict__ x = half ? x_dst : x_src;
     const float* __restrict__ w = (half ? w_self : w_msg) + bank;
     for (int k0 = 0; k0 < d_in; k0 += BK) {
@@ -122,6 +141,8 @@ edge_transform_kernel(const float* __restrict__ x_src,
     }
   }
 
+  float* __restrict__ dst = (kTwo && blockIdx.z) ? out_self : out;
+  const bool with_bias = !kTwo || blockIdx.z == 0;
   const float* __restrict__ b_rel = bias + (int64_t)rel * d_out;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
@@ -130,15 +151,17 @@ edge_transform_kernel(const float* __restrict__ x_src,
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int n = col0 + tx * TN + j;
-      if (n < d_out) out[row * d_out + n] = acc[i][j] + __ldg(b_rel + n);
+      if (n < d_out) {
+        dst[row * d_out + n] = acc[i][j] + (with_bias ? __ldg(b_rel + n) : 0.f);
+      }
     }
   }
 }
 
 }  // namespace
 
-// x_src, x_dst: [E, d_in] f32; rel_sorted: [E] int32; w_msg, w_self:
-// [U, d_in, d_out] f32; bias: [U, d_out] f32; out: [E, d_out] f32. All
+// Kernel 2. x_src, x_dst: [E, d_in] f32; rel_sorted: [E] int32; w_msg,
+// w_self: [U, d_in, d_out] f32; bias: [U, d_out] f32; out: [E, d_out] f32. All
 // contiguous. Launches on `stream`; returns cudaGetLastError().
 extern "C" int ghf_edge_transform(const void* x_src, const void* x_dst,
                                   const void* rel_sorted, const void* w_msg,
@@ -147,12 +170,34 @@ extern "C" int ghf_edge_transform(const void* x_src, const void* x_dst,
                                   int d_out, void* stream) {
   if (num_edges <= 0 || d_out <= 0) return (int)cudaSuccess;
   dim3 grid((num_edges + BM - 1) / BM, (d_out + BN - 1) / BN);
-  edge_transform_kernel<<<grid, kThreads, 0,
-                          reinterpret_cast<cudaStream_t>(stream)>>>(
+  edge_transform_kernel<false><<<grid, kThreads, 0,
+                                 reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x_src), static_cast<const float*>(x_dst),
       static_cast<const int32_t*>(rel_sorted),
       static_cast<const float*>(w_msg), static_cast<const float*>(w_self),
-      static_cast<const float*>(bias), static_cast<float*>(out), num_edges,
-      d_in, d_out);
+      static_cast<const float*>(bias), static_cast<float*>(out), nullptr,
+      num_edges, d_in, d_out);
+  return (int)cudaGetLastError();
+}
+
+// Kernel 5. x_src, x_dst: [E, d_in] f32; rel_sorted: [E] int32; w_msg,
+// w_self: [U, d_in, d_out] f32; bias: [U, d_out] f32; msg, selfc:
+// [E, d_out] f32. All contiguous. Launches on `stream`; returns
+// cudaGetLastError().
+extern "C" int ghf_edge_transform_two(const void* x_src, const void* x_dst,
+                                      const void* rel_sorted,
+                                      const void* w_msg, const void* w_self,
+                                      const void* bias, void* msg,
+                                      void* selfc, int num_edges, int d_in,
+                                      int d_out, void* stream) {
+  if (num_edges <= 0 || d_out <= 0) return (int)cudaSuccess;
+  dim3 grid((num_edges + BM - 1) / BM, (d_out + BN - 1) / BN, 2);
+  edge_transform_kernel<true><<<grid, kThreads, 0,
+                                reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x_src), static_cast<const float*>(x_dst),
+      static_cast<const int32_t*>(rel_sorted),
+      static_cast<const float*>(w_msg), static_cast<const float*>(w_self),
+      static_cast<const float*>(bias), static_cast<float*>(msg),
+      static_cast<float*>(selfc), num_edges, d_in, d_out);
   return (int)cudaGetLastError();
 }

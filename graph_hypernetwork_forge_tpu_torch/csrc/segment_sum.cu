@@ -1,17 +1,25 @@
-// CSR sorted segment-sum for Hopper (sm_90a).
+// CSR sorted segment-sum for Hopper (sm_90a), of one stream or two.
 //
 //   out[n, :] = sum_{r in [splits[n], splits[n+1])} x[r, :]     (f32)
 //
-// Replaces the TPU kernels sorted_segment_sum_pallas
+// Kernel 1 (one stream) replaces the TPU kernels sorted_segment_sum_pallas
 // (graph_hypernetwork_forge_tpu/ops/pallas/segment_sum.py:198) and its d=64
 // pair-packed form sorted_segment_sum_packed64 (same file, :415). Those fold
 // rows into node tiles with one-hot MXU matmuls over a 3-term bf16 split and
 // pack even/odd rows into 128 lanes; all of that exists only for the TPU's
 // matrix unit and lane width, and none of it is carried over here.
 //
+// Kernel 7 (two streams, each with its own rows and splits, in one pass)
+// replaces dual_sorted_segment_sum_pallas (same file, :463, pallas_call in
+// _dual_impl :396), which concatenates the streams into [E, 2 * dh] so that
+// each fills one half of the TPU's 128 lanes. Here the streams stay apart:
+// pass 1's grid covers stream A's row chunks and then stream B's, and pass
+// 2 covers A's segments and then B's, each with its own scratch.
+//
 // What bounds it on the H100: bytes. Each input row is read once and each
-// output row written once (R*d*4 + N*d*4 bytes, ~0.28 GB at R=1.03M,
-// N=50k, d=64), against d adds per row: far below one operation per byte.
+// output row written once (R*d*4 + N*d*4 bytes per stream, ~0.28 GB at
+// R=1.03M, N=50k, d=64), against d adds per row: far below one operation
+// per byte.
 //
 // What the design does about it: the work is split by ROWS, not by
 // segments, because segment lengths are skewed. In the group-padded layout
@@ -99,23 +107,39 @@ __device__ int advance(const int32_t* __restrict__ splits, int n, int s,
   }
 }
 
-// Pass 1: warp w of the grid sums chunk w's rows segment by segment. x is
-// [R, chunks] of VEC-float vectors, out [N, chunks], partial [C, 2, chunks].
-// Lanes form 32 / lanes_per_row groups of lanes_per_row lanes (a power of
-// two); blockIdx.y picks the window of lanes_per_row vector columns.
+// One stream: x is [num_rows, chunks] of VEC-float vectors sorted by
+// segment, splits its CSR bounds, out [N, chunks], partial [C, 2, chunks]
+// for its C = num_chunks row chunks.
+template <int VEC>
+struct Stream {
+  const typename Vec<VEC>::T* x;
+  const int32_t* splits;
+  typename Vec<VEC>::T* out;
+  typename Vec<VEC>::T* partial;
+  int64_t num_rows;
+  int num_chunks;
+};
+
+// Pass 1: warp w of the grid sums row chunk w segment by segment; chunks
+// past stream a's belong to stream b. Lanes form 32 / lanes_per_row groups
+// of lanes_per_row lanes (a power of two); blockIdx.y picks the window of
+// lanes_per_row vector columns.
 template <int VEC>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-csr_chunk_kernel(const typename Vec<VEC>::T* __restrict__ x,
-                 const int32_t* __restrict__ splits,
-                 typename Vec<VEC>::T* __restrict__ out,
-                 typename Vec<VEC>::T* __restrict__ partial, int64_t num_rows,
-                 int num_chunks, int num_segments, int chunks,
+csr_chunk_kernel(Stream<VEC> a, Stream<VEC> b, int num_segments, int chunks,
                  int lanes_per_row) {
   using V = Vec<VEC>;
   using T = typename V::T;
   const int lane = threadIdx.x & 31;
-  const int chunk = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (chunk >= num_chunks) return;  // whole warp leaves together
+  int chunk = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const bool second = chunk >= a.num_chunks;
+  if (second) chunk -= a.num_chunks;
+  if (chunk >= (second ? b.num_chunks : a.num_chunks)) return;  // whole warp
+  const T* __restrict__ x = second ? b.x : a.x;
+  const int32_t* __restrict__ splits = second ? b.splits : a.splits;
+  T* __restrict__ out = second ? b.out : a.out;
+  T* __restrict__ partial = second ? b.partial : a.partial;
+  const int64_t num_rows = second ? b.num_rows : a.num_rows;
 
   const int rows_per_step = 32 / lanes_per_row;
   const int group = lane / lanes_per_row;
@@ -167,20 +191,24 @@ csr_chunk_kernel(const typename Vec<VEC>::T* __restrict__ x,
   }
 }
 
-// Pass 2: one warp per segment. A segment that crosses chunks adds its
-// first chunk's slot 1 and the following chunks' slot 0, in chunk order;
-// an empty segment writes zeros; the rest were written by pass 1.
+// Pass 2: one warp per segment of each stream (stream a's, then b's). A
+// segment that crosses chunks adds its first chunk's slot 1 and the
+// following chunks' slot 0, in chunk order; an empty segment writes zeros;
+// the rest were written by pass 1.
 template <int VEC>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-csr_fixup_kernel(const int32_t* __restrict__ splits,
-                 const typename Vec<VEC>::T* __restrict__ partial,
-                 typename Vec<VEC>::T* __restrict__ out, int num_segments,
-                 int chunks) {
+csr_fixup_kernel(Stream<VEC> a, Stream<VEC> b, int num_streams,
+                 int num_segments, int chunks) {
   using V = Vec<VEC>;
   using T = typename V::T;
   const int lane = threadIdx.x & 31;
-  const int s = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (s >= num_segments) return;
+  int s = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (s >= num_streams * num_segments) return;
+  const bool second = s >= num_segments;
+  if (second) s -= num_segments;
+  const int32_t* __restrict__ splits = second ? b.splits : a.splits;
+  const T* __restrict__ partial = second ? b.partial : a.partial;
+  T* __restrict__ out = second ? b.out : a.out;
   const int64_t start = __ldg(splits + s);
   const int64_t end = __ldg(splits + s + 1);
   const int64_t c0 = start / kRowsPerChunk;
@@ -206,25 +234,34 @@ int lanes_for(int chunks) {
 }
 
 template <int VEC>
-void launch(const void* x, const void* splits, void* out, void* partial,
-            int64_t num_rows, int num_segments, int d, cudaStream_t s) {
+Stream<VEC> stream_of(const void* x, const void* splits, void* out,
+                      void* partial, int64_t num_rows) {
   using T = typename Vec<VEC>::T;
+  return Stream<VEC>{static_cast<const T*>(x),
+                     static_cast<const int32_t*>(splits), static_cast<T*>(out),
+                     static_cast<T*>(partial), num_rows,
+                     (int)((num_rows + kRowsPerChunk - 1) / kRowsPerChunk)};
+}
+
+// Both passes over one stream (num_streams 1, b unused) or two.
+template <int VEC>
+void launch(Stream<VEC> a, Stream<VEC> b, int num_streams, int num_segments,
+            int d, cudaStream_t s) {
   const int chunks = d / VEC;
   const int lanes = lanes_for(chunks);
-  const int64_t num_chunks = (num_rows + kRowsPerChunk - 1) / kRowsPerChunk;
+  if (num_streams == 1) b.num_chunks = 0;
+  const int64_t num_chunks = (int64_t)a.num_chunks + b.num_chunks;
   const dim3 block(kWarpsPerBlock * 32);
   if (num_chunks > 0) {
     const dim3 grid((unsigned)((num_chunks + kWarpsPerBlock - 1) / kWarpsPerBlock),
                     (chunks + lanes - 1) / lanes);
-    csr_chunk_kernel<VEC><<<grid, block, 0, s>>>(
-        static_cast<const T*>(x), static_cast<const int32_t*>(splits),
-        static_cast<T*>(out), static_cast<T*>(partial), num_rows,
-        (int)num_chunks, num_segments, chunks, lanes);
+    csr_chunk_kernel<VEC><<<grid, block, 0, s>>>(a, b, num_segments, chunks,
+                                                 lanes);
   }
-  const dim3 grid2((num_segments + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  csr_fixup_kernel<VEC><<<grid2, block, 0, s>>>(
-      static_cast<const int32_t*>(splits), static_cast<const T*>(partial),
-      static_cast<T*>(out), num_segments, chunks);
+  const int64_t warps = (int64_t)num_streams * num_segments;
+  const dim3 grid2((unsigned)((warps + kWarpsPerBlock - 1) / kWarpsPerBlock));
+  csr_fixup_kernel<VEC><<<grid2, block, 0, s>>>(a, b, num_streams,
+                                                num_segments, chunks);
 }
 
 }  // namespace
@@ -245,9 +282,37 @@ extern "C" int ghf_csr_segment_sum(const void* x, const void* splits,
   if (num_segments <= 0 || d <= 0) return (int)cudaSuccess;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (vec == 4) {
-    launch<4>(x, splits, out, partial, num_rows, num_segments, d, s);
+    const Stream<4> a = stream_of<4>(x, splits, out, partial, num_rows);
+    launch<4>(a, a, 1, num_segments, d, s);
   } else if (vec == 1) {
-    launch<1>(x, splits, out, partial, num_rows, num_segments, d, s);
+    const Stream<1> a = stream_of<1>(x, splits, out, partial, num_rows);
+    launch<1>(a, a, 1, num_segments, d, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// Kernel 7: two independent segment-sums, each stream as ghf_csr_segment_sum
+// takes one (x_*, splits_*, out_*, partial_*, num_rows_*), over the same
+// num_segments and d, in one pass. vec is 4 when d % 4 == 0 and every x,
+// out and partial is 16-byte aligned, else 1. Launches both passes on
+// `stream`; returns cudaGetLastError().
+extern "C" int ghf_dual_csr_segment_sum(
+    const void* x_a, const void* splits_a, void* out_a, void* partial_a,
+    int64_t num_rows_a, const void* x_b, const void* splits_b, void* out_b,
+    void* partial_b, int64_t num_rows_b, int num_segments, int d, int vec,
+    void* stream) {
+  if (num_segments <= 0 || d <= 0) return (int)cudaSuccess;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (vec == 4) {
+    launch<4>(stream_of<4>(x_a, splits_a, out_a, partial_a, num_rows_a),
+              stream_of<4>(x_b, splits_b, out_b, partial_b, num_rows_b), 2,
+              num_segments, d, s);
+  } else if (vec == 1) {
+    launch<1>(stream_of<1>(x_a, splits_a, out_a, partial_a, num_rows_a),
+              stream_of<1>(x_b, splits_b, out_b, partial_b, num_rows_b), 2,
+              num_segments, d, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -31,12 +31,29 @@ from graph_hypernetwork_forge_tpu_torch.ops.cuda.segment_sum import csr_segment_
 _NAME = "edge_transform_combined_bwd"
 
 
-def _tiles(t: torch.Tensor) -> torch.Tensor:
+def as_tiles(t: torch.Tensor) -> torch.Tensor:
     """``[E, d]`` → ``[ceil(E / 256), 256, d]``, the ragged tail zero-padded."""
     e, d = t.shape
     tiles = -(-e // GROUP_PAD)
     pad = tiles * GROUP_PAD - e
     return torch.nn.functional.pad(t, (0, 0, 0, pad)).view(tiles, GROUP_PAD, d)
+
+
+def rel_bounds(rel_sorted: torch.Tensor, num_rel: int) -> torch.Tensor:
+    """``[num_rel + 1]`` int32 CSR bounds of the relation groups of
+    non-decreasing ``rel_sorted``: relation u owns rows ``[bounds[u],
+    bounds[u + 1])``, none for a relation that does not occur."""
+    return torch.searchsorted(
+        rel_sorted,
+        torch.arange(num_rel + 1, dtype=rel_sorted.dtype, device=rel_sorted.device),
+        out_int32=True,
+    )
+
+
+def tile_splits(rel_sorted: torch.Tensor, num_rel: int) -> torch.Tensor:
+    """The :func:`rel_bounds` of the 256-row tiles: tile t belongs to
+    relation ``rel_sorted[256 t]``."""
+    return rel_bounds(rel_sorted[::GROUP_PAD].contiguous(), num_rel)
 
 
 def edge_transform_combined_bwd_plain(
@@ -51,7 +68,7 @@ def edge_transform_combined_bwd_plain(
     tile, then the per-tile dW summed into its relation by ``index_add_``."""
     e, d_in = x_src.shape
     u = w_msg.shape[0]
-    gt, xs, xd = _tiles(g), _tiles(x_src), _tiles(x_dst)
+    gt, xs, xd = as_tiles(g), as_tiles(x_src), as_tiles(x_dst)
     tile_rel = rel_sorted[::GROUP_PAD].long()
     dx_src = torch.bmm(gt, w_msg[tile_rel].transpose(1, 2)).reshape(-1, d_in)[:e]
     dx_dst = torch.bmm(gt, w_self[tile_rel].transpose(1, 2)).reshape(-1, d_in)[:e]
@@ -131,13 +148,7 @@ def edge_transform_combined_bwd(
         )
     _common.raise_on_error(_NAME, code)
     edge_transform_combined_bwd.launches += 1
-    # Tile t belongs to relation rel_sorted[256 t]; relation u's tiles are
-    # [tile_splits[u], tile_splits[u + 1]), empty for an unvisited u.
-    tile_splits = torch.searchsorted(
-        rel_sorted[::GROUP_PAD].contiguous(),
-        torch.arange(u + 1, dtype=torch.int32, device=dev), out_int32=True,
-    )
-    dw = csr_segment_sum(partial, tile_splits, u).view(u, 2, d_in, d_out)
+    dw = csr_segment_sum(partial, tile_splits(rel_sorted, u), u).view(u, 2, d_in, d_out)
     return dx_src, dx_dst, dw[:, 0], dw[:, 1]
 
 

@@ -27,7 +27,18 @@ from graph_hypernetwork_forge_tpu_torch.ops.cuda.edge_transform_bwd import (
     edge_transform_combined_bwd,
     edge_transform_combined_bwd_plain,
 )
-from graph_hypernetwork_forge_tpu_torch.ops.cuda.segment_sum import csr_segment_sum
+from graph_hypernetwork_forge_tpu_torch.ops.cuda.segment_outer import (
+    segment_outer,
+    segment_outer_plain,
+)
+from graph_hypernetwork_forge_tpu_torch.ops.cuda.segment_sum import (
+    csr_segment_sum,
+    dual_sorted_segment_sum,
+)
+from graph_hypernetwork_forge_tpu_torch.ops.message_passing import (
+    relational_message_passing,
+    two_stream_tail,
+)
 from graph_hypernetwork_forge_tpu_torch.training.train import (
     adam,
     create_train_state,
@@ -59,6 +70,12 @@ def _check_csr(x, splits, n, dev):
     a, b = csr_segment_sum(xt, st, n), csr_segment_sum(xt, st, n)
     torch.cuda.synchronize()
     assert torch.equal(a, b), "two runs differ"
+    _check_sums(a, x, splits, n)
+    return a
+
+
+def _check_sums(a, x, splits, n):
+    """``a`` within f32 summation error of the float64 segment sums."""
     zero = np.zeros((1, x.shape[1]))
     lo, hi = splits[:n], splits[1 : n + 1]
     total = np.concatenate([zero, np.cumsum(x, axis=0, dtype=np.float64)])
@@ -66,7 +83,6 @@ def _check_csr(x, splits, n, dev):
     want, tol = total[hi] - total[lo], 1e-5 + 1e-6 * (mass[hi] - mass[lo])
     err = np.abs(a.cpu().numpy() - want)
     assert (err <= tol).all(), f"max error {err.max()}, over tolerance {(err - tol).max()}"
-    return a
 
 
 @pytest.mark.parametrize("d", [3, 64, 128, 256])
@@ -198,3 +214,136 @@ def test_hypergnn_on_the_card_matches_the_cpu(dev):
         kg.node_features, kg.edge_index, kg.edge_texts
     )
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=3e-5)
+
+
+@pytest.mark.parametrize("d_in,d_out", [(40, 40), (64, 64), (128, 128), (16, 40), (128, 64)])
+@pytest.mark.parametrize("tail_cut", [0, 100])
+def test_edge_transform_sorted_kernel_and_its_backward_match_plain(dev, d_in, d_out, tail_cut):
+    # Kernel 5 forward, then its backward: kernel 5 on the cotangents with
+    # the banks transposed (d_in and d_out swap), kernel 6 twice, kernel 1
+    # for dbias and kernel 6's two reductions.
+    arrays = edge_case(11, d_in, tail_cut, d_out)
+    g = torch.randn((2, arrays[0].shape[0], d_out), generator=torch.Generator().manual_seed(1))
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        xs, xd, rel, wm, ws, b = (torch.from_numpy(a).to(device) for a in arrays)
+        leaves = [t.requires_grad_(True) for t in (xs, xd, wm, ws, b)]
+        kernels.reset_launch_counts()
+        outs = kernels.edge_transform_sorted(xs, xd, rel, wm, ws, b)
+        torch.autograd.backward(outs, [t.to(device) for t in g])
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            assert kernels.edge_transform_sorted.launches == 2
+            assert segment_outer.launches == 2
+            assert csr_segment_sum.launches == 3
+        runs.append(([o.detach().cpu() for o in outs], [t.grad.cpu() for t in leaves]))
+    (outs, grads), (outs_cpu, grads_cpu) = runs
+    for name, a, w in zip(("msg", "selfc"), outs, outs_cpu):
+        torch.testing.assert_close(a, w, rtol=0, atol=ATOL, msg=name)
+    for name, a, w in zip(("x_src", "x_dst", "w_msg", "w_self", "bias"), grads, grads_cpu):
+        _close_scaled(a, w, name)
+
+
+@pytest.mark.parametrize("d_in,d_out", [(64, 64), (128, 128), (40, 72)])
+@pytest.mark.parametrize("tail_cut", [0, 100])
+def test_segment_outer_kernel_matches_plain(dev, d_in, d_out, tail_cut):
+    xs, _, rel, *_ = (torch.from_numpy(a).to(dev) for a in edge_case(12, d_in, tail_cut))
+    g = torch.randn((xs.shape[0], d_out), generator=torch.Generator().manual_seed(2)).to(dev)
+    kernels.reset_launch_counts()
+    got, again = segment_outer(xs, g, rel, 8), segment_outer(xs, g, rel, 8)
+    torch.cuda.synchronize()
+    assert segment_outer.launches == 2 and csr_segment_sum.launches == 2
+    assert torch.equal(got, again), "two runs differ"
+    assert not got[6:].any(), "relations without rows must be exactly zero"
+    _close_scaled(got.cpu(), segment_outer_plain(xs, g, rel, 8).cpu(), "dW")
+
+
+@pytest.mark.parametrize("d", [3, 64, 128])
+@pytest.mark.parametrize("skew", [False, True])
+def test_dual_kernel_matches_plain_and_is_deterministic(dev, d, skew):
+    # Stream a as kernel 1's tests draw it; stream b with its own bounds.
+    xa, _, sa = segment_case(13, 5000, 300, d, skew)
+    xb, _, sb = segment_case(14, 5000, 300, d, not skew)
+    t = [torch.from_numpy(a).to(dev) for a in (xa, xb, sa, sb)]
+    kernels.reset_launch_counts()
+    got = dual_sorted_segment_sum(t[0], t[1], 300, t[2], t[3])
+    again = dual_sorted_segment_sum(t[0], t[1], 300, t[2], t[3])
+    torch.cuda.synchronize()
+    assert kernels.dual_sorted_segment_sum.launches == 2
+    assert csr_segment_sum.launches == 0
+    for a, b, x, splits in zip(got, again, (xa, xb), (sa, sb)):
+        assert torch.equal(a, b), "two runs differ"
+        _check_sums(a, x, splits, 300)
+        assert not a[-3:].any()
+
+
+def test_dual_kernel_refuses_inputs_that_want_a_gradient(dev):
+    x = torch.zeros(4, 8, device=dev, requires_grad=True)
+    splits = torch.tensor([0, 2, 4], dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError, match="differentiable entry points"):
+        dual_sorted_segment_sum(x, x.detach(), 2, splits, splits)
+
+
+def _toy_layer_inputs(device, layout, d=32):
+    kg = ToyKnowledgeGraph()
+    graph = encode_graph(kg.edge_index, kg.edge_texts, kg.num_nodes, **layout)
+    rng = np.random.default_rng(15)
+    u_pad = graph.char_ids.shape[0]
+    h, wm, ws, b = (
+        torch.from_numpy(a.astype(np.float32)).to(device).requires_grad_(True)
+        for a in (rng.standard_normal((kg.num_nodes, d)),
+                  rng.standard_normal((u_pad, d, d)) / d**0.5,
+                  rng.standard_normal((u_pad, d, d)) / d**0.5,
+                  rng.standard_normal((u_pad, d)))
+    )
+    arrays = [torch.as_tensor(a, device=device) for a in graph.arrays[:4]]
+    plan = None if graph.sort_plan is None else graph.sort_plan.to(device)
+    r = torch.from_numpy(rng.standard_normal((kg.num_nodes, d)).astype(np.float32)).to(device)
+    return (h, wm, ws, b), arrays, plan, r
+
+
+_PADDED = dict(sort_by_relation=True, with_sort_plan=True, group_pad=256)
+
+
+def test_two_stream_layer_on_the_card_matches_the_cuda_backend(dev):
+    # Kernels 5 and 6 checked by kernels 2 and 3 on the same layer.
+    runs = []
+    for two_stream in (True, False):
+        leaves, (src, dst, rel, mask), plan, r = _toy_layer_inputs(dev, _PADDED)
+        h, wm, ws, b = leaves
+        if two_stream:
+            msg, selfc = kernels.edge_contributions_cuda_sorted(
+                h, src, dst, rel, wm, ws, b, sort_plan=plan)
+            out = two_stream_tail(msg, selfc, dst, h.shape[0], edge_mask=mask,
+                                  sort_plan=plan)
+        else:
+            out = relational_message_passing(
+                h, src, dst, rel, wm, ws, b, edge_mask=mask, backend="cuda",
+                rel_sorted=True, group_padded=True, sort_plan=plan)
+        (out * r).sum().backward()
+        runs.append((out.detach().cpu(), [t.grad.cpu() for t in leaves]))
+    (out, grads), (ref, ref_grads) = runs
+    torch.testing.assert_close(out, ref, rtol=0, atol=3e-5)
+    for name, a, w in zip(("h", "w_msg", "w_self", "bias"), grads, ref_grads):
+        _close_scaled(a, w, name)
+
+
+@pytest.mark.parametrize("backend,layout", [
+    ("dense", dict(sort_by_relation=False)),
+    ("grouped", dict(sort_by_relation=False)),
+    ("grouped", dict(sort_by_relation=True, with_sort_plan=True)),
+    ("chunked", dict(sort_by_relation=False)),
+])
+def test_backends_on_the_card_match_the_cpu(dev, backend, layout):
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        leaves, (src, dst, rel, mask), plan, r = _toy_layer_inputs(device, layout)
+        out = relational_message_passing(
+            *leaves[:1], src, dst, rel, *leaves[1:], edge_mask=mask, backend=backend,
+            rel_sorted=layout["sort_by_relation"], sort_plan=plan)
+        (out * r).sum().backward()
+        runs.append((out.detach().cpu(), [t.grad.cpu() for t in leaves]))
+    (out, grads), (ref, ref_grads) = runs
+    torch.testing.assert_close(out, ref, rtol=0, atol=3e-5)
+    for name, a, w in zip(("h", "w_msg", "w_self", "bias"), grads, ref_grads):
+        _close_scaled(a, w, name)

@@ -15,6 +15,7 @@ import torch
 from graph_hypernetwork_forge_tpu import HyperGNN as JaxHyperGNN
 from graph_hypernetwork_forge_tpu.data.encoding import encode_graph as jax_encode
 from graph_hypernetwork_forge_tpu.models import hypergnn as jhg
+from graph_hypernetwork_forge_tpu.ops import message_passing as jmp
 from graph_hypernetwork_forge_tpu.ops import scoring as jscoring
 from graph_hypernetwork_forge_tpu_torch.convert import params_from_jax
 from graph_hypernetwork_forge_tpu_torch.data.encoding import encode_graph
@@ -181,17 +182,24 @@ def test_wrapper_zero_shot_matches_jax_wrapper():
 
 def test_resolve_backend():
     ready = dict(rel_sorted=True, group_padded=True, has_sort_plan=True)
-    for platform in ("cuda", "cpu"):
-        assert resolve_backend("auto", **ready, platform=platform) == "cuda"
-        for b in ("pallas", "pallas_packed", "cuda"):
-            assert resolve_backend(b, **ready, platform=platform) == "cuda"
-        assert resolve_backend("gather", **ready, platform=platform) == "gather"
+    bench = (1_000, 50, 10_000, 64)  # N, U, E, d_out of bench.py
+    assert resolve_backend("auto", *bench, **ready) == "cuda"
+    for b in ("pallas", "pallas_packed", "cuda"):
+        assert resolve_backend(b, *bench, **ready) == "cuda"
+    assert resolve_backend("gather", *bench, **ready) == "gather"
+    # The other backends run as asked, and auto off the kernel layout picks
+    # what the JAX package's _pick_backend picks at the same sizes.
     for b in ("dense", "grouped", "chunked"):
-        with pytest.raises(NotImplementedError):
-            resolve_backend(b, **ready, platform="cuda")
-    with pytest.raises(NotImplementedError):
-        resolve_backend("auto", rel_sorted=True, group_padded=True,
-                        has_sort_plan=False, platform="cuda")
+        want = jmp._pick_backend(b, *bench, rel_sorted=True)
+        assert resolve_backend(b, *bench, **ready) == want == b
+    no_plan = dict(ready, has_sort_plan=False)
+    assert resolve_backend("auto", *bench, **no_plan) == (
+        jmp._pick_backend("auto", *bench, rel_sorted=True)) == "grouped"
+    unsorted = dict(rel_sorted=False, group_padded=False, has_sort_plan=False)
+    assert resolve_backend("auto", *bench, **unsorted) == (
+        jmp._pick_backend("auto", *bench)) == "dense"
+    with pytest.raises(ValueError, match="unknown backend"):
+        resolve_backend("ragged", *bench, **ready)
 
 
 def test_cuda_backend_refuses_unaligned_host_rel_splits():

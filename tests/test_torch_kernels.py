@@ -41,20 +41,7 @@ from graph_hypernetwork_forge_tpu_torch.ops.cuda.segment_sum import (
 )
 from graph_hypernetwork_forge_tpu_torch.ops import segment as pseg
 from graph_hypernetwork_forge_tpu_torch.ops.segment import sorted_segment_sum
-from torch_cases import edge_case, segment_case
-
-ATOL = 3e-5
-
-
-def _assert_grad_close(got, want, err_msg=""):
-    """The gradient gate: f32 atol 3e-5 after dividing both by
-    ``max(1, max|want|)`` (tests/test_pallas_kernels.py:447-451), since a
-    gradient sums many per-edge terms."""
-    want = np.asarray(want)
-    scale = max(1.0, float(np.abs(want).max(initial=0.0)))
-    np.testing.assert_allclose(
-        np.asarray(got) / scale, want / scale, rtol=0, atol=ATOL, err_msg=err_msg
-    )
+from torch_cases import ATOL, assert_scaled_close, edge_case, segment_case
 
 
 @pytest.mark.parametrize("skew", [False, True])
@@ -173,7 +160,7 @@ def test_edge_transform_bwd_plain_matches_pallas(d, tail_cut):
     )
     for name, a, b in zip(("dx_src", "dx_dst", "dW_msg", "dW_self"), got, want):
         assert tuple(a.shape) == b.shape, name
-        _assert_grad_close(a.numpy(), b, err_msg=name)
+        assert_scaled_close(a.numpy(), b, err_msg=name)
     # Relations 6 and 7 of the bank have no rows: exactly zero.
     for dw in got[2:]:
         assert not dw[6:].any()
@@ -263,7 +250,7 @@ def test_edge_transform_vjp_matches_jax(d):
     )
     out.backward(torch.from_numpy(g))
     for name, t, w in zip(("x_src", "x_dst", "w_msg", "w_self", "bias"), tx, want):
-        _assert_grad_close(t.grad.numpy(), w, err_msg=name)
+        assert_scaled_close(t.grad.numpy(), w, err_msg=name)
 
 
 def test_segment_function_vjps_match_jax():
@@ -311,7 +298,7 @@ def test_segment_function_vjps_match_jax():
         _, vjp = jax.vjp(jfn, jnp.asarray(inp))
         jg = tuple(jnp.asarray(a) for a in gs)
         (want,) = vjp(jg if isinstance(g, tuple) else jg[0])
-        _assert_grad_close(v.grad.numpy(), want, err_msg=name)
+        assert_scaled_close(v.grad.numpy(), want, err_msg=name)
 
 
 def test_segment_ops_match_jax():

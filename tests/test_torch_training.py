@@ -36,18 +36,10 @@ from graph_hypernetwork_forge_tpu_torch.utils.initializers import (
     tree_leaves,
     tree_map,
 )
+from torch_cases import ATOL, assert_scaled_close
 
-ATOL = 3e-5
 N, F, U, E = 48, 16, 5, 300
 LAYOUT = dict(sort_by_relation=True, with_sort_plan=True, group_pad=256)
-
-
-def _assert_grad_close(got, want, err_msg=""):
-    want = np.asarray(want)
-    scale = max(1.0, float(np.abs(want).max(initial=0.0)))
-    np.testing.assert_allclose(
-        np.asarray(got) / scale, want / scale, rtol=0, atol=ATOL, err_msg=err_msg
-    )
 
 
 def _graph(seed=0):
@@ -123,7 +115,7 @@ def test_losses_and_their_gradients_match_jax():
             lambda x: jfn(x, *(jnp.asarray(i) for i in idx), **jkw)
         )(jnp.asarray(embs))
         np.testing.assert_allclose(got.item(), float(want), rtol=1e-6, err_msg=name)
-        _assert_grad_close(te.grad.numpy(), jgrad, err_msg=name)
+        assert_scaled_close(te.grad.numpy(), jgrad, err_msg=name)
     ranks = [
         (pobj.margin_ranking_loss(torch.tensor([1.0, 0.2]), torch.tensor([0.5, 0.9])),
          jobj.margin_ranking_loss(jnp.array([1.0, 0.2]), jnp.array([0.5, 0.9])))
@@ -178,8 +170,8 @@ def test_sorted_loss_analytic_backward_matches_jax_and_plain_autograd(with_mask)
         msg = f"shift={shift}"
         np.testing.assert_allclose(got.item(), float(want), rtol=1e-6, err_msg=msg)
         np.testing.assert_allclose(got.item(), plain.item(), rtol=1e-6, err_msg=msg)
-        _assert_grad_close(x.grad.numpy(), jgrad, err_msg=msg)
-        _assert_grad_close(x.grad.numpy(), y.grad.numpy(), err_msg=msg)
+        assert_scaled_close(x.grad.numpy(), jgrad, err_msg=msg)
+        assert_scaled_close(x.grad.numpy(), y.grad.numpy(), err_msg=msg)
 
 
 def test_sorted_loss_passes_gradcheck_and_gives_the_mask_a_zero_cotangent():
@@ -245,7 +237,7 @@ def test_model_gradients_per_leaf_match_jax(d, jax_backend, negatives):
     got_leaves = dict(named_leaves(params))
     assert set(got_leaves) == set(want_leaves)
     for path, leaf in got_leaves.items():
-        _assert_grad_close(leaf.grad.numpy(), want_leaves[path], err_msg=path)
+        assert_scaled_close(leaf.grad.numpy(), want_leaves[path], err_msg=path)
 
 
 # ---------------------------------------------------------------------------

@@ -5,6 +5,20 @@ import numpy as np
 
 from graph_hypernetwork_forge_tpu_torch.data.encoding import encode_graph
 
+# The parity gate: f32 atol 3e-5 per layer (CLAUDE.md:50-61).
+ATOL = 3e-5
+
+
+def assert_scaled_close(got, want, err_msg=""):
+    """The gradient gate: atol 3e-5 after dividing both by
+    ``max(1, max|want|)`` (tests/test_pallas_kernels.py:447-451), since a
+    gradient or a segment sum adds many per-edge terms."""
+    want = np.asarray(want)
+    scale = max(1.0, float(np.abs(want).max(initial=0.0)))
+    np.testing.assert_allclose(
+        np.asarray(got) / scale, want / scale, rtol=0, atol=ATOL, err_msg=err_msg
+    )
+
 
 def segment_case(seed, e, n, d, skew):
     """Sorted ids with empty segments (a hot node, gaps, an empty tail):
@@ -19,10 +33,11 @@ def segment_case(seed, e, n, d, skew):
     return x, ids, splits
 
 
-def edge_case(seed, d, tail_cut):
+def edge_case(seed, d, tail_cut, d_out=None):
     """Group-padded relation-sorted rows whose bank has relations with no
     rows, cut to a length that is not a multiple of 256 when ``tail_cut``:
-    ``(x_src, x_dst, rel, w_msg, w_self, bias)``."""
+    ``(x_src, x_dst, rel, w_msg, w_self, bias)``, the banks ``[U, d, d_out]``
+    (``d_out`` defaults to ``d``)."""
     rng = np.random.default_rng(seed)
     n, e, u = 40, 600, 6
     ei = np.stack([rng.integers(0, n, e), rng.integers(0, n, e)])
@@ -32,9 +47,10 @@ def edge_case(seed, d, tail_cut):
     rel = graph.rel_ids[: graph.rel_ids.shape[0] - tail_cut]
     e_rows = rel.shape[0]
     u_pad = graph.char_ids.shape[0]  # 8: relations 6 and 7 have no rows
+    d_out = d if d_out is None else d_out
     xs = rng.standard_normal((e_rows, d)).astype(np.float32)
     xd = rng.standard_normal((e_rows, d)).astype(np.float32)
-    wm = (rng.standard_normal((u_pad, d, d)) / np.sqrt(d)).astype(np.float32)
-    ws = (rng.standard_normal((u_pad, d, d)) / np.sqrt(d)).astype(np.float32)
-    b = rng.standard_normal((u_pad, d)).astype(np.float32)
+    wm = (rng.standard_normal((u_pad, d, d_out)) / np.sqrt(d)).astype(np.float32)
+    ws = (rng.standard_normal((u_pad, d, d_out)) / np.sqrt(d)).astype(np.float32)
+    b = rng.standard_normal((u_pad, d_out)).astype(np.float32)
     return xs, xd, rel, wm, ws, b
