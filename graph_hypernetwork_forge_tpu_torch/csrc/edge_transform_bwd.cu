@@ -1,273 +1,429 @@
 // Fused backward of the relation-grouped combined edge transform (sm_90a).
 //
 //   dx_src[e, :] = g[e, :] @ W_msg[r]^T      dx_dst[e, :] = g[e, :] @ W_self[r]^T
-//   partial[t]   = [ x_src[tile t]^T g[tile t] | x_dst[tile t]^T g[tile t] ]
+//   partial[q]   = [ x_src[run q]^T g[run q] | x_dst[run q]^T g[run q] ]
 //   r = rel_sorted[(e / 256) * 256]                                    (f32)
 //
-// The edge rows come relation-sorted and group-padded, so every 256-row tile
-// holds one relation and takes it from its first row (a ragged last tile
-// too, its missing rows counting as zero). dW_msg[u] and dW_self[u] are the
-// sums of the partials of relation u's tiles; the wrapper takes that sum
-// with the CSR segment-sum kernel (segment_sum.cu) over tile bounds, so a
-// relation that no tile visits comes out exactly zero.
+// The edge rows come relation-sorted and group-padded, so every 256-row
+// tile holds one relation (a ragged last tile too, its missing rows
+// counting as zero) and a relation's tiles are consecutive. A run is up to
+// `run_tiles` consecutive tiles of one relation: relation u's tiles
+// [tile_splits[u], tile_splits[u + 1]) in groups of run_tiles from the
+// first, the last group ragged, and its runs are run_splits[u] ..
+// run_splits[u + 1] - 1, so runs are fixed by the tile index alone.
+// dW_msg[u] and dW_self[u] are the sums of the partials of relation u's
+// runs; the wrapper takes that sum with the CSR segment-sum kernel
+// (segment_sum.cu) over run_splits, so a relation that no tile visits
+// comes out exactly zero, the result is bitwise the same from run to run,
+// and there are no float atomics.
 //
 // Replaces the TPU kernel _combined_bwd_fused_impl
 // (graph_hypernetwork_forge_tpu/ops/pallas/edge_transform.py:368, kernel
 // body :334-365), the backward of edge_transform_sorted_combined. On the
 // TPU the dW block of a relation stays in VMEM while the grid walks the
-// relation's consecutive tiles in order. Hopper's blocks run in no order,
-// so each tile writes its own [2, d_in, d_out] partial and a second,
-// deterministic pass adds them: no float atomics, and the result is
-// bitwise the same from run to run.
+// relation's consecutive tiles in order. Here one block walks one run and
+// keeps its dW in registers; Hopper's blocks run in no order, so each run
+// writes its own partial and the second pass adds them.
 //
-// What bounds it on the H100: f32 operations. 8 * E * d_in * d_out (dx:
-// two products of 2*E*d_in*d_out; dW: the same) against about 5 * E * d * 4
-// bytes: 33.8 GFLOP against 1.3 GB at E=1.03M, d=64. Tensor cores would
-// take the products in TF32 or bf16 and break the f32 parity gate, so the
-// work runs as f32 FMAs on the CUDA cores, whose peak is the bound.
+// The products run on the tensor cores in 3xTF32 (tf32x3.cuh), f32-class
+// at three TF32 passes. What bounds it on the H100, at E=1.03M: 8 E d_in
+// d_out f32-class operations, three passes of which at 495 TFLOP/s take
+// 0.20 ms at d=64 and 0.82 ms at d=128, against ~5 E d * 4 bytes plus the
+// banks and partials, 0.40 ms at d=64 and 0.78 ms at d=128.
 //
-// What the design does about it: one block owns one 256-row tile and one
-// window of 64 d_in columns, and computes both halves of the work for it,
-// one after the other, so g's tile rows are fetched from device memory by
-// the tile's blocks and re-read from L2:
-//   1. dx: two 128-row x 64-column outputs (msg and self) per half tile,
-//      K = d_out staged through shared memory 8 at a time; g's slice is
-//      stored transposed, each thread keeps 8x4 outputs of each bank in
-//      registers: 64 FMAs for each 16 shared-memory words it reads;
-//   2. dW: the window's 64 rows of both partials against 64 d_out columns
-//      at a time, K = the tile's rows, 8 at a time; each thread keeps 4x4
-//      outputs of each bank: 32 FMAs for each 12 words read.
-// The shared-memory rows are padded by 4 floats so the transposed stores
-// fall on distinct banks. About 12 KB of shared memory a block, so several
-// blocks share an SM.
+// What the design does about it: a block owns one run and one slab of 64
+// d_in columns (d=128: two blocks per run, next to each other in launch
+// order so the second reads the run's g from L2). It stages the slab's
+// rows of both banks once with cp.async, in the same copy group as the
+// first chunk (scalar loads of the banks took 8-9% more time), and walks the
+// run in chunks of BM rows through a cp.async ring (16-byte copies; 4-byte
+// ones when a width or pointer is not 16-byte aligned; zero fill past each
+// edge). Each chunk's g, x_src and x_dst are staged once and feed both
+// products, every operand split into TF32 halves as its fragment is read:
+//   1. dx: [BM rows x (2 banks x 64 columns)], K = d_out, against the
+//      staged banks; stored from the accumulators per chunk;
+//   2. dW: [(x_src | x_dst)^T 128 rows x d_out] += X^T g with K = the
+//      chunk's rows, accumulated in registers across the whole run.
+// d_out up to 128 is one pass; a wider d_out walks the run once per
+// 128-column slab and adds each slab's dx to the last (the same block
+// reads back what it wrote, so it stays deterministic).
+// Shared-memory rows are padded to = 4 (mod 32) floats; dW's fragments
+// take k = tig and tig + 4 from rows 2 tig and 2 tig + 1, so every fragment
+// load of both products, row-wise and column-wise over the same g chunk, is
+// free of bank conflicts.
+// Sizes chosen on the card (scripts/tune_edge_kernels.py): BM = 64, 2
+// stages, one block of 8 warps per SM; 139,264 bytes of shared memory and
+// 234-236 registers without spills at d_out <= 64, 204,800 bytes and 255
+// registers with 44 bytes of spills at d_out <= 128. The banks stay f32
+// and are split as read: split once into {hi, lo} pairs they fill twice the
+// space, which at d_out = 128 leaves room for 32-row chunks only; that form
+// ran 6-7% slower at both widths.
+// 3 stages, 32-row chunks with two blocks an SM at d_out <= 64, dW in
+// groups of 2 n-tiles and k loops not unrolled all ran slower or no
+// faster. Runs of 4 tiles (ops/cuda/edge_transform_bwd.py, RUN_TILES).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
 constexpr int kTileRows = 256;  // relation tile of the group-padded layout
-constexpr int kThreads = 256;
-constexpr int BC = 64;          // d_in columns per block
-constexpr int BK = 8;           // K slice staged per step
-constexpr int kPad = 4;         // shared-memory row padding (floats)
+constexpr int kThreads = 256;  // 8 warps
+constexpr int CS = 64;          // d_in columns per block
+constexpr int kXS = CS + 4;     // x rows in shared memory, floats
 
-// Part 1, dx: BM1 rows x BC columns of each bank; TM1 x TN1 per thread.
-constexpr int BM1 = 128;
-constexpr int TM1 = 8;
-constexpr int TN1 = 4;
-// Part 2, dW: BC rows (d_in) x BN2 columns (d_out); TM2 x TN2 per thread.
-constexpr int BN2 = 64;
-constexpr int TM2 = 4;
-constexpr int TN2 = 4;
+// d_out slab (64 or 128), chunk rows, ring stages, warp tiles.
+template <int DOUT>
+struct Shape {
+  static constexpr int BM = 64;
+  static constexpr int kStages = 2;
+  // dx: [BM rows x (2 banks x CS columns)], 2 x 4 warps of MX m-tiles and
+  // 4 n-tiles (32 columns of one bank) each.
+  static constexpr int MX = BM / 32;
+  // dW: [(x_src | x_dst)^T 2 CS rows x DOUT], 4 x 2 warps of 2 m-tiles and
+  // NW n-tiles (half of DOUT) each.
+  static constexpr int NW = DOUT / 16;
+  static constexpr int kGS = DOUT + 4;  // g rows, floats
+  static constexpr int kWS = DOUT + 4;  // bank rows, floats
+  static constexpr int kStage = BM * kGS + 2 * BM * kXS;  // floats
+  static constexpr int kSmem = (2 * CS * kWS + kStages * kStage) * 4;
+};
 
-static_assert((BM1 / TM1) * (BC / TN1) == kThreads, "dx thread layout");
-static_assert((BC / TM2) * (BN2 / TN2) == kThreads, "dW thread layout");
-static_assert(kTileRows % BM1 == 0, "dx halves stay inside one tile");
-static_assert(BM1 * BK == 4 * kThreads, "g slice: four loads per thread");
-static_assert(BC * BK == 2 * kThreads, "weight / x slices: two loads each");
-static_assert(BN2 * BK == 2 * kThreads, "g slice of part 2: two loads each");
-
-__global__ void __launch_bounds__(kThreads)
+template <int DOUT, bool kVec>
+__global__ void __launch_bounds__(kThreads, 1)
 edge_transform_bwd_kernel(const float* __restrict__ g,
                           const float* __restrict__ x_src,
                           const float* __restrict__ x_dst,
-                          const int32_t* __restrict__ rel_sorted,
+                          const int32_t* __restrict__ tile_splits,
+                          const int32_t* __restrict__ run_splits,
                           const float* __restrict__ w_msg,
                           const float* __restrict__ w_self,
                           float* __restrict__ dx_src,
                           float* __restrict__ dx_dst,
                           float* __restrict__ partial, int num_edges,
-                          int d_in, int d_out) {
-  __shared__ __align__(16) float Gt[BK][BM1 + kPad];  // g slice, transposed
-  __shared__ __align__(16) float Wm[BK][BC + kPad];   // W_msg^T slice
-  __shared__ __align__(16) float Ws[BK][BC + kPad];   // W_self^T slice
-  __shared__ __align__(16) float Xs[BK][BC];          // x_src rows slice
-  __shared__ __align__(16) float Xd[BK][BC];          // x_dst rows slice
-  __shared__ __align__(16) float G2[BK][BN2];         // g rows slice
+                          int d_in, int d_out, int num_rel, int run_tiles) {
+  using S = Shape<DOUT>;
+  constexpr int BM = S::BM, kStages = S::kStages;
+  constexpr int kGS = S::kGS, kWS = S::kWS, kStage = S::kStage;
+  constexpr int MX = S::MX, NX = 4, NW = S::NW;
+  constexpr int NG = 4;                // dW: n-tiles per fragment group
+  extern __shared__ __align__(16) float smem[];
+  float* const Ws = smem;                // [2][CS][kWS]
+  float* const ring = smem + 2 * CS * kWS;  // [stage][kStage]
+
+  const int cslabs = (d_in + CS - 1) / CS;
+  const int run = blockIdx.x / cslabs;
+  const int c0 = (blockIdx.x % cslabs) * CS;
+  if (run >= run_splits[num_rel]) return;  // the grid is an upper bound
+  int u = 0;  // the relation: run_splits[u] <= run < run_splits[u + 1]
+  for (int hi = num_rel; hi - u > 1;) {
+    const int mid = (u + hi) / 2;
+    if (run_splits[mid] <= run) u = mid; else hi = mid;
+  }
+  const int t0 = tile_splits[u] + (run - run_splits[u]) * run_tiles;
+  const int t1 = min(t0 + run_tiles, tile_splits[u + 1]);
+  const int64_t row_begin = (int64_t)t0 * kTileRows;
+  const int64_t row_end = min((int64_t)t1 * kTileRows, (int64_t)num_edges);
+  const int chunks = (int)((row_end - row_begin + BM - 1) / BM);
+  const int64_t bank = (int64_t)u * d_in * d_out;
 
   const int tid = threadIdx.x;
-  const int64_t tile = blockIdx.x;
-  const int64_t tile0 = tile * kTileRows;
-  const int c0 = blockIdx.y * BC;
-  const int rel = rel_sorted[tile0];
-  const int64_t bank = (int64_t)rel * d_in * d_out;
-  const float* __restrict__ wm = w_msg + bank;
-  const float* __restrict__ ws = w_self + bank;
-  const int tile_rows =
-      (int)min((int64_t)kTileRows, (int64_t)num_edges - tile0);
+  const int lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
 
-  // ---- Part 1: dx_src, dx_dst = g @ W^T for this tile's rows ----------
-  {
-    const int tx = tid % (BC / TN1);  // column group
-    const int ty = tid / (BC / TN1);  // row group
-    for (int half = 0; half * BM1 < tile_rows; ++half) {
-      const int64_t row0 = tile0 + half * BM1;
-      float am[TM1][TN1], as[TM1][TN1];
-#pragma unroll
-      for (int i = 0; i < TM1; ++i)
-#pragma unroll
-        for (int j = 0; j < TN1; ++j) am[i][j] = as[i][j] = 0.f;
+  for (int n0 = 0; n0 < d_out; n0 += DOUT) {
+    __syncthreads();  // the last slab's banks and ring are no longer read
 
-      for (int k0 = 0; k0 < d_out; k0 += BK) {
-        // g slice: BM1 rows x BK columns, stored transposed.
+    // Chunk ch's g columns n0.., x_src and x_dst columns c0.. into stage s.
+    auto load = [&](int ch, int s) {
+      float* G = ring + s * kStage;
+      float* XS = G + BM * kGS;
+      float* XD = XS + BM * kXS;
+      const int64_t r0 = row_begin + (int64_t)ch * BM;
+      if (kVec) {
 #pragma unroll
-        for (int l = 0; l < 4; ++l) {
-          const int idx = tid + l * kThreads;
-          const int rr = idx / BK;
-          const int kk = idx % BK;
-          const int64_t row = row0 + rr;
-          const int k = k0 + kk;
-          Gt[kk][rr] = (row < num_edges && k < d_out)
-                           ? __ldg(g + row * d_out + k)
-                           : 0.f;
+        for (int v = tid; v < BM * DOUT / 4; v += kThreads) {
+          const int r = v / (DOUT / 4), n = (v % (DOUT / 4)) * 4;
+          const int64_t row = r0 + r;
+          const bool ok = row < row_end && n0 + n < d_out;
+          tf32x3::cp_async16(G + r * kGS + n,
+                             ok ? g + row * d_out + n0 + n : g, ok);
         }
-        // W^T slices: W^T[k][c] = W[c][k], BK x BC of each bank.
 #pragma unroll
-        for (int l = 0; l < 2; ++l) {
-          const int idx = tid + l * kThreads;
-          const int kk = idx % BK;
-          const int cc = idx / BK;
-          const int k = k0 + kk;
-          const int c = c0 + cc;
-          const bool ok = k < d_out && c < d_in;
-          const int64_t off = (int64_t)c * d_out + k;
-          Wm[kk][cc] = ok ? __ldg(wm + off) : 0.f;
-          Ws[kk][cc] = ok ? __ldg(ws + off) : 0.f;
+        for (int v = tid; v < BM * CS / 4; v += kThreads) {
+          const int r = v / (CS / 4), c = (v % (CS / 4)) * 4;
+          const int64_t row = r0 + r;
+          const bool ok = row < row_end && c0 + c < d_in;
+          const int64_t off = row * d_in + c0 + c;
+          tf32x3::cp_async16(XS + r * kXS + c, ok ? x_src + off : x_src, ok);
+          tf32x3::cp_async16(XD + r * kXS + c, ok ? x_dst + off : x_dst, ok);
         }
-        __syncthreads();
+      } else {
+#pragma unroll 4
+        for (int v = tid; v < BM * DOUT; v += kThreads) {
+          const int r = v / DOUT, n = v % DOUT;
+          const int64_t row = r0 + r;
+          const bool ok = row < row_end && n0 + n < d_out;
+          tf32x3::cp_async4(G + r * kGS + n,
+                            ok ? g + row * d_out + n0 + n : g, ok);
+        }
+#pragma unroll 4
+        for (int v = tid; v < BM * CS; v += kThreads) {
+          const int r = v / CS, c = v % CS;
+          const int64_t row = r0 + r;
+          const bool ok = row < row_end && c0 + c < d_in;
+          const int64_t off = row * d_in + c0 + c;
+          tf32x3::cp_async4(XS + r * kXS + c, ok ? x_src + off : x_src, ok);
+          tf32x3::cp_async4(XD + r * kXS + c, ok ? x_dst + off : x_dst, ok);
+        }
+      }
+    };
+
+    // The slab's rows of both banks, Ws[b][c][k] = W_b[u][c0 + c][n0 + k]
+    // (zero past d_in and d_out), land with chunk 0.
+    if (kVec) {
+#pragma unroll 4
+      for (int v = tid; v < 2 * CS * DOUT / 4; v += kThreads) {
+        const int b = v / (CS * DOUT / 4), c = (v / (DOUT / 4)) % CS;
+        const int k = (v % (DOUT / 4)) * 4;
+        const float* w = b ? w_self : w_msg;
+        const bool ok = c0 + c < d_in && n0 + k < d_out;
+        tf32x3::cp_async16(Ws + (b * CS + c) * kWS + k,
+                           ok ? w + bank + (int64_t)(c0 + c) * d_out + n0 + k : w, ok);
+      }
+    } else {
+#pragma unroll 4
+      for (int v = tid; v < 2 * CS * DOUT; v += kThreads) {
+        const int b = v / (CS * DOUT), c = (v / DOUT) % CS, k = v % DOUT;
+        const float* w = b ? w_self : w_msg;
+        const bool ok = c0 + c < d_in && n0 + k < d_out;
+        tf32x3::cp_async4(Ws + (b * CS + c) * kWS + k,
+                          ok ? w + bank + (int64_t)(c0 + c) * d_out + n0 + k : w, ok);
+      }
+    }
 #pragma unroll
-        for (int kk = 0; kk < BK; ++kk) {
-          const float4 a0 = *reinterpret_cast<const float4*>(&Gt[kk][ty * TM1]);
-          const float4 a1 =
-              *reinterpret_cast<const float4*>(&Gt[kk][ty * TM1 + 4]);
-          const float4 bm = *reinterpret_cast<const float4*>(&Wm[kk][tx * TN1]);
-          const float4 bs = *reinterpret_cast<const float4*>(&Ws[kk][tx * TN1]);
-          const float a[TM1] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-          const float vm[TN1] = {bm.x, bm.y, bm.z, bm.w};
-          const float vs[TN1] = {bs.x, bs.y, bs.z, bs.w};
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (s < chunks) load(s, s);
+      tf32x3::cp_async_commit();
+    }
+
+    float dw[NW / NG][2][NG][4];
 #pragma unroll
-          for (int i = 0; i < TM1; ++i)
+    for (int q = 0; q < NW / NG; ++q)
 #pragma unroll
-            for (int j = 0; j < TN1; ++j) {
-              am[i][j] = fmaf(a[i], vm[j], am[i][j]);
-              as[i][j] = fmaf(a[i], vs[j], as[i][j]);
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < NG; ++j)
+#pragma unroll
+          for (int l = 0; l < 4; ++l) dw[q][i][j][l] = 0.f;
+
+    for (int ch = 0; ch < chunks; ++ch) {
+      tf32x3::cp_async_wait<kStages - 2>();
+      __syncthreads();  // chunk ch (and the banks) landed; ch - 1's stage is free
+      if (ch + kStages - 1 < chunks)
+        load(ch + kStages - 1, (ch + kStages - 1) % kStages);
+      tf32x3::cp_async_commit();
+
+      const float* G = ring + (ch % kStages) * kStage;
+      const float* XS = G + BM * kGS;
+      const float* XD = XS + BM * kXS;
+      const int64_t r0 = row_begin + (int64_t)ch * BM;
+
+      // ---- 1. dx = g W^T: warps 2 (rows) x 4 (bank, 32 columns) ----------
+      {
+        const int wm = warp >> 2, wn = warp & 3;
+        const int b = wn >> 1, cb = (wn & 1) * 32;
+        float acc[MX][NX][4];
+#pragma unroll
+        for (int i = 0; i < MX; ++i)
+#pragma unroll
+          for (int j = 0; j < NX; ++j)
+#pragma unroll
+            for (int l = 0; l < 4; ++l) acc[i][j][l] = 0.f;
+        const float* a0 = G + (wm * MX * 16 + gid) * kGS + tig;
+        const float* w0 = Ws + (b * CS + cb + gid) * kWS + tig;
+#pragma unroll 2
+        for (int kb = 0; kb < DOUT; kb += 8) {
+          uint32_t ahi[MX][4], alo[MX][4];
+#pragma unroll
+          for (int i = 0; i < MX; ++i) {
+            const float* a = a0 + i * 16 * kGS + kb;
+            tf32x3::split(a[0], ahi[i][0], alo[i][0]);
+            tf32x3::split(a[8 * kGS], ahi[i][1], alo[i][1]);
+            tf32x3::split(a[4], ahi[i][2], alo[i][2]);
+            tf32x3::split(a[8 * kGS + 4], ahi[i][3], alo[i][3]);
+          }
+          uint32_t bhi[NX][2], blo[NX][2];
+#pragma unroll
+          for (int j = 0; j < NX; ++j) {
+            tf32x3::split(w0[j * 8 * kWS + kb], bhi[j][0], blo[j][0]);
+            tf32x3::split(w0[j * 8 * kWS + kb + 4], bhi[j][1], blo[j][1]);
+          }
+          tf32x3::mma3_tile<MX, NX>(acc, ahi, alo, bhi, blo);
+        }
+        float* __restrict__ dx = b ? dx_dst : dx_src;
+#pragma unroll
+        for (int i = 0; i < MX; ++i)
+#pragma unroll
+          for (int j = 0; j < NX; ++j) {
+            const int c = c0 + cb + j * 8 + 2 * tig;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int64_t row = r0 + (wm * MX + i) * 16 + gid + 8 * h;
+              if (row >= row_end) continue;
+              float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+              float* dst = dx + row * d_in + c;
+              if (kVec) {  // d_in % 4 == 0: c and c + 1 both in or both out
+                if (c < d_in) {
+                  if (n0) {
+                    const float2 prev = *reinterpret_cast<const float2*>(dst);
+                    v0 += prev.x;
+                    v1 += prev.y;
+                  }
+                  *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+                }
+              } else {
+                if (c < d_in) dst[0] = n0 ? dst[0] + v0 : v0;
+                if (c + 1 < d_in) dst[1] = n0 ? dst[1] + v1 : v1;
+              }
             }
-        }
-        __syncthreads();
+          }
       }
 
+      // ---- 2. dW += X^T g: warps 4 (x_src^T, x_dst^T rows) x 2 (d_out) ---
+      {
+        const int wm = warp >> 1, wn = warp & 1;
+        const float* X = (wm >> 1) ? XD : XS;
+        const int cb = (wm & 1) * 32;
+        const int nb = wn * NW * 8;
+#pragma unroll 2
+        for (int kb = 0; kb < BM; kb += 8) {
+          // Fragment k = tig, tig + 4 <-> chunk rows kb + 2 tig, kb + 2 tig + 1.
+          const float* x0 = X + (kb + 2 * tig) * kXS + cb + gid;
+          const float* g0 = G + (kb + 2 * tig) * kGS + nb + gid;
+          uint32_t ahi[2][4], alo[2][4];
 #pragma unroll
-      for (int i = 0; i < TM1; ++i) {
-        const int64_t row = row0 + ty * TM1 + i;
-        if (row >= num_edges) break;
+          for (int i = 0; i < 2; ++i) {
+            tf32x3::split(x0[i * 16], ahi[i][0], alo[i][0]);
+            tf32x3::split(x0[i * 16 + 8], ahi[i][1], alo[i][1]);
+            tf32x3::split(x0[kXS + i * 16], ahi[i][2], alo[i][2]);
+            tf32x3::split(x0[kXS + i * 16 + 8], ahi[i][3], alo[i][3]);
+          }
 #pragma unroll
-        for (int j = 0; j < TN1; ++j) {
-          const int c = c0 + tx * TN1 + j;
-          if (c < d_in) {
-            dx_src[row * d_in + c] = am[i][j];
-            dx_dst[row * d_in + c] = as[i][j];
+          for (int q = 0; q < NW / NG; ++q) {
+            uint32_t bhi[NG][2], blo[NG][2];
+#pragma unroll
+            for (int j = 0; j < NG; ++j) {
+              const int n = (q * NG + j) * 8;
+              tf32x3::split(g0[n], bhi[j][0], blo[j][0]);
+              tf32x3::split(g0[kGS + n], bhi[j][1], blo[j][1]);
+            }
+            tf32x3::mma3_tile<2, NG>(dw[q], ahi, alo, bhi, blo);
           }
         }
       }
     }
-  }
 
-  // ---- Part 2: this tile's dW partial rows c0..c0+BC ------------------
-  {
-    const int tx = tid % (BN2 / TN2);  // d_out column group
-    const int ty = tid / (BN2 / TN2);  // d_in row group
-    float* __restrict__ pm = partial + tile * 2 * d_in * d_out;
-    float* __restrict__ ps = pm + (int64_t)d_in * d_out;
-    for (int n0 = 0; n0 < d_out; n0 += BN2) {
-      float am[TM2][TN2], as[TM2][TN2];
+    // This run's dW rows c0.. of both banks, columns n0..
+    {
+      const int wm = warp >> 1, wn = warp & 1;
+      float* __restrict__ pb =
+          partial + ((int64_t)run * 2 + (wm >> 1)) * d_in * d_out;
+      const int cb = c0 + (wm & 1) * 32;
+      const int nb = n0 + wn * NW * 8;
 #pragma unroll
-      for (int i = 0; i < TM2; ++i)
+      for (int q = 0; q < NW / NG; ++q)
 #pragma unroll
-        for (int j = 0; j < TN2; ++j) am[i][j] = as[i][j] = 0.f;
-
-      for (int k0 = 0; k0 < tile_rows; k0 += BK) {
+        for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int l = 0; l < 2; ++l) {
-          const int idx = tid + l * kThreads;
-          const int kk = idx / BC;
-          const int cc = idx % BC;
-          const int64_t row = tile0 + k0 + kk;
-          const int c = c0 + cc;
-          const bool ok = k0 + kk < tile_rows && c < d_in;
-          Xs[kk][cc] = ok ? __ldg(x_src + row * d_in + c) : 0.f;
-          Xd[kk][cc] = ok ? __ldg(x_dst + row * d_in + c) : 0.f;
-        }
+          for (int j = 0; j < NG; ++j) {
+            const int n = nb + (q * NG + j) * 8 + 2 * tig;
 #pragma unroll
-        for (int l = 0; l < 2; ++l) {
-          const int idx = tid + l * kThreads;
-          const int kk = idx / BN2;
-          const int nn = idx % BN2;
-          const int64_t row = tile0 + k0 + kk;
-          const int n = n0 + nn;
-          G2[kk][nn] = (k0 + kk < tile_rows && n < d_out)
-                           ? __ldg(g + row * d_out + n)
-                           : 0.f;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < BK; ++kk) {
-          const float4 xm = *reinterpret_cast<const float4*>(&Xs[kk][ty * TM2]);
-          const float4 xd = *reinterpret_cast<const float4*>(&Xd[kk][ty * TM2]);
-          const float4 b = *reinterpret_cast<const float4*>(&G2[kk][tx * TN2]);
-          const float um[TM2] = {xm.x, xm.y, xm.z, xm.w};
-          const float ud[TM2] = {xd.x, xd.y, xd.z, xd.w};
-          const float v[TN2] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-          for (int i = 0; i < TM2; ++i)
-#pragma unroll
-            for (int j = 0; j < TN2; ++j) {
-              am[i][j] = fmaf(um[i], v[j], am[i][j]);
-              as[i][j] = fmaf(ud[i], v[j], as[i][j]);
+            for (int h = 0; h < 2; ++h) {
+              const int c = cb + i * 16 + gid + 8 * h;
+              if (c >= d_in) continue;
+              float* dst = pb + (int64_t)c * d_out + n;
+              const float v0 = dw[q][i][j][2 * h], v1 = dw[q][i][j][2 * h + 1];
+              if (kVec) {
+                if (n < d_out) *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+              } else {
+                if (n < d_out) dst[0] = v0;
+                if (n + 1 < d_out) dst[1] = v1;
+              }
             }
-        }
-        __syncthreads();
-      }
-
-#pragma unroll
-      for (int i = 0; i < TM2; ++i) {
-        const int c = c0 + ty * TM2 + i;
-        if (c >= d_in) break;
-#pragma unroll
-        for (int j = 0; j < TN2; ++j) {
-          const int n = n0 + tx * TN2 + j;
-          if (n < d_out) {
-            pm[(int64_t)c * d_out + n] = am[i][j];
-            ps[(int64_t)c * d_out + n] = as[i][j];
           }
-        }
-      }
     }
   }
 }
 
+template <int DOUT, bool kVec>
+cudaError_t launch(const float* g, const float* x_src, const float* x_dst,
+                   const int32_t* tile_splits, const int32_t* run_splits,
+                   const float* w_msg, const float* w_self, float* dx_src,
+                   float* dx_dst, float* partial, int num_edges, int d_in,
+                   int d_out, int num_rel, int run_tiles, int max_runs,
+                   cudaStream_t stream) {
+  auto kernel = edge_transform_bwd_kernel<DOUT, kVec>;
+  constexpr int smem = Shape<DOUT>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int cslabs = (d_in + CS - 1) / CS;
+  kernel<<<(unsigned)max_runs * cslabs, kThreads, smem, stream>>>(
+      g, x_src, x_dst, tile_splits, run_splits, w_msg, w_self, dx_src, dx_dst,
+      partial, num_edges, d_in, d_out, num_rel, run_tiles);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// g: [E, d_out] f32; x_src, x_dst: [E, d_in] f32; rel_sorted: [E] int32;
-// w_msg, w_self: [U, d_in, d_out] f32; dx_src, dx_dst: [E, d_in] f32;
-// partial: [ceil(E / 256), 2, d_in, d_out] f32, every element written. All
-// contiguous. Launches on `stream`; returns cudaGetLastError().
+// g: [E, d_out] f32; x_src, x_dst: [E, d_in] f32; tile_splits, run_splits:
+// [num_rel + 1] int32 (relation u's tiles and runs, as above); w_msg,
+// w_self: [U, d_in, d_out] f32 (num_rel = U); dx_src, dx_dst: [E, d_in]
+// f32; partial: [max_runs, 2, d_in, d_out] f32, rows 0 ..
+// run_splits[num_rel] - 1 written, max_runs >= run_splits[num_rel]. All
+// contiguous. vec != 0: d_in and d_out are multiples of 4 and every
+// pointer is 16-byte aligned (16-byte copies). Launches on `stream`;
+// returns the CUDA error of the launch.
 extern "C" int ghf_edge_transform_bwd(const void* g, const void* x_src,
                                       const void* x_dst,
-                                      const void* rel_sorted,
+                                      const void* tile_splits,
+                                      const void* run_splits,
                                       const void* w_msg, const void* w_self,
                                       void* dx_src, void* dx_dst,
                                       void* partial, int num_edges, int d_in,
-                                      int d_out, void* stream) {
-  if (num_edges <= 0 || d_in <= 0 || d_out <= 0) return (int)cudaSuccess;
-  dim3 grid((num_edges + kTileRows - 1) / kTileRows, (d_in + BC - 1) / BC);
-  edge_transform_bwd_kernel<<<grid, kThreads, 0,
-                              reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(g), static_cast<const float*>(x_src),
-      static_cast<const float*>(x_dst),
-      static_cast<const int32_t*>(rel_sorted),
-      static_cast<const float*>(w_msg), static_cast<const float*>(w_self),
-      static_cast<float*>(dx_src), static_cast<float*>(dx_dst),
-      static_cast<float*>(partial), num_edges, d_in, d_out);
-  return (int)cudaGetLastError();
+                                      int d_out, int num_rel, int run_tiles,
+                                      int max_runs, int vec, void* stream) {
+  if (num_edges <= 0 || d_in <= 0 || d_out <= 0 || max_runs <= 0)
+    return (int)cudaSuccess;
+  const auto gp = static_cast<const float*>(g);
+  const auto xs = static_cast<const float*>(x_src);
+  const auto xd = static_cast<const float*>(x_dst);
+  const auto ts = static_cast<const int32_t*>(tile_splits);
+  const auto rs = static_cast<const int32_t*>(run_splits);
+  const auto wm = static_cast<const float*>(w_msg);
+  const auto ws = static_cast<const float*>(w_self);
+  const auto dxs = static_cast<float*>(dx_src);
+  const auto dxd = static_cast<float*>(dx_dst);
+  const auto part = static_cast<float*>(partial);
+  const auto s = reinterpret_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (d_out <= 64) {
+    err = vec ? launch<64, true>(gp, xs, xd, ts, rs, wm, ws, dxs, dxd, part,
+                                 num_edges, d_in, d_out, num_rel, run_tiles,
+                                 max_runs, s)
+              : launch<64, false>(gp, xs, xd, ts, rs, wm, ws, dxs, dxd, part,
+                                  num_edges, d_in, d_out, num_rel, run_tiles,
+                                  max_runs, s);
+  } else {
+    err = vec ? launch<128, true>(gp, xs, xd, ts, rs, wm, ws, dxs, dxd, part,
+                                  num_edges, d_in, d_out, num_rel, run_tiles,
+                                  max_runs, s)
+              : launch<128, false>(gp, xs, xd, ts, rs, wm, ws, dxs, dxd, part,
+                                   num_edges, d_in, d_out, num_rel, run_tiles,
+                                   max_runs, s);
+  }
+  return (int)err;
 }

@@ -47,3 +47,11 @@ def raise_on_error(kernel: str, code: int) -> None:
             f"{kernel}: launch failed with CUDA error {code} "
             f"({torch.cuda.get_device_name()})"
         )
+
+
+def vec16(*tensors: torch.Tensor, widths: tuple[int, ...]) -> int:
+    """1 when a kernel may move 16 bytes at a time: every row width is a
+    multiple of 4 floats and every tensor starts 16-byte aligned; else 0."""
+    return int(
+        all(w % 4 == 0 for w in widths) and all(t.data_ptr() % 16 == 0 for t in tensors)
+    )

@@ -3,8 +3,9 @@
 Each source under ``graph_hypernetwork_forge_tpu_torch/csrc/`` compiles on
 first use into its own shared library with a plain C interface, for
 ``sm_90a`` (Hopper). The library lands in ``build/ghf_torch_kernels/`` at
-the repository root, named by a hash of its source, so an edited source is
-rebuilt and never mixed up with an older build. Nothing is built when a
+the repository root, named by a hash of its source and of every shared
+header (``csrc/*.cuh``), so an edited source or header is rebuilt and never
+mixed up with an older build. Nothing is built when a
 module is imported: the wrappers call :func:`load` when they first launch.
 """
 
@@ -45,15 +46,21 @@ def nvcc_path() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = SOURCE_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    """``BUILD_DIR/lib<name>_<hash>.so``: the hash covers ``<name>.cu`` and
+    the bytes of every header in ``SOURCE_DIR``, in name order."""
+    digest = hashlib.sha256((SOURCE_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SOURCE_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
 def _start(name: str) -> Tuple[subprocess.Popen, Path, Path]:
     lib = _library_path(name)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE_DIR / f"{name}.cu")]
+    cmd = [
+        nvcc_path(), *NVCC_FLAGS, "-I", str(SOURCE_DIR),
+        "-o", str(tmp), str(SOURCE_DIR / f"{name}.cu"),
+    ]
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )

@@ -90,7 +90,7 @@ def edge_transform_sorted_plain(
 def _lib() -> ctypes.CDLL:
     lib = load("edge_transform")
     fn = lib.ghf_edge_transform
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     two = lib.ghf_edge_transform_two
     two.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -140,12 +140,13 @@ def _launch(two: bool, x_src, x_dst, rel_sorted, w_msg, w_self, bias):
         for _ in range(2 if two else 1)
     ]
     lib = _lib()
-    entry = lib.ghf_edge_transform_two if two else lib.ghf_edge_transform
+    ptrs = [_common.ptr(t) for t in (*args, *outs)]
     with torch.cuda.device(dev):
-        code = entry(
-            *(_common.ptr(t) for t in args), *(_common.ptr(t) for t in outs),
-            e, d_in, d_out, _common.stream_of(dev),
-        )
+        if two:
+            code = lib.ghf_edge_transform_two(*ptrs, e, d_in, d_out, _common.stream_of(dev))
+        else:
+            vec = _common.vec16(*args, *outs, widths=(d_in, d_out))
+            code = lib.ghf_edge_transform(*ptrs, e, d_in, d_out, vec, _common.stream_of(dev))
     _common.raise_on_error(name, code)
     if two:
         edge_transform_sorted.launches += 1

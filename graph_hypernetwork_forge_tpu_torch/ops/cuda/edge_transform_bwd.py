@@ -11,9 +11,11 @@ them, come out exactly zero. This is the function of the TPU kernel
 (``graph_hypernetwork_forge_tpu/ops/pallas/edge_transform.py:368``).
 
 On the card the kernel computes dx and one ``[2, d_in, d_out]`` dW partial
-per tile; kernel 1 (``csr_segment_sum``) then adds each relation's partials
-over the tile bounds, so one call of this wrapper launches kernel 3 once
-and kernel 1 once, and the result is bitwise deterministic.
+per run of up to :data:`RUN_TILES` consecutive tiles of one relation
+(:func:`run_bounds`); kernel 1 (``csr_segment_sum``) then adds each
+relation's partials over the run bounds, so one call of this wrapper
+launches kernel 3 once and kernel 1 once, and the result is bitwise
+deterministic.
 """
 
 from __future__ import annotations
@@ -29,6 +31,12 @@ from graph_hypernetwork_forge_tpu_torch.ops.cuda.build import load
 from graph_hypernetwork_forge_tpu_torch.ops.cuda.segment_sum import csr_segment_sum
 
 _NAME = "edge_transform_combined_bwd"
+
+# Tiles of one relation that one kernel-3 block walks, keeping its dW in
+# registers: 4 gives ~1,200 runs at the xl layout (E_pad = 1,031,680,
+# U = 237), enough blocks for 132 SMs, and partials of 39 MB at d=64
+# instead of 132 MB for one per tile.
+RUN_TILES = 4
 
 
 def as_tiles(t: torch.Tensor) -> torch.Tensor:
@@ -54,6 +62,25 @@ def tile_splits(rel_sorted: torch.Tensor, num_rel: int) -> torch.Tensor:
     """The :func:`rel_bounds` of the 256-row tiles: tile t belongs to
     relation ``rel_sorted[256 t]``."""
     return rel_bounds(rel_sorted[::GROUP_PAD].contiguous(), num_rel)
+
+
+def run_bounds(
+    rel_sorted: torch.Tensor, num_rel: int, run_tiles: int
+) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """``(tile_splits, run_splits, max_runs)`` of the runs of kernel 3.
+
+    Relation u's tiles ``[tile_splits[u], tile_splits[u + 1])`` go in
+    groups of ``run_tiles`` from the first, the last group ragged: its runs
+    are ``run_splits[u] .. run_splits[u + 1] - 1`` (``[num_rel + 1]``
+    int32, none for a relation with no tile). ``max_runs`` bounds the run
+    count from the shapes alone, so that nothing is read back to the host.
+    """
+    t_splits = tile_splits(rel_sorted, num_rel)
+    runs = torch.div(t_splits.diff() + (run_tiles - 1), run_tiles, rounding_mode="floor")
+    r_splits = torch.zeros(num_rel + 1, dtype=torch.int32, device=rel_sorted.device)
+    torch.cumsum(runs, 0, dtype=torch.int32, out=r_splits[1:])
+    tiles = -(-rel_sorted.shape[0] // GROUP_PAD)
+    return t_splits, r_splits, tiles // run_tiles + min(num_rel, tiles)
 
 
 def edge_transform_combined_bwd_plain(
@@ -83,7 +110,7 @@ def edge_transform_combined_bwd_plain(
 def _lib() -> ctypes.CDLL:
     lib = load("edge_transform_bwd")
     fn = lib.ghf_edge_transform_bwd
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -135,20 +162,23 @@ def edge_transform_combined_bwd(
             f"w_msg {tuple(w_msg.shape)}, w_self {tuple(w_self.shape)} do not "
             "fit together"
         )
-    tiles = -(-e // GROUP_PAD)
+    t_splits, r_splits, max_runs = run_bounds(rel_sorted, u, RUN_TILES)
     dx_src = torch.empty((e, d_in), dtype=f32, device=dev)
     dx_dst = torch.empty((e, d_in), dtype=f32, device=dev)
-    partial = torch.empty((tiles, 2 * d_in * d_out), dtype=f32, device=dev)
+    partial = torch.empty((max_runs, 2 * d_in * d_out), dtype=f32, device=dev)
+    floats = (g, x_src, x_dst, w_msg, w_self, dx_src, dx_dst, partial)
     with torch.cuda.device(dev):
         code = _lib().ghf_edge_transform_bwd(
             _common.ptr(g), _common.ptr(x_src), _common.ptr(x_dst),
-            _common.ptr(rel_sorted), _common.ptr(w_msg), _common.ptr(w_self),
+            _common.ptr(t_splits), _common.ptr(r_splits),
+            _common.ptr(w_msg), _common.ptr(w_self),
             _common.ptr(dx_src), _common.ptr(dx_dst), _common.ptr(partial),
-            e, d_in, d_out, _common.stream_of(dev),
+            e, d_in, d_out, u, RUN_TILES, max_runs,
+            _common.vec16(*floats, widths=(d_in, d_out)), _common.stream_of(dev),
         )
     _common.raise_on_error(_NAME, code)
     edge_transform_combined_bwd.launches += 1
-    dw = csr_segment_sum(partial, tile_splits(rel_sorted, u), u).view(u, 2, d_in, d_out)
+    dw = csr_segment_sum(partial, r_splits, u).view(u, 2, d_in, d_out)
     return dx_src, dx_dst, dw[:, 0], dw[:, 1]
 
 

@@ -89,10 +89,6 @@ def _scratch(lib, rows: int, d: int, dev) -> torch.Tensor:
     return torch.empty((2 * chunks * d,), dtype=torch.float32, device=dev)
 
 
-def _vec(d: int, *xs: torch.Tensor) -> int:
-    return 4 if d % 4 == 0 and all(x.data_ptr() % 16 == 0 for x in xs) else 1
-
-
 def csr_segment_sum(
     x_sorted: torch.Tensor, splits: torch.Tensor, num_segments: int
 ) -> torch.Tensor:
@@ -117,7 +113,8 @@ def csr_segment_sum(
     with torch.cuda.device(dev):
         code = lib.ghf_csr_segment_sum(
             _common.ptr(x_sorted), _common.ptr(splits), _common.ptr(out),
-            _common.ptr(partial), rows, num_segments, d, _vec(d, x_sorted),
+            _common.ptr(partial), rows, num_segments, d,
+            4 if _common.vec16(x_sorted, widths=(d,)) else 1,
             _common.stream_of(dev),
         )
     _common.raise_on_error(_NAME, code)
@@ -192,7 +189,8 @@ def dual_sorted_segment_sum(
             _common.ptr(part_a), rows,
             _common.ptr(xb_sorted), _common.ptr(splits_b), _common.ptr(out_b),
             _common.ptr(part_b), rows,
-            num_segments, d, _vec(d, xa_sorted, xb_sorted), _common.stream_of(dev),
+            num_segments, d, 4 if _common.vec16(xa_sorted, xb_sorted, widths=(d,)) else 1,
+            _common.stream_of(dev),
         )
     _common.raise_on_error(_DUAL, code)
     dual_sorted_segment_sum.launches += 1

@@ -45,7 +45,7 @@ from graph_hypernetwork_forge_tpu_torch.training.train import (
     make_train_step,
 )
 from graph_hypernetwork_forge_tpu_torch.utils.initializers import named_leaves, tree_map
-from torch_cases import edge_case, segment_case
+from torch_cases import edge_case, run_case, segment_case
 
 pytestmark = pytest.mark.cuda
 
@@ -167,6 +167,74 @@ def test_edge_transform_bwd_kernel_matches_plain(dev, d, tail_cut):
         _close_scaled(a.cpu(), w.cpu(), name)
     for dw in got[2:]:
         assert not dw[6:].any(), "relations without rows must be exactly zero"
+
+
+_WIDTHS = [(40, 40), (64, 64), (128, 128), (16, 40), (128, 64)]
+
+
+def _errors_against_float64(fn, plain, args, scaled=()):
+    """Max errors of ``fn(*args)`` and ``plain(*args)`` against ``plain`` in
+    float64 on the same inputs, one pair per output (outputs in ``scaled``
+    after dividing by max(1, max|reference|))."""
+    got, want = fn(*args), plain(*args)
+    ref = plain(*(a.double() if a.is_floating_point() else a for a in args))
+    if isinstance(got, torch.Tensor):
+        got, want, ref = (got,), (want,), (ref,)
+    errs = []
+    for i, (a, w, r) in enumerate(zip(got, want, ref)):
+        scale = max(1.0, r.abs().max().item()) if i in scaled else 1.0
+        errs.append(((a.double() - r).abs().max().item() / scale,
+                     (w.double() - r).abs().max().item() / scale))
+    return errs
+
+
+@pytest.mark.parametrize("d_in,d_out", _WIDTHS)
+def test_edge_transform_kernel_float64_error_within_twice_plain(dev, d_in, d_out):
+    # 3xTF32 on the tensor cores is held to f32's own error: against a
+    # float64 reference, at most twice that of the plain f32 version.
+    args = [torch.from_numpy(a).to(dev) for a in run_case(16, d_in, d_out, 100)]
+    [(err, plain_err)] = _errors_against_float64(
+        edge_transform_sorted_combined, edge_transform_sorted_combined_plain, args)
+    assert err <= 2 * plain_err, (err, plain_err)
+
+
+@pytest.mark.parametrize("d_in,d_out", _WIDTHS)
+def test_edge_transform_bwd_kernel_float64_error_within_twice_plain(dev, d_in, d_out):
+    xs, xd, rel, wm, ws, _ = (torch.from_numpy(a).to(dev) for a in run_case(17, d_in, d_out, 0))
+    g = torch.randn((xs.shape[0], d_out), generator=torch.Generator().manual_seed(3)).to(dev)
+    errs = _errors_against_float64(
+        edge_transform_combined_bwd, edge_transform_combined_bwd_plain,
+        (g, xs, xd, rel, wm, ws), scaled=(2, 3))
+    for name, (err, plain_err) in zip(("dx_src", "dx_dst", "dW_msg", "dW_self"), errs):
+        assert err <= 2 * plain_err, (name, err, plain_err)
+
+
+@pytest.mark.parametrize("d_in,d_out", [(64, 64), (128, 128), (36, 30), (32, 200)])
+@pytest.mark.parametrize("tail_cut", [0, 100])
+def test_edge_transform_kernels_over_runs_of_tiles(dev, d_in, d_out, tail_cut):
+    # Relations of 5, 4, 9 and 1 tiles: kernel 3's runs of RUN_TILES tiles,
+    # full and ragged, summed per relation. 36 -> 30 takes the 4-byte
+    # copies; d_out = 200 two column slabs (kernel 2) and two passes over
+    # each run (kernel 3).
+    xs, xd, rel, wm, ws, b = (
+        torch.from_numpy(a).to(dev) for a in run_case(18, d_in, d_out, tail_cut))
+    g = torch.randn((xs.shape[0], d_out), generator=torch.Generator().manual_seed(4)).to(dev)
+    kernels.reset_launch_counts()
+    out = edge_transform_sorted_combined(xs, xd, rel, wm, ws, b)
+    got = edge_transform_combined_bwd(g, xs, xd, rel, wm, ws)
+    again = edge_transform_combined_bwd(g, xs, xd, rel, wm, ws)
+    torch.cuda.synchronize()
+    assert edge_transform_sorted_combined.launches == 1
+    assert edge_transform_combined_bwd.launches == 2 and csr_segment_sum.launches == 2
+    torch.testing.assert_close(
+        out.cpu(), edge_transform_sorted_combined_plain(xs, xd, rel, wm, ws, b).cpu(),
+        rtol=0, atol=ATOL)
+    want = edge_transform_combined_bwd_plain(g, xs, xd, rel, wm, ws)
+    for name, a, b2, w in zip(("dx_src", "dx_dst", "dW_msg", "dW_self"), got, again, want):
+        assert torch.equal(a, b2), f"{name}: two runs differ"
+        _close_scaled(a.cpu(), w.cpu(), name)
+    for dw in got[2:]:
+        assert not dw[[4, 6, 7]].any(), "relations without rows must be exactly zero"
 
 
 def test_training_step_on_the_card_matches_the_cpu(dev):

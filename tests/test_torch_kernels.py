@@ -34,6 +34,7 @@ from graph_hypernetwork_forge_tpu_torch.ops.cuda.edge_transform import (
 from graph_hypernetwork_forge_tpu_torch.ops.cuda.edge_transform_bwd import (
     edge_transform_combined_bwd,
     edge_transform_combined_bwd_plain,
+    run_bounds,
 )
 from graph_hypernetwork_forge_tpu_torch.ops.cuda.segment_sum import (
     csr_segment_sum,
@@ -41,7 +42,7 @@ from graph_hypernetwork_forge_tpu_torch.ops.cuda.segment_sum import (
 )
 from graph_hypernetwork_forge_tpu_torch.ops import segment as pseg
 from graph_hypernetwork_forge_tpu_torch.ops.segment import sorted_segment_sum
-from torch_cases import ATOL, assert_scaled_close, edge_case, segment_case
+from torch_cases import ATOL, assert_scaled_close, edge_case, run_case, segment_case
 
 
 @pytest.mark.parametrize("skew", [False, True])
@@ -164,6 +165,44 @@ def test_edge_transform_bwd_plain_matches_pallas(d, tail_cut):
     # Relations 6 and 7 of the bank have no rows: exactly zero.
     for dw in got[2:]:
         assert not dw[6:].any()
+
+
+def _partials_by_runs(x, g, rel, u, run_tiles):
+    """Kernel 3's dW partials as its blocks walk them: block q finds its
+    relation in ``run_splits`` and takes tiles ``tile_splits[u] + (q -
+    run_splits[u]) * run_tiles`` onward, at most ``run_tiles`` of them."""
+    t_splits, r_splits, max_runs = run_bounds(rel, u, run_tiles)
+    runs = int(r_splits[u])
+    assert runs <= max_runs
+    parts = torch.zeros((max(runs, 1), x.shape[1], g.shape[1]))
+    for q in range(runs):
+        rel_q = int(torch.searchsorted(r_splits, q, right=True)) - 1
+        t0 = int(t_splits[rel_q]) + (q - int(r_splits[rel_q])) * run_tiles
+        t1 = min(t0 + run_tiles, int(t_splits[rel_q + 1]))
+        rows = slice(t0 * 256, t1 * 256)
+        assert (rel[rows] == rel_q).all(), "a run holds one relation"
+        parts[q] = x[rows].T @ g[rows]
+    return csr_segment_sum_plain(parts.view(parts.shape[0], -1), r_splits, u).view(
+        u, x.shape[1], g.shape[1])
+
+
+@pytest.mark.parametrize("run_tiles", [1, 2, 4, 16])
+@pytest.mark.parametrize("tail_cut", [0, 100])
+def test_run_partials_sum_to_the_pallas_dw(run_tiles, tail_cut):
+    # Relations of 5, 4, 9, 1, 0 and 3 tiles walked in runs of run_tiles:
+    # the run sums, added per relation over run_splits, give the TPU
+    # kernel's dW; relations without tiles get no run and stay exactly 0.
+    xs, xd, rel, wm, ws, _ = run_case(19, 16, 24, tail_cut)
+    g = np.random.default_rng(20).standard_normal((rel.shape[0], 24)).astype(np.float32)
+    want = _combined_bwd_fused_impl(
+        *(jnp.asarray(a) for a in (g, xs, xd, rel, wm, ws)),
+        interpret=True, precision=jax.lax.Precision.HIGHEST,
+    )
+    t = {k: torch.from_numpy(a) for k, a in dict(g=g, xs=xs, xd=xd, rel=rel).items()}
+    for x, dw_want in ((t["xs"], want[2]), (t["xd"], want[3])):
+        got = _partials_by_runs(x, t["g"], t["rel"], wm.shape[0], run_tiles)
+        assert_scaled_close(got.numpy(), dw_want)
+        assert not got[[4, 6, 7]].any()
 
 
 def _f64(*arrays):

@@ -54,3 +54,25 @@ def edge_case(seed, d, tail_cut, d_out=None):
     ws = (rng.standard_normal((u_pad, d, d_out)) / np.sqrt(d)).astype(np.float32)
     b = rng.standard_normal((u_pad, d_out)).astype(np.float32)
     return xs, xd, rel, wm, ws, b
+
+
+def run_case(seed, d_in, d_out, tail_cut):
+    """Group-padded relation-sorted rows whose relations span several
+    256-row tiles (5, 4, 9 and 1 tiles, then an empty relation and a 3-tile
+    one), so kernel 3 walks full and ragged runs of tiles; the bank has 8
+    relations, 4, 6 and 7 without rows, and the last ``tail_cut`` rows are
+    cut: ``(x_src, x_dst, rel, w_msg, w_self, bias)``, the banks
+    ``[8, d_in, d_out]``."""
+    rng = np.random.default_rng(seed)
+    counts = [1100, 1024, 2300, 10, 0, 600]
+    rel = np.concatenate(
+        [np.full(-(-n // 256) * 256, u, dtype=np.int32) for u, n in enumerate(counts)]
+    )
+    rel = rel[: rel.shape[0] - tail_cut]
+    e_rows, u_pad = rel.shape[0], 8
+    xs = rng.standard_normal((e_rows, d_in)).astype(np.float32)
+    xd = rng.standard_normal((e_rows, d_in)).astype(np.float32)
+    wm = (rng.standard_normal((u_pad, d_in, d_out)) / np.sqrt(d_in)).astype(np.float32)
+    ws = (rng.standard_normal((u_pad, d_in, d_out)) / np.sqrt(d_in)).astype(np.float32)
+    b = rng.standard_normal((u_pad, d_out)).astype(np.float32)
+    return xs, xd, rel, wm, ws, b
