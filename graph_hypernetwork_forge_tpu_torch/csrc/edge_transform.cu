@@ -23,18 +23,24 @@
 // with the banks transposed ([U, d_out, d_in]) and a zero bias, so d_in and
 // d_out are free and may differ.
 //
-// Kernel 2 runs on the tensor cores in 3xTF32 (tf32x3.cuh): f32-class
-// products at three TF32 passes. What bounds it on the H100: at d=64 the
-// bytes (~0.79 GB at E=1.03M, 0.24 ms at 3.35 TB/s) against ~17 GFLOP of
-// f32-class work, 0.10 ms as 3 x 17 GFLOP at 495 TFLOP/s of TF32; at d=128
-// the bytes (~1.6 GB, 0.47 ms) against 0.41 ms of three-pass operations.
+// Both run on the tensor cores in 3xTF32 (tf32x3.cuh), f32-class products
+// at three TF32 passes, in one kernel body. What bounds kernel 2 on the
+// H100: at d=64 the bytes (~0.79 GB at E=1.03M, 0.24 ms at 3.35 TB/s)
+// against ~17 GFLOP of f32-class work, 0.10 ms as 3 x 17 GFLOP at 495
+// TFLOP/s of TF32; at d=128 the bytes (~1.6 GB, 0.47 ms) against 0.41 ms
+// of three-pass operations. Kernel 5 does the same operations and writes
+// a second output: bytes, ~1.06 GB at d=64 (0.32 ms) and ~2.1 GB at d=128
+// (0.64 ms).
 // Design: one block owns 128 rows (inside one 256-row tile, so one
 // relation) and a 64- or 128-column slab of the output, the whole d_out
 // up to 128, so each x_src / x_dst row is read from device memory once.
-// The product is one GEMM with K = 2 * d_in, [x_src | x_dst] against
-// [W_msg ; W_self] of the tile's relation, streamed in K slices of 32
-// through a 3-stage cp.async ring (16-byte copies; 4-byte copies when a
-// width or pointer is not 16-byte aligned), zero-filled past each edge.
+// Kernel 2's product is one GEMM with K = 2 * d_in, [x_src | x_dst]
+// against [W_msg ; W_self] of the tile's relation. Kernel 5 (kTwo) keeps
+// the halves apart: grid plane z = 0 takes x_src and W_msg with the bias
+// into msg, plane 1 x_dst and W_self without it into selfc, each with K =
+// d_in. K is streamed in slices of 32 through a 3-stage cp.async ring
+// (16-byte copies; 4-byte copies when a width or pointer is not 16-byte
+// aligned), zero-filled past each edge.
 // Eight warps of 32 rows x half the slab each hold their accumulators in
 // registers; fragments are split into TF32 halves as they are loaded. The
 // x rows are padded to 40 floats and read as float2 pairs (k = tig and
@@ -42,18 +48,15 @@
 // floats: both fragment loads are free of bank conflicts. The bias is
 // added in the epilogue, which stores straight from the accumulators.
 // At most 128 registers a thread, so two blocks share an SM: 116 without
-// spills at d_out <= 64, 128 with 12 bytes of spill stores at d_out <= 128
-// (scripts/tune_edge_kernels.py). The four 8-deep steps of a K slice run
-// as a loop: unrolled, d_out <= 64 spilled 64 bytes and ran 11% slower.
-//
-// Kernel 5 keeps its f32 FMAs on the CUDA cores: each block computes a
-// 128-row x 64-column tile of one output with K = d_in of one half (grid
-// plane 0: msg with the bias, plane 1: selfc), K staged through shared
-// memory in slices of 8, transposed for the rows so a thread reads its 8
-// rows and 4 columns as float4s, and every thread keeps an 8x4 block of
-// outputs in registers: 32 FMAs for each 12 shared-memory words it reads.
-// Its bound is f32 operations at d=128 (~68 GFLOP at 67 TFLOP/s on the
-// CUDA cores) and bytes at d=64.
+// spills at d_out <= 64, 128 with 8 bytes of spill stores at d_out <= 128
+// (kernel 5: 12; scripts/tune_edge_kernels.py). The four 8-deep steps of
+// a K slice run as a loop: unrolled, d_out <= 64 spilled 64 bytes and ran
+// 11% slower.
+// Kernel 5 with this body took 0.47-0.48 ms at xl d=64 and 1.41-1.44 ms at
+// d=128 (its f32-FMA form 0.81 / 2.83; torch's baddbmm and bmm of the same
+// products 0.81-0.83 / 2.21-2.22). For kernel 5 too, 2 ring stages, one
+// block an SM, 2 n-tiles per group and unrolled K slices were no faster
+// beyond the 2% spread between calls.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,7 +67,7 @@ namespace {
 
 constexpr int kTileRows = 256;  // relation tile of the group-padded layout
 
-// ---- Kernel 2: tensor cores, 3xTF32 --------------------------------------
+// ---- Kernels 2 and 5: tensor cores, 3xTF32 -------------------------------
 
 constexpr int kThreads2 = 256;
 constexpr int BM2 = 128;            // rows per block (divides kTileRows)
@@ -82,16 +85,19 @@ constexpr int smem_bytes2() {
   return kStages2 * (BM2 * kXStride + BK2 * w_stride<kBN>()) * 4;
 }
 
-template <int kBN, bool kVec>
+// kTwo (kernel 5): blockIdx.z 0 writes msg (x_src, W_msg, the bias) to
+// out, 1 writes selfc (x_dst, W_self) to out_self. Else (kernel 2) the sum
+// of both with the bias to out.
+template <int kBN, bool kVec, bool kTwo>
 __global__ void __launch_bounds__(kThreads2, 2)
-edge_transform_combined_kernel(const float* __restrict__ x_src,
-                               const float* __restrict__ x_dst,
-                               const int32_t* __restrict__ rel_sorted,
-                               const float* __restrict__ w_msg,
-                               const float* __restrict__ w_self,
-                               const float* __restrict__ bias,
-                               float* __restrict__ out, int num_edges,
-                               int d_in, int d_out) {
+edge_transform_kernel(const float* __restrict__ x_src,
+                      const float* __restrict__ x_dst,
+                      const int32_t* __restrict__ rel_sorted,
+                      const float* __restrict__ w_msg,
+                      const float* __restrict__ w_self,
+                      const float* __restrict__ bias, float* __restrict__ out,
+                      float* __restrict__ out_self, int num_edges, int d_in,
+                      int d_out) {
   constexpr int NT = kBN / 16;         // n-tiles of a warp (32 x kBN / 2)
   constexpr int NG = kBN == 128 ? 1 : NT;  // n-tiles per fragment group
   constexpr int kWS = w_stride<kBN>();
@@ -109,13 +115,15 @@ edge_transform_combined_kernel(const float* __restrict__ x_src,
   const int col0 = blockIdx.y * kBN;
   const int rel = rel_sorted[(row0 / kTileRows) * kTileRows];
   const int64_t bank = (int64_t)rel * d_in * d_out;
+  const int plane = kTwo ? (int)blockIdx.z : 0;
   const int kc = (d_in + BK2 - 1) / BK2;  // K slices per half
-  const int chunks = 2 * kc;
+  const int chunks = kTwo ? kc : 2 * kc;
 
-  // K slice c of [x_src | x_dst] and [W_msg ; W_self] into ring stage s.
+  // K slice c of [x_src | x_dst] and [W_msg ; W_self] (kTwo: of the
+  // plane's half) into ring stage s.
   auto load = [&](int c, int s) {
-    const int half = c >= kc;
-    const int k0 = (c - half * kc) * BK2;
+    const int half = kTwo ? plane : c >= kc;
+    const int k0 = (kTwo ? c : c - half * kc) * BK2;
     const float* __restrict__ x = half ? x_dst : x_src;
     const float* __restrict__ w = (half ? w_self : w_msg) + bank;
     float* a = As + s * kAStage;
@@ -215,13 +223,15 @@ edge_transform_combined_kernel(const float* __restrict__ x_src,
   }
 
   const float* __restrict__ b_rel = bias + (int64_t)rel * d_out;
+  const bool with_bias = plane == 0;
+  float* __restrict__ dst0 = plane ? out_self : out;
 #pragma unroll
   for (int q = 0; q < NT / NG; ++q)
 #pragma unroll
     for (int j = 0; j < NG; ++j) {
       const int n = col0 + wn * (kBN / 2) + (q * NG + j) * 8 + 2 * tig;
-      const float bias0 = n < d_out ? __ldg(b_rel + n) : 0.f;
-      const float bias1 = n + 1 < d_out ? __ldg(b_rel + n + 1) : 0.f;
+      const float bias0 = with_bias && n < d_out ? __ldg(b_rel + n) : 0.f;
+      const float bias1 = with_bias && n + 1 < d_out ? __ldg(b_rel + n + 1) : 0.f;
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -230,7 +240,7 @@ edge_transform_combined_kernel(const float* __restrict__ x_src,
           if (row >= num_edges) continue;
           const float v0 = acc[q][i][j][2 * h] + bias0;
           const float v1 = acc[q][i][j][2 * h + 1] + bias1;
-          float* dst = out + row * d_out + n;
+          float* dst = dst0 + row * d_out + n;
           if (kVec) {  // d_out % 4 == 0: n and n + 1 both in or both out
             if (n < d_out) *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
           } else {
@@ -241,13 +251,13 @@ edge_transform_combined_kernel(const float* __restrict__ x_src,
     }
 }
 
-template <int kBN, bool kVec>
-cudaError_t launch_combined(const float* x_src, const float* x_dst,
-                            const int32_t* rel_sorted, const float* w_msg,
-                            const float* w_self, const float* bias, float* out,
-                            int num_edges, int d_in, int d_out,
-                            cudaStream_t stream) {
-  auto kernel = edge_transform_combined_kernel<kBN, kVec>;
+template <int kBN, bool kVec, bool kTwo>
+cudaError_t launch(const float* x_src, const float* x_dst,
+                   const int32_t* rel_sorted, const float* w_msg,
+                   const float* w_self, const float* bias, float* out,
+                   float* out_self, int num_edges, int d_in, int d_out,
+                   cudaStream_t stream) {
+  auto kernel = edge_transform_kernel<kBN, kVec, kTwo>;
   constexpr int smem = smem_bytes2<kBN>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -256,117 +266,39 @@ cudaError_t launch_combined(const float* x_src, const float* x_dst,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  dim3 grid((num_edges + BM2 - 1) / BM2, (d_out + kBN - 1) / kBN);
+  dim3 grid((num_edges + BM2 - 1) / BM2, (d_out + kBN - 1) / kBN, kTwo ? 2 : 1);
   kernel<<<grid, kThreads2, smem, stream>>>(x_src, x_dst, rel_sorted, w_msg,
-                                            w_self, bias, out, num_edges,
-                                            d_in, d_out);
+                                            w_self, bias, out, out_self,
+                                            num_edges, d_in, d_out);
   return cudaGetLastError();
 }
 
-// ---- Kernel 5: CUDA cores, f32 FMAs ---------------------------------------
-
-constexpr int BM = 128;  // output rows per block (divides kTileRows)
-constexpr int BN = 64;   // output columns per block
-constexpr int BK = 8;    // K slice staged per step
-constexpr int TM = 8;    // rows per thread
-constexpr int TN = 4;    // columns per thread
-constexpr int kThreads = (BM / TM) * (BN / TN);  // 256
-
-static_assert(kTileRows % BM == 0, "a block must stay inside one tile");
-static_assert(BM * BK == 4 * kThreads, "A slice: four loads per thread");
-static_assert(BK * BN == 2 * kThreads, "B slice: two loads per thread");
-
-// One half per block: blockIdx.z 0 writes msg (x_src, W_msg, the bias) to
-// out, 1 writes selfc (x_dst, W_self) to out_self.
-__global__ void __launch_bounds__(kThreads)
-edge_transform_two_kernel(const float* __restrict__ x_src,
-                          const float* __restrict__ x_dst,
-                          const int32_t* __restrict__ rel_sorted,
-                          const float* __restrict__ w_msg,
-                          const float* __restrict__ w_self,
-                          const float* __restrict__ bias,
-                          float* __restrict__ out, float* __restrict__ out_self,
-                          int num_edges, int d_in, int d_out) {
-  __shared__ __align__(16) float As[BK][BM];
-  __shared__ __align__(16) float Bs[BK][BN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);  // column group
-  const int ty = tid / (BN / TN);  // row group
-  const int64_t row0 = (int64_t)blockIdx.x * BM;
-  const int col0 = blockIdx.y * BN;
-  const int rel = rel_sorted[(row0 / kTileRows) * kTileRows];
-  const int64_t bank = (int64_t)rel * d_in * d_out;
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  // The block's half of K: a loop of one pass, as the register allocation
-  // of this kernel was measured in that form.
-  const int half_end = (int)blockIdx.z + 1;
-  for (int half = (int)blockIdx.z; half < half_end; ++half) {
-    const float* __restrict__ x = half ? x_dst : x_src;
-    const float* __restrict__ w = (half ? w_self : w_msg) + bank;
-    for (int k0 = 0; k0 < d_in; k0 += BK) {
-      // A slice: BM rows x BK columns of x, stored transposed.
-#pragma unroll
-      for (int l = 0; l < 4; ++l) {
-        const int idx = tid + l * kThreads;
-        const int rr = idx / BK;
-        const int kk = idx % BK;
-        const int64_t row = row0 + rr;
-        const int k = k0 + kk;
-        As[kk][rr] = (row < num_edges && k < d_in)
-                         ? __ldg(x + row * d_in + k)
-                         : 0.f;
-      }
-      // B slice: BK rows x BN columns of the relation's weight.
-#pragma unroll
-      for (int l = 0; l < 2; ++l) {
-        const int idx = tid + l * kThreads;
-        const int kk = idx / BN;
-        const int nn = idx % BN;
-        const int k = k0 + kk;
-        const int n = col0 + nn;
-        Bs[kk][nn] =
-            (k < d_in && n < d_out) ? __ldg(w + (int64_t)k * d_out + n) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * TM]);
-        const float4 a1 =
-            *reinterpret_cast<const float4*>(&As[kk][ty * TM + 4]);
-        const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tx * TN]);
-        const float a[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float bv[TN] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
+// The instance for d_out (a 64- or 128-column slab) and vec.
+template <bool kTwo>
+cudaError_t dispatch(const void* x_src, const void* x_dst,
+                     const void* rel_sorted, const void* w_msg,
+                     const void* w_self, const void* bias, void* out,
+                     void* out_self, int num_edges, int d_in, int d_out,
+                     int vec, void* stream) {
+  const auto xs = static_cast<const float*>(x_src);
+  const auto xd = static_cast<const float*>(x_dst);
+  const auto rel = static_cast<const int32_t*>(rel_sorted);
+  const auto wm = static_cast<const float*>(w_msg);
+  const auto ws = static_cast<const float*>(w_self);
+  const auto b = static_cast<const float*>(bias);
+  const auto o = static_cast<float*>(out);
+  const auto o2 = static_cast<float*>(out_self);
+  const auto s = reinterpret_cast<cudaStream_t>(stream);
+  if (d_out <= 64) {
+    return vec ? launch<64, true, kTwo>(xs, xd, rel, wm, ws, b, o, o2,
+                                        num_edges, d_in, d_out, s)
+               : launch<64, false, kTwo>(xs, xd, rel, wm, ws, b, o, o2,
+                                         num_edges, d_in, d_out, s);
   }
-
-  float* __restrict__ dst = blockIdx.z ? out_self : out;
-  const bool with_bias = blockIdx.z == 0;
-  const float* __restrict__ b_rel = bias + (int64_t)rel * d_out;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int64_t row = row0 + ty * TM + i;
-    if (row >= num_edges) break;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = col0 + tx * TN + j;
-      if (n < d_out) {
-        dst[row * d_out + n] = acc[i][j] + (with_bias ? __ldg(b_rel + n) : 0.f);
-      }
-    }
-  }
+  return vec ? launch<128, true, kTwo>(xs, xd, rel, wm, ws, b, o, o2,
+                                       num_edges, d_in, d_out, s)
+             : launch<128, false, kTwo>(xs, xd, rel, wm, ws, b, o, o2,
+                                        num_edges, d_in, d_out, s);
 }
 
 }  // namespace
@@ -382,47 +314,19 @@ extern "C" int ghf_edge_transform(const void* x_src, const void* x_dst,
                                   void* out, int num_edges, int d_in,
                                   int d_out, int vec, void* stream) {
   if (num_edges <= 0 || d_out <= 0) return (int)cudaSuccess;
-  const auto xs = static_cast<const float*>(x_src);
-  const auto xd = static_cast<const float*>(x_dst);
-  const auto rel = static_cast<const int32_t*>(rel_sorted);
-  const auto wm = static_cast<const float*>(w_msg);
-  const auto ws = static_cast<const float*>(w_self);
-  const auto b = static_cast<const float*>(bias);
-  const auto o = static_cast<float*>(out);
-  const auto s = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (d_out <= 64) {
-    err = vec ? launch_combined<64, true>(xs, xd, rel, wm, ws, b, o, num_edges,
-                                          d_in, d_out, s)
-              : launch_combined<64, false>(xs, xd, rel, wm, ws, b, o,
-                                           num_edges, d_in, d_out, s);
-  } else {
-    err = vec ? launch_combined<128, true>(xs, xd, rel, wm, ws, b, o,
-                                           num_edges, d_in, d_out, s)
-              : launch_combined<128, false>(xs, xd, rel, wm, ws, b, o,
-                                            num_edges, d_in, d_out, s);
-  }
-  return (int)err;
+  return (int)dispatch<false>(x_src, x_dst, rel_sorted, w_msg, w_self, bias,
+                              out, nullptr, num_edges, d_in, d_out, vec,
+                              stream);
 }
 
-// Kernel 5. x_src, x_dst: [E, d_in] f32; rel_sorted: [E] int32; w_msg,
-// w_self: [U, d_in, d_out] f32; bias: [U, d_out] f32; msg, selfc:
-// [E, d_out] f32. All contiguous. Launches on `stream`; returns
-// cudaGetLastError().
+// Kernel 5. As kernel 2, with two outputs msg, selfc: [E, d_out] f32.
 extern "C" int ghf_edge_transform_two(const void* x_src, const void* x_dst,
                                       const void* rel_sorted,
                                       const void* w_msg, const void* w_self,
                                       const void* bias, void* msg,
                                       void* selfc, int num_edges, int d_in,
-                                      int d_out, void* stream) {
+                                      int d_out, int vec, void* stream) {
   if (num_edges <= 0 || d_out <= 0) return (int)cudaSuccess;
-  dim3 grid((num_edges + BM - 1) / BM, (d_out + BN - 1) / BN, 2);
-  edge_transform_two_kernel<<<grid, kThreads, 0,
-                              reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x_src), static_cast<const float*>(x_dst),
-      static_cast<const int32_t*>(rel_sorted),
-      static_cast<const float*>(w_msg), static_cast<const float*>(w_self),
-      static_cast<const float*>(bias), static_cast<float*>(msg),
-      static_cast<float*>(selfc), num_edges, d_in, d_out);
-  return (int)cudaGetLastError();
+  return (int)dispatch<true>(x_src, x_dst, rel_sorted, w_msg, w_self, bias,
+                             msg, selfc, num_edges, d_in, d_out, vec, stream);
 }

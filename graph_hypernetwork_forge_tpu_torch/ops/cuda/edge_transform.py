@@ -16,7 +16,8 @@ segment-sum of ``g`` over ``rel_splits`` (kernel 1).
 Kernel 5, :func:`edge_transform_sorted`: the two streams apart, ``msg[e] =
 x_src[e] @ W_msg[r] + bias[r]`` and ``selfc[e] = x_dst[e] @ W_self[r]``, the
 function of the TPU kernel of ``edge_transform_sorted``
-(``_edge_transform_fwd_impl``, same file :108). Its autograd Function has
+(``_edge_transform_fwd_impl``, same file :108), launched as a mode of
+kernel 2's body with one grid plane per output. Its autograd Function has
 that entry point's VJP (``_bwd``, :569-607): kernel 5 again on the two
 cotangents with the banks transposed and a zero bias for ``dx_src`` and
 ``dx_dst``, kernel 6 (``ops/cuda/segment_outer.py``) for each ``dW``, and
@@ -93,7 +94,7 @@ def _lib() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     two = lib.ghf_edge_transform_two
-    two.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    two.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     two.restype = ctypes.c_int
     return lib
 
@@ -140,13 +141,11 @@ def _launch(two: bool, x_src, x_dst, rel_sorted, w_msg, w_self, bias):
         for _ in range(2 if two else 1)
     ]
     lib = _lib()
+    launch = lib.ghf_edge_transform_two if two else lib.ghf_edge_transform
     ptrs = [_common.ptr(t) for t in (*args, *outs)]
+    vec = _common.vec16(*args, *outs, widths=(d_in, d_out))
     with torch.cuda.device(dev):
-        if two:
-            code = lib.ghf_edge_transform_two(*ptrs, e, d_in, d_out, _common.stream_of(dev))
-        else:
-            vec = _common.vec16(*args, *outs, widths=(d_in, d_out))
-            code = lib.ghf_edge_transform(*ptrs, e, d_in, d_out, vec, _common.stream_of(dev))
+        code = launch(*ptrs, e, d_in, d_out, vec, _common.stream_of(dev))
     _common.raise_on_error(name, code)
     if two:
         edge_transform_sorted.launches += 1

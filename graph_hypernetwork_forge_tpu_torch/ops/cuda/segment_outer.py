@@ -8,10 +8,12 @@ function of the TPU kernel ``_segment_outer_impl``
 (``graph_hypernetwork_forge_tpu/ops/pallas/edge_transform.py:473``), the
 weight gradient of ``edge_transform_sorted``.
 
-On the card the kernel writes one ``[d_in, d_out]`` partial per tile and
-kernel 1 (``csr_segment_sum``) adds each relation's partials over the tile
-bounds, as kernel 3 does for its dW: one call of this wrapper launches
-kernel 6 once and kernel 1 once, and the result is bitwise deterministic.
+On the card the kernel writes one ``[d_in, d_out]`` partial per run of up
+to :data:`RUN_TILES` consecutive tiles of one relation
+(``edge_transform_bwd.run_bounds``), as kernel 3 does for its dW, and
+kernel 1 (``csr_segment_sum``) adds each relation's partials over the run
+bounds: one call of this wrapper launches kernel 6 once and kernel 1 once,
+and the result is bitwise deterministic.
 """
 
 from __future__ import annotations
@@ -26,11 +28,18 @@ from graph_hypernetwork_forge_tpu_torch.ops.cuda import _common
 from graph_hypernetwork_forge_tpu_torch.ops.cuda.build import load
 from graph_hypernetwork_forge_tpu_torch.ops.cuda.edge_transform_bwd import (
     as_tiles,
-    tile_splits,
+    run_bounds,
 )
 from graph_hypernetwork_forge_tpu_torch.ops.cuda.segment_sum import csr_segment_sum
 
 _NAME = "segment_outer"
+
+# Tiles of one relation that one kernel-6 block walks: 2 gives 2,131 runs
+# at the xl layout (E_pad = 1,031,680, U = 237), partials of 35 MB at d=64
+# and 140 MB at d=128. On the H100 runs of 2 were the fastest of 1, 2, 4
+# and 8 tiles at both widths (scripts/tune_edge_kernels.py); kernel 3 keeps
+# runs of 4, its own fastest.
+RUN_TILES = 2
 
 
 def segment_outer_plain(
@@ -49,7 +58,7 @@ def segment_outer_plain(
 def _lib() -> ctypes.CDLL:
     lib = load("segment_outer")
     fn = lib.ghf_segment_outer
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -83,15 +92,18 @@ def segment_outer(
             f"rel_sorted {tuple(rel_sorted.shape)} do not fit together"
         )
     d_out = g.shape[1]
-    partial = torch.empty((-(-e // GROUP_PAD), d_in * d_out), dtype=f32, device=dev)
+    t_splits, r_splits, max_runs = run_bounds(rel_sorted, num_rel, RUN_TILES)
+    partial = torch.empty((max_runs, d_in * d_out), dtype=f32, device=dev)
     with torch.cuda.device(dev):
         code = _lib().ghf_segment_outer(
-            _common.ptr(x), _common.ptr(g), _common.ptr(partial), e, d_in, d_out,
+            _common.ptr(x), _common.ptr(g), _common.ptr(t_splits),
+            _common.ptr(r_splits), _common.ptr(partial), e, d_in, d_out, num_rel,
+            RUN_TILES, max_runs, _common.vec16(x, g, partial, widths=(d_in, d_out)),
             _common.stream_of(dev),
         )
     _common.raise_on_error(_NAME, code)
     segment_outer.launches += 1
-    dw = csr_segment_sum(partial, tile_splits(rel_sorted, num_rel), num_rel)
+    dw = csr_segment_sum(partial, r_splits, num_rel)
     return dw.view(num_rel, d_in, d_out)
 
 

@@ -1,27 +1,35 @@
 #!/usr/bin/env python3
-"""Time variants of kernels 2 and 3 side by side at the xl shapes.
+"""Time variants of kernels 2, 3, 5 and 6 side by side at the xl shapes.
 
-    python3 scripts/tune_edge_kernels.py [CSRC_DIR ...]
+    python3 scripts/tune_edge_kernels.py [--only SOURCE ...] [CSRC_DIR ...]
 
 Run from the root of a checkout on a machine with one CUDA card and nvcc.
 Each variant is a copy of ``graph_hypernetwork_forge_tpu_torch/csrc/``
 under ``build/variants/`` with a few lines of a kernel source changed,
-built with the port's nvcc flags; the wrapper then launches it in place of
-the built-in library. Variants named "ablation: ..." leave out part of the
-work (a product, the row loads, two of the three TF32 passes) to show where
-the time goes, so their errors are large. Each ``CSRC_DIR`` given (another
-tree's ``csrc/``, for example the parent commit's) is built and timed as
-one more variant, so that two versions compare within one call. Kernel 3
-is also timed at other run lengths (``RUN_TILES``). Every line gives the
-best of three CUDA-event means of the wrapper (20 launches each) and the
-max error against the plain version (kernel 3: scaled by max(1,
-max|plain|)); ptxas' registers and spills of each build come first. The
-chosen values are the sources' own.
+built with the port's nvcc flags; the wrappers then launch it in place of
+the built-in library. ``edge_transform.cu`` holds kernels 2 and 5, so each
+of its variants times both. Variants named "ablation: ..." leave out part
+of the work (the products, the row loads, two of the three TF32 passes) to
+show where the time goes, so their errors are large. Each ``CSRC_DIR``
+given (another tree's ``csrc/``, for example the parent commit's) is built
+and timed as one more variant, source by source where its C interface is
+the same as this tree's (else that source is skipped), so that two
+versions compare within one call. Kernels 3 and 6 are also timed at other
+run lengths (``RUN_TILES``). ``--only`` keeps the named sources
+(``edge_transform``, ``edge_transform_bwd``, ``segment_outer``). Every
+line gives the best of three CUDA-event means of the wrapper (20 launches
+each) and the max error against the plain version (kernels 3 and 6: scaled
+by max(1, max|plain|)); each source build's call is also broken down by
+kernel with torch.profiler; ptxas' registers, spills and stack of each
+build come first. The chosen values are the sources' own.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
+import importlib
+import re
 import shutil
 import subprocess
 import sys
@@ -37,7 +45,15 @@ from graph_hypernetwork_forge_tpu_torch.ops.cuda import build  # noqa: E402
 from graph_hypernetwork_forge_tpu_torch.ops.cuda import edge_transform as k2  # noqa: E402
 from graph_hypernetwork_forge_tpu_torch.ops.cuda import edge_transform_bwd as k3  # noqa: E402
 
+# The package re-exports the function segment_outer under the module's name.
+k6 = importlib.import_module("graph_hypernetwork_forge_tpu_torch.ops.cuda.segment_outer")
+
 OUT = ROOT / "build" / "variants"
+# The wrapper module of each source; kernels 3 and 6 read RUN_TILES there.
+MODULES = {"edge_transform": k2, "edge_transform_bwd": k3, "segment_outer": k6}
+C_FUNCTIONS = ("ghf_edge_transform", "ghf_edge_transform_two", "ghf_edge_transform_bwd",
+               "ghf_segment_outer")
+
 K3_UNROLL = ("#pragma unroll 2\n        for (int kb = 0; kb < DOUT",
              "#pragma unroll 2\n        for (int kb = 0; kb < BM")
 DX = "      // ---- 1. dx = g W^T: warps 2 (rows) x 4 (bank, 32 columns) ----------\n      {"
@@ -50,6 +66,8 @@ K3_ONE_PASS = [
      "for (int i = 0; i < 2; ++i) for (int j = 0; j < NG; ++j) "
      "tf32x3::mma(dw[q][i][j], ahi[i], bhi[j]);"),
 ]
+K2_KSTEPS = "#pragma unroll 1\n    for (int ks = 0; ks < BK2 / 8; ++ks) {"
+K6_KSTEPS = "#pragma unroll 2\n    for (int kb = 0; kb < BM; kb += 8) {"
 VARIANTS = {
     "edge_transform_bwd": {
         "source": [],
@@ -74,20 +92,85 @@ VARIANTS = {
     },
     "edge_transform": {
         "source": [],
+        "2 ring stages": [("constexpr int kStages2 = 3;", "constexpr int kStages2 = 2;")],
+        "one block an SM": [("__launch_bounds__(kThreads2, 2)", "__launch_bounds__(kThreads2, 1)")],
         "2 n-tiles per group at d_out = 128": [(
             "constexpr int NG = kBN == 128 ? 1 : NT;",
             "constexpr int NG = kBN == 128 ? 2 : NT;")],
         "2 n-tiles per group at d_out = 64": [(
             "constexpr int NG = kBN == 128 ? 1 : NT;",
             "constexpr int NG = kBN == 128 ? 1 : 2;")],
-        "K slices unrolled": [(
-            "#pragma unroll 1\n    for (int ks = 0;", "#pragma unroll\n    for (int ks = 0;")],
+        "K slices unrolled": [(K2_KSTEPS, K2_KSTEPS.replace("unroll 1", "unroll"))],
+        "ablation: staging only, no products": [(
+            K2_KSTEPS, K2_KSTEPS.replace("ks < BK2 / 8", "ks < 0"))],
+        "ablation: products only, no row loads": [
+            ("    if (s < chunks) load(s, s);", ""),
+            ("      load(c + kStages2 - 1, (c + kStages2 - 1) % kStages2);", "      ;")],
         "ablation: one TF32 pass": [(
             "tf32x3::mma3_tile<2, NG>(acc[q], ahi, alo, bhi, blo);",
             "for (int i = 0; i < 2; ++i) for (int j = 0; j < NG; ++j) "
             "tf32x3::mma(acc[q][i][j], ahi[i], bhi[j]);")],
     },
+    "segment_outer": {
+        "source": [],
+        "3 ring stages": [("constexpr int kStages = 2;", "constexpr int kStages = 3;")],
+        "32-row chunks, 3 ring stages": [
+            ("constexpr int BM = 64;", "constexpr int BM = 32;"),
+            ("constexpr int kStages = 2;", "constexpr int kStages = 3;")],
+        "one block an SM": [("constexpr int kMinBlocks = 2;", "constexpr int kMinBlocks = 1;")],
+        "three blocks an SM": [("constexpr int kMinBlocks = 2;",
+                                "constexpr int kMinBlocks = 3;")],
+        "8 warps (2 x 4), one block an SM": [
+            ("constexpr int kWarpsN = 2;", "constexpr int kWarpsN = 4;"),
+            ("constexpr int kMinBlocks = 2;", "constexpr int kMinBlocks = 1;")],
+        "8 warps (2 x 4), two blocks an SM": [
+            ("constexpr int kWarpsN = 2;", "constexpr int kWarpsN = 4;")],
+        "128 d_in columns a block (4 x 2 warps), one block an SM": [
+            ("constexpr int CS = 64; ", "constexpr int CS = 128;"),
+            ("constexpr int kWarpsM = 2; ", "constexpr int kWarpsM = 4; "),
+            ("constexpr int kMinBlocks = 2;", "constexpr int kMinBlocks = 1;")],
+        "k loop unrolled by 4": [(K6_KSTEPS, K6_KSTEPS.replace("unroll 2", "unroll 4"))],
+        "128-row chunks, one block an SM": [
+            ("constexpr int BM = 64;", "constexpr int BM = 128;"),
+            ("constexpr int kMinBlocks = 2;", "constexpr int kMinBlocks = 1;")],
+        "dW in groups of 2 n-tiles": [("NG = NW < 4 ? NW : 4;", "NG = NW < 2 ? NW : 2;")],
+        "k loop not unrolled": [(K6_KSTEPS, K6_KSTEPS.replace("unroll 2", "unroll 1"))],
+        "ablation: staging only, no products": [(
+            K6_KSTEPS, K6_KSTEPS.replace("kb < BM", "kb < 0"))],
+        "ablation: products only, no row loads": [
+            ("    if (s < chunks) load(s, s);", ""),
+            ("      load(ch + kStages - 1, (ch + kStages - 1) % kStages);", "      ;")],
+        "ablation: one TF32 pass": [(
+            "tf32x3::mma3_tile<2, NG>(dw[q], ahi, alo, bhi, blo);",
+            "for (int i = 0; i < 2; ++i) for (int j = 0; j < NG; ++j) "
+            "tf32x3::mma(dw[q][i][j], ahi[i], bhi[j]);")],
+    },
 }
+RUN_LENGTHS = (1, 2, 4, 8)
+
+
+def c_interface(cu: Path) -> list[str]:
+    """The ``extern "C"`` declarations of a source, whitespace folded."""
+    text = cu.read_text()
+    return [" ".join(m.split()) for m in re.findall(r'extern "C"[^{]*', text)]
+
+
+def ptxas_summary(log: str) -> str:
+    """``kernel<template args>: N registers, spill stores/loads, stack`` for
+    each entry function in nvcc's ``-Xptxas=-v`` output."""
+    out, name, frame = [], "?", ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            k = re.search(r"([a-z][a-z_]*_kernel)I(\w*?)EEv", m.group(1))
+            name = (f"{k.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', k.group(2)))}>"
+                    if k else m.group(1))
+        elif "stack frame" in line:
+            frame = line.strip()
+        elif "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            out.append(f"{name}: {regs.group(1) if regs else '?'} registers; {frame}")
+    return " | ".join(out)
 
 
 def start(source: str, name: str, subs, src_dir: Path = build.SOURCE_DIR
@@ -112,7 +195,21 @@ def best_ms(fn) -> float:
     return min(cs.cuda_ms(fn) for _ in range(3))
 
 
-def main(trees: list[str]) -> int:
+def abs_err(got, want) -> float:
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    return max((a - b).abs().max().item() for a, b in zip(got, want))
+
+
+def scaled_err(got, want) -> float:
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    return max(cs.scaled_err(a, b) for a, b in zip(got, want))
+
+
+def main(argv: list[str]) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", nargs="+", choices=sorted(VARIANTS), default=sorted(VARIANTS))
+    ap.add_argument("trees", nargs="*", help="other csrc/ directories to time")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("tune_edge_kernels.py: torch.cuda.is_available() is false")
     print(f"card: {cs.card_line()}", flush=True)
@@ -120,26 +217,27 @@ def main(trees: list[str]) -> int:
     for old in OUT.iterdir():
         shutil.rmtree(old)
     jobs = {(src, name): start(src, name, subs)
-            for src, variants in VARIANTS.items() for name, subs in variants.items()}
-    for tree in trees:
-        for src in VARIANTS:
-            jobs[(src, f"tree {tree}")] = start(src, f"tree {tree}", [], Path(tree).resolve())
+            for src in args.only for name, subs in VARIANTS[src].items()}
+    for tree in args.trees:
+        tree = Path(tree).resolve()
+        for src in args.only:
+            if c_interface(tree / f"{src}.cu") != c_interface(build.SOURCE_DIR / f"{src}.cu"):
+                print(f"tree {tree} / {src}: C interface differs, skipped", flush=True)
+                continue
+            jobs[(src, f"tree {tree}")] = start(src, f"tree {tree}", [], tree)
     libs = {}
     for key, (lib, proc) in jobs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise SystemExit(f"nvcc failed for {key}:\n{log}")
-        regs = [line.split(":", 1)[-1].strip() for line in log.splitlines()
-                if "registers" in line or "spill" in line]
-        print(f"build {key[0]} / {key[1]}: {' | '.join(regs)}", flush=True)
+        print(f"build {key[0]} / {key[1]}: {ptxas_summary(log)}", flush=True)
         libs[key] = ctypes.CDLL(str(lib))
     # The wrappers' _lib() set the argument types; reuse them for each copy.
-    for src, wrapper in (("edge_transform", k2), ("edge_transform_bwd", k3)):
-        ref = wrapper._lib()
+    for src in args.only:
+        ref = MODULES[src]._lib()
         for (s, _), lib in libs.items():
             if s == src:
-                for fn in ("ghf_edge_transform", "ghf_edge_transform_two",
-                           "ghf_edge_transform_bwd"):
+                for fn in C_FUNCTIONS:
                     if hasattr(ref, fn):
                         getattr(lib, fn).argtypes = getattr(ref, fn).argtypes
                         getattr(lib, fn).restype = getattr(ref, fn).restype
@@ -149,7 +247,7 @@ def main(trees: list[str]) -> int:
     rel = torch.as_tensor(g.rel_ids, device=dev)
     e_rows, u_pad = g.rel_ids.shape[0], g.char_ids.shape[0]
     gen = torch.Generator(device=dev).manual_seed(0)
-    source_lib = k3._lib
+    own = {src: (mod._lib, getattr(mod, "RUN_TILES", None)) for src, mod in MODULES.items()}
     for d in (64, 128):
         xs, xd, g_out = (torch.randn(e_rows, d, device=dev, generator=gen) for _ in range(3))
         wm, ws = (torch.randn(u_pad, d, d, device=dev, generator=gen) / d**0.5
@@ -157,27 +255,45 @@ def main(trees: list[str]) -> int:
         bias = torch.randn(u_pad, d, device=dev, generator=gen)
         fwd = (xs, xd, rel, wm, ws, bias)
         bwd = (g_out, xs, xd, rel, wm, ws)
-        want2 = k2.edge_transform_sorted_combined_plain(*fwd)
-        want3 = k3.edge_transform_combined_bwd_plain(*bwd)
+        outer = (xs, g_out, rel, u_pad)
+        # (label, call, plain result, error) of each source's kernels.
+        kernels_of = {
+            "edge_transform": [
+                ("kernel 2", lambda: k2.edge_transform_sorted_combined(*fwd),
+                 k2.edge_transform_sorted_combined_plain(*fwd), abs_err),
+                ("kernel 5", lambda: k2.edge_transform_sorted(*fwd),
+                 k2.edge_transform_sorted_plain(*fwd), abs_err),
+            ],
+            "edge_transform_bwd": [
+                ("kernel 3", lambda: k3.edge_transform_combined_bwd(*bwd),
+                 k3.edge_transform_combined_bwd_plain(*bwd), scaled_err),
+            ],
+            "segment_outer": [
+                ("kernel 6", lambda: k6.segment_outer(*outer),
+                 k6.segment_outer_plain(*outer), scaled_err),
+            ],
+        }
         for (src, name), lib in libs.items():
-            if src == "edge_transform":
-                k2._lib = lambda lib=lib: lib
-                err = (k2.edge_transform_sorted_combined(*fwd) - want2).abs().max().item()
-                ms = best_ms(lambda: k2.edge_transform_sorted_combined(*fwd))
-                print(f"kernel 2 d={d} {name}: {ms:.4f} ms, err {err:.2e}", flush=True)
-            else:
-                k3._lib = lambda lib=lib: lib
-                runs = (2, 4, 8) if name == "source" else (k3.RUN_TILES,)
-                for run_tiles in runs:
-                    chosen, k3.RUN_TILES = k3.RUN_TILES, run_tiles
-                    got = k3.edge_transform_combined_bwd(*bwd)
-                    err = max(cs.scaled_err(a, b) for a, b in zip(got, want3))
-                    ms = best_ms(lambda: k3.edge_transform_combined_bwd(*bwd))
-                    k3.RUN_TILES = chosen
-                    print(f"kernel 3 d={d} {name}, runs of {run_tiles} tiles: "
-                          f"{ms:.4f} ms, err {err:.2e}", flush=True)
-        k3._lib = source_lib
-        del xs, xd, g_out, wm, ws, bias, fwd, bwd, want2, want3
+            mod = MODULES[src]
+            mod._lib = lambda lib=lib: lib
+            chosen = own[src][1]
+            runs = RUN_LENGTHS if name == "source" and chosen is not None else (chosen,)
+            for run_tiles in runs:
+                if chosen is not None:
+                    mod.RUN_TILES = run_tiles
+                for label, call, want, err_of in kernels_of[src]:
+                    err = err_of(call(), want)
+                    ms = best_ms(call)
+                    at = f", runs of {run_tiles} tiles" if chosen is not None else ""
+                    print(f"{label} d={d} {name}{at}: {ms:.4f} ms, err {err:.2e}", flush=True)
+                    if name == "source" and run_tiles == chosen:
+                        # Device time of one call by kernel: the kernel, the
+                        # reduction over its partials, the small index ops.
+                        cs.profile_device(f"{label} d={d} {name}", call, rows=8)
+            mod._lib, restore = own[src][0], own[src][1]
+            if restore is not None:
+                mod.RUN_TILES = restore
+        del xs, xd, g_out, wm, ws, bias, fwd, bwd, outer, kernels_of
         torch.cuda.empty_cache()
     return 0
 

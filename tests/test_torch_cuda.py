@@ -49,9 +49,9 @@ from torch_cases import edge_case, run_case, segment_case
 
 pytestmark = pytest.mark.cuda
 
-# Kernels 2 and 3's dx: f32 dot products of at most 2 * 128 order-1 terms.
-# Kernel 3's dW and the gradients: sums over hundreds of rows, compared
-# after dividing by max(1, max|plain|).
+# Kernels 2, 3 and 5's products: f32 dot products of at most 2 * 128
+# order-1 terms. Kernels 3 and 6's dW and the gradients: sums over hundreds
+# of rows, compared after dividing by max(1, max|plain|).
 ATOL = 1e-4
 
 
@@ -177,7 +177,8 @@ def _errors_against_float64(fn, plain, args, scaled=()):
     float64 on the same inputs, one pair per output (outputs in ``scaled``
     after dividing by max(1, max|reference|))."""
     got, want = fn(*args), plain(*args)
-    ref = plain(*(a.double() if a.is_floating_point() else a for a in args))
+    ref = plain(*(a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+                  for a in args))
     if isinstance(got, torch.Tensor):
         got, want, ref = (got,), (want,), (ref,)
     errs = []
@@ -209,7 +210,53 @@ def test_edge_transform_bwd_kernel_float64_error_within_twice_plain(dev, d_in, d
         assert err <= 2 * plain_err, (name, err, plain_err)
 
 
-@pytest.mark.parametrize("d_in,d_out", [(64, 64), (128, 128), (36, 30), (32, 200)])
+@pytest.mark.parametrize("d_in,d_out", _WIDTHS)
+def test_edge_transform_sorted_kernel_float64_error_within_twice_plain(dev, d_in, d_out):
+    # Kernel 5, output by output, on the tensor cores in 3xTF32.
+    args = [torch.from_numpy(a).to(dev) for a in run_case(21, d_in, d_out, 100)]
+    errs = _errors_against_float64(
+        kernels.edge_transform_sorted, kernels.edge_transform_sorted_plain, args)
+    for name, (err, plain_err) in zip(("msg", "selfc"), errs):
+        assert err <= 2 * plain_err, (name, err, plain_err)
+
+
+@pytest.mark.parametrize("d_in,d_out", _WIDTHS)
+def test_segment_outer_kernel_float64_error_within_twice_plain(dev, d_in, d_out):
+    # Kernel 6's dW sums hundreds of rows: compared after scaling.
+    xs, _, rel, *_ = (torch.from_numpy(a).to(dev) for a in run_case(22, d_in, d_out, 0))
+    g = torch.randn((xs.shape[0], d_out), generator=torch.Generator().manual_seed(5)).to(dev)
+    [(err, plain_err)] = _errors_against_float64(
+        segment_outer, segment_outer_plain, (xs, g, rel, 8), scaled=(0,))
+    assert err <= 2 * plain_err, (err, plain_err)
+
+
+_RUN_WIDTHS = [(64, 64), (128, 128), (36, 30), (32, 200)]
+
+
+@pytest.mark.parametrize("d_in,d_out", _RUN_WIDTHS)
+@pytest.mark.parametrize("tail_cut", [0, 100])
+def test_two_output_kernels_over_runs_of_tiles(dev, d_in, d_out, tail_cut):
+    # Kernel 6 over runs of RUN_TILES tiles (relations of 5, 4, 9 and 1
+    # tiles: full and ragged runs) and kernel 5 on the same rows. 36 -> 30
+    # takes the 4-byte copies; d_out = 200 two column slabs of both.
+    xs, xd, rel, wm, ws, b = (
+        torch.from_numpy(a).to(dev) for a in run_case(23, d_in, d_out, tail_cut))
+    g = torch.randn((xs.shape[0], d_out), generator=torch.Generator().manual_seed(6)).to(dev)
+    kernels.reset_launch_counts()
+    outs = kernels.edge_transform_sorted(xs, xd, rel, wm, ws, b)
+    got, again = segment_outer(xs, g, rel, 8), segment_outer(xs, g, rel, 8)
+    torch.cuda.synchronize()
+    assert kernels.edge_transform_sorted.launches == 1
+    assert segment_outer.launches == 2 and csr_segment_sum.launches == 2
+    for name, a, w in zip(("msg", "selfc"), outs,
+                          kernels.edge_transform_sorted_plain(xs, xd, rel, wm, ws, b)):
+        torch.testing.assert_close(a.cpu(), w.cpu(), rtol=0, atol=ATOL, msg=name)
+    assert torch.equal(got, again), "two runs differ"
+    assert not got[[4, 6, 7]].any(), "relations without rows must be exactly zero"
+    _close_scaled(got.cpu(), segment_outer_plain(xs, g, rel, 8).cpu(), "dW")
+
+
+@pytest.mark.parametrize("d_in,d_out", _RUN_WIDTHS)
 @pytest.mark.parametrize("tail_cut", [0, 100])
 def test_edge_transform_kernels_over_runs_of_tiles(dev, d_in, d_out, tail_cut):
     # Relations of 5, 4, 9 and 1 tiles: kernel 3's runs of RUN_TILES tiles,

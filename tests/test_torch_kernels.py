@@ -17,6 +17,7 @@ import torch
 
 from graph_hypernetwork_forge_tpu.ops.pallas.edge_transform import (
     _combined_bwd_fused_impl,
+    _segment_outer_impl,
 )
 from graph_hypernetwork_forge_tpu.ops.pallas.edge_transform import (
     edge_transform_sorted_combined as jax_edge_transform,
@@ -168,7 +169,7 @@ def test_edge_transform_bwd_plain_matches_pallas(d, tail_cut):
 
 
 def _partials_by_runs(x, g, rel, u, run_tiles):
-    """Kernel 3's dW partials as its blocks walk them: block q finds its
+    """Kernels 3 and 6's dW partials as their blocks walk them: block q finds its
     relation in ``run_splits`` and takes tiles ``tile_splits[u] + (q -
     run_splits[u]) * run_tiles`` onward, at most ``run_tiles`` of them."""
     t_splits, r_splits, max_runs = run_bounds(rel, u, run_tiles)
@@ -203,6 +204,25 @@ def test_run_partials_sum_to_the_pallas_dw(run_tiles, tail_cut):
         got = _partials_by_runs(x, t["g"], t["rel"], wm.shape[0], run_tiles)
         assert_scaled_close(got.numpy(), dw_want)
         assert not got[[4, 6, 7]].any()
+
+
+@pytest.mark.parametrize("run_tiles", [1, 2, 4])
+@pytest.mark.parametrize("tail_cut", [0, 100])
+def test_segment_outer_run_partials_sum_to_the_pallas_dw(run_tiles, tail_cut):
+    # Kernel 6 walks the runs of kernel 3 with one bank: x_srcᵀ g per run,
+    # added per relation over run_splits, is the TPU kernel's dW at any
+    # d_in and d_out; relations 4, 6 and 7 own no tile and stay exactly 0.
+    xs, _, rel, *_ = run_case(26, 40, 72, tail_cut)
+    g = np.random.default_rng(27).standard_normal((rel.shape[0], 72)).astype(np.float32)
+    want = _segment_outer_impl(
+        jnp.asarray(xs), jnp.asarray(g), jnp.asarray(rel), 8,
+        interpret=True, precision=jax.lax.Precision.HIGHEST,
+    )
+    got = _partials_by_runs(
+        torch.from_numpy(xs), torch.from_numpy(g), torch.from_numpy(rel), 8, run_tiles)
+    assert tuple(got.shape) == want.shape
+    assert_scaled_close(got.numpy(), want)
+    assert not got[[4, 6, 7]].any()
 
 
 def _f64(*arrays):

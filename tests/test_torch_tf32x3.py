@@ -1,4 +1,4 @@
-"""The 3xTF32 arithmetic of kernels 2 and 3 (``csrc/tf32x3.cuh``), emulated
+"""The 3xTF32 arithmetic of kernels 2, 3, 5 and 6 (``csrc/tf32x3.cuh``), emulated
 in torch on the CPU and held to the repository's f32 gates against float64.
 
 Each f32 operand x splits into ``hi = tf32(x)`` and ``lo = tf32(x - hi)``,
@@ -8,8 +8,9 @@ instruction does: per step the three products ``lo·hi``, ``hi·lo``,
 ``hi·hi`` (TF32 products are exact) go into a zeroed f32 fragment, one
 rounding each, and the fragment is added to the running f32 sum, as the
 kernels do (``tf32x3::mma3_tile``). Kernel 3 keeps a relation's dW over
-runs of 4 tiles (1,024 rows) and kernel 1 then adds the runs in f32, as
-emulated here. The card
+runs of 4 tiles (1,024 rows), kernel 6 over runs of 2 (512 rows), and
+kernel 1 then adds the runs in f32, as emulated here. Kernel 5's products are kernel 2's with one bank (K =
+d_in), the bias added to the sum in the epilogue. The card
 tests (``tests/test_torch_cuda.py``) hold the real kernels to at most twice
 the plain f32 version's float64 error; this file is the design's evidence
 in the CPU lane, and shows that single-pass TF32 misses the same gates.
@@ -63,12 +64,13 @@ def sequential_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def dw_by_runs(x: torch.Tensor, g: torch.Tensor, passes: int = 3) -> torch.Tensor:
-    """``xᵀ g`` as kernel 3 takes it: one tensor-core sum per run of
-    RUN_ROWS rows, the runs' partials then added in f32."""
+def dw_by_runs(x: torch.Tensor, g: torch.Tensor, passes: int = 3,
+               run_rows: int = RUN_ROWS) -> torch.Tensor:
+    """``xᵀ g`` as kernels 3 and 6 take it: one tensor-core sum per run of
+    ``run_rows`` rows, the runs' partials then added in f32."""
     total = torch.zeros(x.shape[1], g.shape[1])
-    for r in range(0, x.shape[0], RUN_ROWS):
-        total = total + tc_product(x[r:r + RUN_ROWS].T, g[r:r + RUN_ROWS], passes)
+    for r in range(0, x.shape[0], run_rows):
+        total = total + tc_product(x[r:r + run_rows].T, g[r:r + run_rows], passes)
     return total
 
 
@@ -85,10 +87,19 @@ def _product_case(seed, d):
     return x, w
 
 
-def _dw_case(seed, d):
+def _one_bank_case(seed, d):
+    """Kernel 5's product on one tile: x_src against W_msg, K = d, and the
+    relation's bias."""
+    x, w = _product_case(seed, d)
+    bias = torch.from_numpy(_rng(seed + 1).standard_normal(d).astype(np.float32))
+    return x[:, :d], w[:d], bias
+
+
+def _dw_case(seed, d_in, d_out=None):
     rng = _rng(seed)
-    x = torch.from_numpy(rng.standard_normal((DW_ROWS, d)).astype(np.float32))
-    g = torch.from_numpy(rng.standard_normal((DW_ROWS, d)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((DW_ROWS, d_in)).astype(np.float32))
+    g = torch.from_numpy(
+        rng.standard_normal((DW_ROWS, d_out or d_in)).astype(np.float32))
     return x, g
 
 
@@ -127,12 +138,32 @@ def test_3xtf32_products_meet_the_gate(d):
 
 
 @pytest.mark.parametrize("d", [40, 64, 128])
-def test_3xtf32_dw_sum_over_runs_meets_the_scaled_gate(d):
-    x, g = _dw_case(100 + d, d)
+def test_3xtf32_one_bank_products_with_the_bias_meet_the_gate(d):
+    # Kernel 5: K = d_in, the bias added to the 3xTF32 sum in f32.
+    x, w, bias = _one_bank_case(d, d)
+    ref = x.double() @ w.double() + bias.double()
+    err = _err(tc_product(x, w) + bias, ref)
+    assert err <= GATE, err
+    assert err <= 2 * _err(sequential_f32(x, w) + bias, ref), err
+
+
+def _check_dw_by_runs(x, g, run_rows=RUN_ROWS):
     ref = x.double().T @ g.double()
-    err = _err(dw_by_runs(x, g), ref, scaled=True)
+    err = _err(dw_by_runs(x, g, run_rows=run_rows), ref, scaled=True)
     assert err <= GATE, err
     assert err <= 2 * _err(sequential_f32(x.T.contiguous(), g), ref, scaled=True), err
+
+
+@pytest.mark.parametrize("d", [40, 64, 128])
+def test_3xtf32_dw_sum_over_runs_meets_the_scaled_gate(d):
+    _check_dw_by_runs(*_dw_case(100 + d, d))
+
+
+@pytest.mark.parametrize("d_in,d_out", [(40, 72), (72, 40)])
+def test_3xtf32_dw_sum_over_runs_at_two_widths(d_in, d_out):
+    # Kernel 6 takes any d_in and d_out, in runs of 2 tiles: its dW against
+    # a float64 sum.
+    _check_dw_by_runs(*_dw_case(200 + d_in, d_in, d_out), run_rows=512)
 
 
 @pytest.mark.parametrize("d", [64, 128])
