@@ -23,7 +23,17 @@ JAX, and fails (non-zero exit, no result line) on any failed phase:
    5 and 6 (3xTF32 on the tensor cores) must come within twice the plain
    f32 version's error of a float64 reference, output by output (dW
    scaled); kernels 1, 3, 6 and 7 must be bitwise deterministic, and
-   kernels 3 and 6's dW of relations no tile visits exactly 0;
+   kernels 3 and 6's dW of relations no tile visits exactly 0; kernels 3
+   and 6 are also timed against the fair library composition, ``bmm`` per
+   tile plus ``index_add_`` of the tile partials into their relations;
+   then the speed mode's forms at the same shapes: the bf16 forms of
+   kernels 1, 2 and 3 against their plain bf16 versions (bf16 outputs
+   within one bf16 ulp of the largest value, 2^-7 · max|plain|; f32 sums
+   of bf16 rows, kernel 3's dW among them, within the f32 gate),
+   deterministic, dW of unvisited relations 0, bounds in bf16 bytes or
+   operations over 989 TFLOP/s of dense bf16; and the one-TF32-pass mode
+   of kernels 2 and 3 (precision="default") by its float64 error, scaled
+   under 4e-3 (bf16-class), its bound at 495 TFLOP/s of TF32;
 4. serving: the xl model at full width (text=64, F=H=64, 2 layers, random
    weights from seed 0) answers 3 zero-shot requests, each wiring two edges
    of a never-seen relation text into the xl graph, then encoding, running
@@ -43,6 +53,16 @@ JAX, and fails (non-zero exit, no result line) on any failed phase:
    group-padded) 3 steps with the same roll shifts on the card's ``cuda``
    backend must agree with the card's ``gather`` oracle and with the CPU;
    kernels 5, 6 and 7 must launch 0 times in the serving and training runs;
+   speed mode: the xl and xl-d128 models in ``compute_dtype="bfloat16"``
+   and, separately, in ``precision="default"`` take 1 warm-up and 5 timed
+   steps each (finite losses, launches by form equal to the count derived
+   from the code, ms/step, edges/s, peak memory, one profiled step); one
+   xl speed-mode forward with its device time; and at the bench size 3
+   speed-mode steps on the card's ``cuda`` backend against the card's
+   ``gather`` oracle in speed mode (per-layer embeddings within 1e-2
+   scaled, gradient cosine > 0.999) and against the card's f32 run
+   (relative error < 5e-2, gradient cosine > 0.99), and one step with
+   ``precision="default"``;
 6. two-stream layer: one xl message-passing layer at d=64 and d=128
    through ``edge_contributions_cuda_sorted`` (kernel 5) and the
    two-stream tail, forward and backward (kernels 5, 6 and 1), against the
@@ -60,13 +80,16 @@ JAX, and fails (non-zero exit, no result line) on any failed phase:
 8. dense and chunked: the bench config in the stored edge order, per-layer
    embeddings and parameter gradients against the card's ``gather`` oracle
    and against the CPU;
-9. the training line, the kernels line, the card line and the result line,
-   which is last: ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
+9. the training line, the kernels line (each kernel, then each bf16 form
+   and one-TF32-pass mode as an entry of its own, ``name[form]``, with its
+   launches on its path), the card line and the result line, which is
+   last: ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
    "count": 1}}``.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -131,6 +154,9 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
 TF32X3_PASSES = 3
+# Dense bf16 on the tensor cores (the same data sheet): the bound of the
+# bf16 forms' products.
+BF16_FLOP_PER_S = 989e12
 
 # Kernel vs plain: f32 sums of a few dozen order-1 terms (segments of ~20
 # rows; kernels 2 and 3's dot products of d terms), taken in another order.
@@ -147,6 +173,20 @@ SERVING_ATOL = 3e-5
 # gradient moves them by percents). Parameters after the steps: each within
 # that 2·lr-per-step sign flip, and 99.9% of them within 1e-5.
 GRAD_ATOL, LOSS_RTOL, PARAM_Q999_ATOL = 3e-5, 1e-4, 1e-5
+# Speed mode. A bf16 output of a kernel against its plain bf16 version:
+# one bf16 ulp of the largest value (the same exact f32 products summed in
+# another order may round to either neighbour). The one-TF32-pass mode
+# against float64, after dividing by max(1, max|reference|): bf16-class.
+# The model in speed mode at the bench size: per-layer embeddings against
+# the gather oracle in speed mode within 1e-2 scaled (contribution rows
+# rounded to bf16 on both sides, one ulp apart where their f32 sums differ
+# in order) and gradient cosine > 0.999; against the f32 run the JAX
+# package's gates (tests/test_speed_mode.py:73, :136).
+BF16_ULP, ONE_PASS_SCALED = 2.0**-7, 4e-3
+SPEED_ATOL, SPEED_COS_ORACLE = 1e-2, 0.999
+SPEED_VS_F32_RTOL, SPEED_COS_F32 = 5e-2, 0.99
+SPEED = dict(compute_dtype="bfloat16")
+ONE_PASS = dict(precision="default")
 
 KERNELS = {
     "csr_segment_sum": dict(
@@ -225,6 +265,59 @@ TWO_STREAM_LAUNCHES = dict(
 # cotangents; the per-relation products are PyTorch matmuls.
 GROUPED_LAUNCHES = dict({name: 0 for name in STEP_LAUNCHES}, csr_segment_sum=4 * LAYERS)
 GROUPED_TIMED = 3
+FORMS = ("f32", "tf32", "bf16")
+
+
+def mode_form(mode: dict) -> str:
+    """The form kernels 2 and 3 run in under a config ``mode``."""
+    if mode.get("compute_dtype") == "bfloat16":
+        return "bf16"
+    return "tf32" if mode.get("precision") == "default" else "f32"
+
+
+def step_launches_by_form(mode: dict) -> dict:
+    """Launches per training step by form, counted from the code: kernels
+    2 and 3 once a layer in the mode's form. Kernel 1 as in STEP_LAUNCHES;
+    in speed mode its rows are bf16 in the forward tail, the h[src] and
+    h[dst] cotangents and dbias (4 a layer), and f32 for kernel 3's run
+    partials (1 a layer) and in the f32 loss (2)."""
+    out = {name: dict.fromkeys(FORMS, 0) for name in KERNELS}
+    form = mode_form(mode)
+    if form == "bf16":
+        out["csr_segment_sum"].update(bf16=4 * LAYERS, f32=LAYERS + 2)
+    else:
+        out["csr_segment_sum"]["f32"] = STEP_LAUNCHES["csr_segment_sum"]
+    out["edge_transform_sorted_combined"][form] = LAYERS
+    out["edge_transform_combined_bwd"][form] = LAYERS
+    return out
+
+
+# The speed mode's forms in the kernels line, with the TPU kernel branch
+# each replaces.
+FORM_REPLACES = {
+    ("csr_segment_sum", "bf16"): (
+        "graph_hypernetwork_forge_tpu/ops/pallas/segment_sum.py:65 _make_kernel, "
+        "its bf16 rows (:69, :117-118), of sorted_segment_sum_pallas (:198) and "
+        "sorted_segment_sum_packed64 (:415)"
+    ),
+    ("edge_transform_sorted_combined", "bf16"): (
+        "graph_hypernetwork_forge_tpu/ops/pallas/edge_transform.py:239 "
+        "edge_transform_sorted_combined, its kernel's bf16 branch (:166-182)"
+    ),
+    ("edge_transform_combined_bwd", "bf16"): (
+        "graph_hypernetwork_forge_tpu/ops/pallas/edge_transform.py:368 "
+        "_combined_bwd_fused_impl, its kernel's bf16 branch (:344, :351, :355, "
+        ":410-411)"
+    ),
+    ("edge_transform_sorted_combined", "tf32"): (
+        "graph_hypernetwork_forge_tpu/ops/pallas/edge_transform.py:239 "
+        "edge_transform_sorted_combined at default precision (one pass, :169)"
+    ),
+    ("edge_transform_combined_bwd", "tf32"): (
+        "graph_hypernetwork_forge_tpu/ops/pallas/edge_transform.py:368 "
+        "_combined_bwd_fused_impl at default precision (one pass, :344)"
+    ),
+}
 
 FAILURES: list[str] = []
 
@@ -243,6 +336,10 @@ def check(ok: bool, msg: str) -> None:
 
 def launch_counts() -> dict:
     return {name: getattr(kernels, name).launches for name in KERNELS}
+
+
+def launch_counts_by_form() -> dict:
+    return {name: dict(getattr(kernels, name).launches_by_form) for name in KERNELS}
 
 
 def card_line() -> str:
@@ -272,12 +369,15 @@ def scaled_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return (got - want).abs().max().item() / max(1.0, want.abs().max().item())
 
 
-def bound(nbytes: float, flops: float, matrix: bool = False) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, matrix: bool = False,
+          rate: float | None = None) -> tuple[float, str]:
     """The least ms for ``nbytes`` of traffic and ``flops`` operations, and
     which of the two bounds it. ``matrix``: the operations are f32-class
-    products, at the tensor cores' 3xTF32 rate; else f32 on the CUDA cores."""
+    products, at the tensor cores' 3xTF32 rate; else f32 on the CUDA cores,
+    unless ``rate`` (operations per second) is given."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    rate = TF32_FLOP_PER_S / TF32X3_PASSES if matrix else F32_FLOP_PER_S
+    if rate is None:
+        rate = TF32_FLOP_PER_S / TF32X3_PASSES if matrix else F32_FLOP_PER_S
     t_ops = flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -328,6 +428,13 @@ def encode(ei, etexts):
     )
 
 
+@functools.lru_cache(maxsize=2)
+def xl_graph(width: int = WIDTH):
+    """The xl features and encoded graph at ``width``, encoded once."""
+    feats_np, ei, etexts, _ = xl_edges(width=width)
+    return feats_np, encode(ei, etexts)
+
+
 # ---------------------------------------------------------------------------
 # Phases
 # ---------------------------------------------------------------------------
@@ -362,8 +469,7 @@ def _kernel_graph():
     return encode(ei, etexts)
 
 
-def phase_kernels(dev) -> dict:
-    g = _kernel_graph()
+def phase_kernels(dev, g) -> dict:
     plan = g.sort_plan.to(dev)
     rel = torch.as_tensor(g.rel_ids, device=dev)
     e_rows, n, u_pad = g.rel_ids.shape[0], XL_N, g.char_ids.shape[0]
@@ -456,13 +562,20 @@ def phase_kernels(dev) -> dict:
               f"relations {unvisited} is not exactly 0")
         err = max((a - b).abs().max().item() for a, b in zip(out[:2], plain[:2]))
         dw_err = max(scaled_err(a, b) for a, b in zip(out[2:], plain[2:]))
-        # The nearest library composition: one bmm of the g tiles against
+        # The library composition: one bmm of the g tiles against
         # tile-gathered [W_msgᵀ | W_selfᵀ] for both dx, one bmm of the
-        # [x_src | x_dst]ᵀ tiles against g for the per-tile dW; neither the
-        # gathers nor the per-relation reduction is timed.
+        # [x_src | x_dst]ᵀ tiles against g for the per-tile dW, and
+        # index_add_ of the tile partials into their relations (the same
+        # function; the bank gather is not timed). bmm_ms leaves out the
+        # reduction, as PRs 1-5 timed it.
         g_tiles = g_out.view(tiles, 256, d)
         w_t = torch.cat([wm, ws], dim=1)[tile_rel].transpose(1, 2).contiguous()
         x_t = x_cat.transpose(1, 2)
+
+        def k3_library(g_tiles=g_tiles, w_t=w_t, x_t=x_t):
+            dw = torch.zeros(u_pad, 2 * d, d, device=dev)
+            return torch.bmm(g_tiles, w_t), dw.index_add_(0, tile_rel, torch.bmm(x_t, g_tiles))
+
         nbytes = (5 * e_rows * d + tiles + 2 * u_vis * d * d + 2 * u_pad * d * d) * 4
         f64 = float64_errors(fn, kernels.edge_transform_combined_bwd_plain, args,
                              scaled=(2, 3))
@@ -474,12 +587,11 @@ def phase_kernels(dev) -> dict:
             plain_ms=cuda_ms(
                 lambda: kernels.edge_transform_combined_bwd_plain(*args)
             ),
-            library_ms=cuda_ms(
-                lambda: (torch.bmm(g_tiles, w_t), torch.bmm(x_t, g_tiles))
-            ),
+            library_ms=cuda_ms(k3_library),
+            bmm_ms=cuda_ms(lambda: (torch.bmm(g_tiles, w_t), torch.bmm(x_t, g_tiles))),
             **matrix_bounds(nbytes, 8 * e_rows * d * d),
         )
-        del args, out, again, plain, x_cat, w_t, x_t
+        del args, out, again, plain, x_cat, w_t, x_t, k3_library
 
         # Kernel 5, the two-output transform, on kernel 2's rows and banks.
         # Library: two batched products over the tile-gathered banks.
@@ -511,7 +623,8 @@ def phase_kernels(dev) -> dict:
         # Kernel 6, the segment outer product, of x_src against kernel 3's
         # cotangent. Its wrapper launches kernel 6 and then kernel 1 over
         # the run partials; its time is the whole wrapper's. Library: one
-        # bmm of the xᵀ tiles against the g tiles, without the reduction.
+        # bmm of the xᵀ tiles against the g tiles and index_add_ of the tile
+        # partials into their relations; bmm_ms the bmm alone.
         args = (xs, g_out, rel, u_pad)
         fn = kernels.segment_outer
         out = fn(*args)
@@ -523,18 +636,24 @@ def phase_kernels(dev) -> dict:
               f"segment_outer d={d}: dW of the unvisited relations is not exactly 0")
         err = scaled_err(out, plain)
         xs_tt = xs_t.transpose(1, 2)
+
+        def k6_library(xs_tt=xs_tt, g_tiles=g_tiles):
+            dw = torch.zeros(u_pad, d, d, device=dev)
+            return dw.index_add_(0, tile_rel, torch.bmm(xs_tt, g_tiles))
+
         [f64] = float64_errors(fn, kernels.segment_outer_plain, args, scaled=(0,))
         results[("segment_outer", d)] = dict(
             max_abs_err=(out - plain).abs().max().item(), dw_scaled_err=err,
             checked=[err], f64_err=f64[0], plain_f64_err=f64[1], checked_f64=[f64],
             ms=cuda_ms(lambda: fn(*args)),
             plain_ms=cuda_ms(lambda: kernels.segment_outer_plain(*args)),
-            library_ms=cuda_ms(lambda: torch.bmm(xs_tt, g_tiles)),
+            library_ms=cuda_ms(k6_library),
+            bmm_ms=cuda_ms(lambda: torch.bmm(xs_tt, g_tiles)),
             **matrix_bounds((2 * e_rows * d + tiles + u_pad * d * d) * 4,
                             2 * e_rows * d * d),
         )
         del xs, xd, wm, ws, bias, g_out, args, out, again, plain, xs_t, xd_t, xs_tt
-        del g_tiles
+        del g_tiles, k6_library
         torch.cuda.empty_cache()
 
         # Kernel 7, the dual CSR segment-sum, over the src-sorted and
@@ -578,10 +697,11 @@ def phase_kernels(dev) -> dict:
                if "f64_err" in r else "")
         core = (f" [CUDA-core bound {r['cuda_core_bound_ms']:.4f}]"
                 if "cuda_core_bound_ms" in r else "")
+        bmm = f" (bmm alone {r['bmm_ms']:.4f})" if "bmm_ms" in r else ""
         log(f"kernel {name} d={d}: max_abs_err {r['max_abs_err']:.3e}{dw} "
             f"(tol {KERNEL_ATOL}){f64} | ms {r['ms']:.4f} bound {r['bound_ms']:.4f} "
             f"({r['bound_by']}){core} plain {r['plain_ms']:.4f} "
-            f"library {r['library_ms']:.4f}")
+            f"library {r['library_ms']:.4f}{bmm}")
         # A dW sums thousands of products: it is held after scaling.
         checked = r.get("checked", [r["max_abs_err"], r.get("dw_scaled_err", 0.0)])
         check(max(checked) <= KERNEL_ATOL, f"{name} d={d} disagrees with its plain version")
@@ -589,6 +709,192 @@ def phase_kernels(dev) -> dict:
         check(all(k <= 2 * p for k, p in r.get("checked_f64", [])),
               f"{name} d={d}: float64 error over twice the plain version's "
               f"{r.get('checked_f64')}")
+    return results
+
+
+def _tf32_library_ms(fn) -> float:
+    """``cuda_ms(fn)`` with PyTorch's TF32 on, so that its products take one
+    TF32 pass as the one-pass mode does; TF32 is off again after."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return cuda_ms(fn)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def phase_kernel_forms(dev, g) -> dict:
+    """The speed mode's forms at the xl shapes: kernels 1, 2 and 3 in bf16
+    against their plain bf16 versions, and kernels 2 and 3 in one TF32 pass
+    (precision="default") by their float64 error, with times and bounds.
+    Keys ``(name, form, d)``."""
+    plan = g.sort_plan.to(dev)
+    rel = torch.as_tensor(g.rel_ids, device=dev)
+    e_rows, n, u_pad = g.rel_ids.shape[0], XL_N, g.char_ids.shape[0]
+    pad_sorted = torch.as_tensor(g.edge_mask[g.sort_plan.dst_perm] == 0, device=dev)
+    visited = set(g.rel_ids[::256].tolist())
+    unvisited = [r for r in range(u_pad) if r not in visited]
+    u_vis, tiles = len(visited), e_rows // 256
+    tile_rel = rel[::256].long()
+    rows = int(g.sort_plan.dst_splits[n] - g.sort_plan.dst_splits[0])
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(1)
+    results = {}
+    for d in (64, 128):
+        # Kernel 1's bf16 form over the dst-sorted rows (pad rows zero):
+        # f32 sums of bf16 rows against the plain version's, in another
+        # order. Library: torch.segment_reduce on the bf16 rows.
+        x = torch.randn(e_rows, d, device=dev, generator=gen).to(bf16)
+        x[pad_sorted] = 0.0
+        splits, fn = plan.dst_splits, kernels.csr_segment_sum
+        out, again = fn(x, splits, n), fn(x, splits, n)
+        plain = kernels.csr_segment_sum_plain(x, splits, n)
+        torch.cuda.synchronize()
+        check(out.dtype == torch.float32 and torch.equal(out, again),
+              f"csr_segment_sum[bf16] d={d}: not f32, or two runs differ")
+        check(not out[7].any(), f"csr_segment_sum[bf16] d={d}: empty segment 7 is not 0")
+        offsets = splits[: n + 1].long()
+        b_ms, b_by = bound(rows * d * 2 + ((n + 1) + n * d) * 4, rows * d)
+        results[("csr_segment_sum", "bf16", d)] = dict(
+            max_abs_err=(out - plain).abs().max().item(), tol=KERNEL_ATOL,
+            ms=cuda_ms(lambda: fn(x, splits, n)),
+            plain_ms=cuda_ms(lambda: kernels.csr_segment_sum_plain(x, splits, n)),
+            library_ms=cuda_ms(
+                lambda: torch.segment_reduce(x, "sum", offsets=offsets, unsafe=True)),
+            bound_ms=b_ms, bound_by=b_by,
+        )
+        del x, out, again, plain
+
+        # Kernels 2 and 3 on random rows, banks and cotangent: in bf16, and
+        # in f32 for the one-pass mode.
+        xs, xd, g_out = (torch.randn(e_rows, d, device=dev, generator=gen) for _ in range(3))
+        wm, ws = (torch.randn(u_pad, d, d, device=dev, generator=gen) / d**0.5
+                  for _ in range(2))
+        bias = torch.randn(u_pad, d, device=dev, generator=gen)
+        f32_fwd, f32_bwd = (xs, xd, rel, wm, ws, bias), (g_out, xs, xd, rel, wm, ws)
+        fwd, bwd = ([t.to(bf16) if t.is_floating_point() else t for t in a]
+                    for a in (f32_fwd, f32_bwd))
+
+        # Kernel 2's bf16 form. Library: baddbmm in bf16 over the
+        # tile-gathered banks (the gather not timed).
+        fn, plain_fn = (kernels.edge_transform_sorted_combined,
+                        kernels.edge_transform_sorted_combined_plain)
+        out, plain = fn(*fwd), plain_fn(*fwd)
+        torch.cuda.synchronize()
+        check(out.dtype == bf16, f"edge_transform_sorted_combined[bf16] d={d}: not bf16")
+        x_cat = torch.cat(fwd[:2], dim=1).view(tiles, 256, 2 * d)
+        w_cat = torch.cat(fwd[3:5], dim=1)[tile_rel]
+        b_tile = fwd[5][tile_rel][:, None, :]
+        b_ms, b_by = bound((2 * e_rows * d + 2 * u_vis * d * d + u_vis * d + e_rows * d) * 2
+                           + tiles * 4, 2 * 2 * e_rows * d * d + e_rows * d,
+                           rate=BF16_FLOP_PER_S)
+        results[("edge_transform_sorted_combined", "bf16", d)] = dict(
+            max_abs_err=(out.float() - plain.float()).abs().max().item(),
+            tol=BF16_ULP * plain.float().abs().max().item(),
+            ms=cuda_ms(lambda: fn(*fwd)), plain_ms=cuda_ms(lambda: plain_fn(*fwd)),
+            library_ms=cuda_ms(lambda: torch.baddbmm(b_tile, x_cat, w_cat)),
+            bound_ms=b_ms, bound_by=b_by,
+        )
+        del out, plain, w_cat, b_tile
+
+        # Kernel 3's bf16 form: dx in bf16 within one ulp, dW f32 (kernel
+        # 1's f32 form over the run partials) within the f32 gate.
+        # Library: bmm in bf16 per tile and index_add_ of the tile partials
+        # (rounded to bf16 per tile) into their relations.
+        fn, plain_fn = (kernels.edge_transform_combined_bwd,
+                        kernels.edge_transform_combined_bwd_plain)
+        out, again, plain = fn(*bwd), fn(*bwd), plain_fn(*bwd)
+        torch.cuda.synchronize()
+        name = "edge_transform_combined_bwd[bf16]"
+        check(all(torch.equal(a, b) for a, b in zip(out, again)),
+              f"{name} d={d}: two runs differ")
+        check(bool(unvisited) and not any(dw[unvisited].any() for dw in out[2:]),
+              f"{name} d={d}: dW of the unvisited relations is not exactly 0")
+        check([t.dtype for t in out] == [bf16, bf16, torch.float32, torch.float32],
+              f"{name} d={d}: dtypes {[t.dtype for t in out]}")
+        g_tiles = bwd[0].view(tiles, 256, d)
+        w_t = torch.cat(bwd[4:6], dim=1)[tile_rel].transpose(1, 2).contiguous()
+        x_t = x_cat.transpose(1, 2)
+
+        def k3_library(g_tiles=g_tiles, w_t=w_t, x_t=x_t):
+            dw = torch.zeros(u_pad, 2 * d, d, device=dev)
+            return (torch.bmm(g_tiles, w_t),
+                    dw.index_add_(0, tile_rel, torch.bmm(x_t, g_tiles).float()))
+
+        b_ms, b_by = bound(5 * e_rows * d * 2 + tiles * 4 + 2 * u_vis * d * d * 2
+                           + 2 * u_pad * d * d * 4, 8 * e_rows * d * d,
+                           rate=BF16_FLOP_PER_S)
+        results[("edge_transform_combined_bwd", "bf16", d)] = dict(
+            max_abs_err=max((a.float() - b.float()).abs().max().item()
+                            for a, b in zip(out[:2], plain[:2])),
+            tol=BF16_ULP * max(b.float().abs().max().item() for b in plain[:2]),
+            dw_scaled_err=max(scaled_err(a, b) for a, b in zip(out[2:], plain[2:])),
+            ms=cuda_ms(lambda: fn(*bwd)), plain_ms=cuda_ms(lambda: plain_fn(*bwd)),
+            library_ms=cuda_ms(k3_library), bound_ms=b_ms, bound_by=b_by,
+        )
+        del out, again, plain, g_tiles, w_t, x_t, x_cat, k3_library, fwd, bwd
+        torch.cuda.empty_cache()
+
+        # The one-TF32-pass mode of kernels 2 and 3 on the f32 data, by its
+        # float64 error (scaled), bound at 495 TFLOP/s of TF32. Library:
+        # the f32 compositions above with PyTorch's TF32 on.
+        tiles_x = torch.cat([xs, xd], dim=1).view(tiles, 256, 2 * d)
+        w_cat = torch.cat([wm, ws], dim=1)[tile_rel]
+        b_tile = bias[tile_rel][:, None, :]
+        g_tiles = g_out.view(tiles, 256, d)
+        w_t = w_cat.transpose(1, 2).contiguous()
+
+        def k3_tf32_library():
+            dw = torch.zeros(u_pad, 2 * d, d, device=dev)
+            return (torch.bmm(g_tiles, w_t),
+                    dw.index_add_(0, tile_rel, torch.bmm(tiles_x.transpose(1, 2), g_tiles)))
+
+        for kname, plain_fn, args, nout, nbytes, flops, lib in (
+            ("edge_transform_sorted_combined", kernels.edge_transform_sorted_combined_plain,
+             f32_fwd, 1, (2 * e_rows * d + tiles + 2 * u_vis * d * d + u_vis * d
+                          + e_rows * d) * 4, 4 * e_rows * d * d + e_rows * d,
+             lambda: torch.baddbmm(b_tile, tiles_x, w_cat)),
+            ("edge_transform_combined_bwd", kernels.edge_transform_combined_bwd_plain,
+             f32_bwd, 4, (5 * e_rows * d + tiles + 2 * u_vis * d * d
+                          + 2 * u_pad * d * d) * 4, 8 * e_rows * d * d, k3_tf32_library),
+        ):
+            fn = getattr(kernels, kname)
+
+            def one_pass(*a, fn=fn):
+                return fn(*a, precision="default")
+
+            out, plain = one_pass(*args), plain_fn(*args)
+            out, plain = (out, plain) if nout > 1 else ((out,), (plain,))
+            err = max((a - b).abs().max().item() for a, b in zip(out, plain))
+            del out, plain
+            f64 = float64_errors(one_pass, plain_fn, args, scaled=tuple(range(nout)))
+            b_ms, b_by = bound(nbytes, flops, rate=TF32_FLOP_PER_S)
+            results[(kname, "tf32", d)] = dict(
+                max_abs_err=err, f64_scaled_err=max(k for k, _ in f64),
+                plain_f64_scaled_err=max(p for _, p in f64),
+                ms=cuda_ms(lambda: one_pass(*args)),
+                plain_ms=cuda_ms(lambda: plain_fn(*args)),
+                library_ms=_tf32_library_ms(lib), bound_ms=b_ms, bound_by=b_by,
+            )
+        del xs, xd, g_out, wm, ws, bias, f32_fwd, f32_bwd, tiles_x, w_cat, b_tile
+        del g_tiles, w_t, k3_tf32_library
+        torch.cuda.empty_cache()
+
+    for (name, form, d), r in results.items():
+        extra = (f" dW scaled err {r['dw_scaled_err']:.3e} (tol {KERNEL_ATOL})"
+                 if "dw_scaled_err" in r else "")
+        if form == "tf32":
+            gate = (f"vs float64 scaled {r['f64_scaled_err']:.3e} (tol {ONE_PASS_SCALED}), "
+                    f"plain f32 {r['plain_f64_scaled_err']:.3e}; vs plain "
+                    f"{r['max_abs_err']:.3e}")
+        else:
+            gate = f"max_abs_err {r['max_abs_err']:.3e} (tol {r['tol']:.3e})"
+        log(f"kernel {name}[{form}] d={d}: {gate}{extra} | ms {r['ms']:.4f} bound "
+            f"{r['bound_ms']:.4f} ({r['bound_by']}) plain {r['plain_ms']:.4f} "
+            f"library {r['library_ms']:.4f}")
+        ok = (r["f64_scaled_err"] <= ONE_PASS_SCALED if form == "tf32"
+              else r["max_abs_err"] <= r["tol"])
+        check(ok and r.get("dw_scaled_err", 0.0) <= KERNEL_ATOL,
+              f"{name}[{form}] d={d} disagrees with its reference")
     return results
 
 
@@ -693,22 +999,25 @@ def profile_device(label: str, fn, rows: int = 14) -> dict:
                 top=[dict(name=n[:90], calls=c, ms=ms) for n, c, ms in device[:rows]])
 
 
-def train_config(backend: str = "cuda", width: int = WIDTH) -> HyperGNNConfig:
+def train_config(backend: str = "cuda", width: int = WIDTH, **mode) -> HyperGNNConfig:
     """The xl training config of benchmarks/scaling.py: 2 layers, width 64
-    (128 for xl-d128), the relation-sorted group-padded layout, dropout 0."""
+    (128 for xl-d128), the relation-sorted group-padded layout, dropout 0;
+    ``mode`` sets compute_dtype / precision (benchmarks/scaling.py's
+    GHF_SCALING_DTYPE / GHF_SCALING_PRECISION)."""
     return HyperGNNConfig(
         text_dim=TEXT_DIM, node_feat_dim=width, hidden_dim=width,
         num_layers=LAYERS, backend=backend, rel_sorted=True, group_padded=True,
+        **mode,
     )
 
 
-def _trainer(graph, feats_np, init, backend, device, width=WIDTH):
+def _trainer(graph, feats_np, init, backend, device, width=WIDTH, mode=None):
     """``step(shift=None) -> loss`` over fresh Adam state on ``device``, and
     the parameter tree it updates in place."""
     state = create_train_state(
         tree_map(lambda t: t.to(device), init), adam(LEARNING_RATE)
     )
-    step = make_train_step(train_config(backend, width), neg_mode="roll")
+    step = make_train_step(train_config(backend, width, **(mode or {})), neg_mode="roll")
     feats = torch.as_tensor(feats_np, device=device)
     arrays = [torch.as_tensor(a, device=device) for a in graph.arrays]
     plan = graph.sort_plan.to(device)
@@ -722,14 +1031,16 @@ def _trainer(graph, feats_np, init, backend, device, width=WIDTH):
     return run, state.params
 
 
-def phase_training(dev, width: int = WIDTH) -> dict:
+def phase_training(dev, width: int = WIDTH, mode: dict | None = None) -> dict:
     """1 warm-up and TRAIN_STEPS timed xl steps at ``width`` (64: xl,
-    128: xl-d128), then one more step under the profiler."""
-    name = "xl" if width == WIDTH else f"xl-d{width}"
-    feats_np, ei, etexts, _ = xl_edges(width=width)
-    graph = encode(ei, etexts)
+    128: xl-d128) in ``mode`` (f32 by default; SPEED or ONE_PASS), then one
+    more step under the profiler."""
+    mode = mode or {}
+    name = ("xl" if width == WIDTH else f"xl-d{width}") + "".join(
+        f" {k}={v}" for k, v in mode.items())
+    feats_np, graph = xl_graph(width)
     init = init_hypergnn(train_config(width=width), torch.Generator().manual_seed(0))
-    run, _ = _trainer(graph, feats_np, init, "cuda", dev, width)
+    run, params = _trainer(graph, feats_np, init, "cuda", dev, width, mode)
     torch.cuda.reset_peak_memory_stats(dev)
     warm = run()
     torch.cuda.synchronize()
@@ -739,7 +1050,7 @@ def phase_training(dev, width: int = WIDTH) -> dict:
     losses = [run() for _ in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = launch_counts()
+    launches, by_form = launch_counts(), launch_counts_by_form()
     losses = [warm.item()] + [loss.item() for loss in losses]
     ms_step = seconds / TRAIN_STEPS * 1e3
     edges_s = XL_E * TRAIN_STEPS / seconds
@@ -749,9 +1060,18 @@ def phase_training(dev, width: int = WIDTH) -> dict:
         f"({TRAIN_STEPS} steps, {XL_E:,} real edges of {graph.src.shape[0]:,} rows), "
         f"peak memory {peak_gb:.2f} GB")
     log(f"training {name} launches over {TRAIN_STEPS} steps: {launches}")
+    log(f"training {name} launches by form: {by_form}")
     check(all(np.isfinite(losses)), f"training {name}: a loss is not finite")
     want = {k: v * TRAIN_STEPS for k, v in STEP_LAUNCHES.items()}
     check(launches == want, f"training {name} launch counts {launches} != {want}")
+    want = {k: {f: v * TRAIN_STEPS for f, v in forms.items()}
+            for k, forms in step_launches_by_form(mode).items()}
+    check(by_form == want, f"training {name} launches by form {by_form} != {want}")
+    # Master parameters, their gradients and the loss stay f32 in every mode.
+    check(warm.dtype == torch.float32
+          and all(t.dtype == torch.float32 and t.grad.dtype == torch.float32
+                  for _, t in named_leaves(params)),
+          f"training {name}: the loss, a parameter or its gradient is not f32")
     profile = profile_device(f"one more {name} training step", run)
     # The profiler slows the host, not the kernels: the profiled step's
     # device time over the unprofiled step time is the card's busy share.
@@ -760,7 +1080,7 @@ def phase_training(dev, width: int = WIDTH) -> dict:
         f"(profiled device time over unprofiled ms/step)")
     return dict(ms_per_step=ms_step, edges_per_s=edges_s, losses=losses,
                 peak_memory_gb=peak_gb, device_busy_share=busy,
-                launches=launches, profile=profile)
+                launches=launches, launches_by_form=by_form, profile=profile)
 
 
 def _leaves(params, grads: bool) -> dict:
@@ -768,18 +1088,25 @@ def _leaves(params, grads: bool) -> dict:
             for path, t in named_leaves(params)}
 
 
-def phase_training_parity(dev) -> dict:
-    """The bench config (bench.py): PARITY_STEPS steps with the same roll
-    shifts through the card's ``cuda`` backend, the card's ``gather``
-    oracle and the CPU (the kernels' plain versions), from one init."""
+@functools.cache
+def bench_graph():
+    """The bench config's features and graph (bench.py), relation-sorted,
+    group-padded, with a sort plan."""
     rng = np.random.default_rng(0)
     feats_np = rng.standard_normal((BENCH_N, WIDTH)).astype(np.float32)
     ei = np.stack([rng.integers(0, BENCH_N, BENCH_E),
                    rng.integers(0, BENCH_N, BENCH_E)]).astype(np.int64)
     texts = [f"relation type number {i} with descriptive text" for i in range(BENCH_U)]
     etexts = [texts[i] for i in rng.integers(0, BENCH_U, BENCH_E)]
-    graph = encode_graph(ei, etexts, BENCH_N, sort_by_relation=True,
-                         with_sort_plan=True, group_pad=256)
+    return feats_np, encode_graph(ei, etexts, BENCH_N, sort_by_relation=True,
+                                  with_sort_plan=True, group_pad=256)
+
+
+def phase_training_parity(dev) -> dict:
+    """The bench config (bench.py): PARITY_STEPS steps with the same roll
+    shifts through the card's ``cuda`` backend, the card's ``gather``
+    oracle and the CPU (the kernels' plain versions), from one init."""
+    feats_np, graph = bench_graph()
     init = init_hypergnn(train_config(), torch.Generator().manual_seed(0))
     shifts = np.random.default_rng(2).integers(1, graph.src.shape[0], PARITY_STEPS)
     runs = {}
@@ -814,11 +1141,111 @@ def phase_training_parity(dev) -> dict:
     return report
 
 
-def phase_two_stream(dev, d: int) -> dict:
+def _cosine(a: dict, b: dict) -> float:
+    """Cosine of two gradient trees, flattened in one order."""
+    x = torch.cat([a[p].double().flatten().cpu() for p in sorted(b)])
+    y = torch.cat([b[p].double().flatten().cpu() for p in sorted(b)])
+    return torch.nn.functional.cosine_similarity(x, y, dim=0).item()
+
+
+def phase_speed_forward(dev) -> dict:
+    """One xl forward in speed mode through ``apply_hypergnn`` (the JAX
+    wrapper takes no compute_dtype, nor does the port's), against the f32
+    forward, its launches by form and its device time."""
+    feats_np, graph = xl_graph(WIDTH)
+    init = init_hypergnn(train_config(), torch.Generator().manual_seed(0))
+    params = tree_map(lambda t: t.to(dev), init)
+    feats = torch.as_tensor(feats_np, device=dev)
+    arrays = [torch.as_tensor(a, device=dev) for a in graph.arrays]
+    plan = graph.sort_plan.to(dev)
+
+    def forward(mode):
+        with torch.inference_mode():
+            return apply_hypergnn(train_config(**mode), params, feats, *arrays,
+                                  sort_plan=plan)
+
+    kernels.reset_launch_counts()
+    embs = forward(SPEED)
+    torch.cuda.synchronize()
+    by_form = launch_counts_by_form()
+    ref = forward({})
+    rel_err = ((embs - ref).abs().max() / ref.abs().max()).item()
+    log(f"speed-mode xl forward: vs f32 rel err {rel_err:.3e} (tol {SPEED_VS_F32_RTOL}) "
+        f"| launches by form {by_form}")
+    check(embs.dtype == torch.float32 and embs.shape == (XL_N, WIDTH)
+          and bool(torch.isfinite(embs).all()), "speed-mode forward: not finite f32")
+    check(rel_err < SPEED_VS_F32_RTOL, "speed-mode forward: too far from f32")
+    want = {name: dict.fromkeys(FORMS, 0) for name in KERNELS}
+    want["csr_segment_sum"]["bf16"] = want["edge_transform_sorted_combined"]["bf16"] = LAYERS
+    check(by_form == want, f"speed-mode forward launches {by_form} != {want}")
+    profile = profile_device("one more speed-mode xl forward", lambda: forward(SPEED))
+    ref_profile = profile_device("one f32 xl forward", lambda: forward({}))
+    return dict(rel_err_vs_f32=rel_err, launches_by_form=by_form, profile=profile,
+                f32_profile=ref_profile)
+
+
+def phase_speed_parity(dev) -> dict:
+    """Speed mode at the bench size on the card: per-layer embeddings and
+    gradients of ``Σ out · R`` on the ``cuda`` backend against the
+    ``gather`` oracle in speed mode and against the f32 run; then
+    PARITY_STEPS training steps of each with the same roll shifts, and one
+    step with precision="default" against the f32 step."""
+    feats_np, graph = bench_graph()
+    init = init_hypergnn(train_config(), torch.Generator().manual_seed(0))
+    report = {}
+    model = {label: _model_run(train_config(backend, **mode), _scale_one(
+                 tree_map(torch.clone, init)), feats_np, graph, dev)()
+             for label, backend, mode in (("speed", "cuda", SPEED),
+                                          ("speed gather", "gather", SPEED),
+                                          ("f32", "cuda", {}))}
+    (layers, grads) = model["speed"]
+    for ref, atol, cos_min in (("speed gather", SPEED_ATOL, SPEED_COS_ORACLE),
+                               ("f32", SPEED_VS_F32_RTOL, SPEED_COS_F32)):
+        ref_layers, ref_grads = model[ref]
+        if ref == "f32":  # relative to the largest value, as the JAX test
+            err = max(((a - b).abs().max() / b.abs().max()).item()
+                      for a, b in zip(layers, ref_layers))
+        else:
+            err = max(scaled_err(a, b) for a, b in zip(layers, ref_layers))
+        cos = _cosine(grads, ref_grads)
+        log(f"speed mode (bench, cuda) vs {ref}: per-layer err {err:.3e} (tol {atol}), "
+            f"gradient cosine {cos:.6f} (min {cos_min})")
+        check(err < atol and cos > cos_min, f"speed mode disagrees with the {ref} run")
+        report[f"model_vs_{ref}"] = dict(err=err, grad_cosine=cos)
+
+    shifts = np.random.default_rng(2).integers(1, graph.src.shape[0], PARITY_STEPS)
+    steps = {}
+    for label, backend, mode, n_steps in (
+        ("speed", "cuda", SPEED, PARITY_STEPS), ("speed gather", "gather", SPEED, PARITY_STEPS),
+        ("f32", "cuda", {}, PARITY_STEPS), ("one pass", "cuda", ONE_PASS, 1),
+    ):
+        run, params = _trainer(graph, feats_np, init, backend, dev, mode=mode)
+        losses = [run(int(shift)).item() for shift in shifts[:1]]
+        grads = _leaves(params, grads=True)
+        losses += [run(int(shift)).item() for shift in shifts[1:n_steps]]
+        steps[label] = (losses, grads)
+    for label, ref, rtol, cos_min in (
+        ("speed", "speed gather", SPEED_ATOL, SPEED_COS_ORACLE),
+        ("speed", "f32", SPEED_VS_F32_RTOL, SPEED_COS_F32),
+        ("one pass", "f32", SPEED_VS_F32_RTOL, SPEED_COS_F32),
+    ):
+        (losses, grads), (r_losses, r_grads) = steps[label], steps[ref]
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, r_losses))
+        cos = _cosine(grads, r_grads)
+        log(f"training {label} vs {ref} (bench, {len(losses)} steps): losses {losses}, "
+            f"loss rel err {loss_err:.3e} (tol {rtol}), first-step gradient cosine "
+            f"{cos:.6f} (min {cos_min})")
+        check(all(np.isfinite(losses)) and loss_err < rtol and cos > cos_min,
+              f"training {label} disagrees with {ref}")
+        report[f"training_{label}_vs_{ref}"] = dict(
+            losses=losses, loss_rel_err=loss_err, grad_cosine=cos)
+    return report
+
+
+def phase_two_stream(dev, g, d: int) -> dict:
     """One xl layer at width ``d`` through the two-stream path (kernels 5,
     6 and 1) against the ``cuda`` backend (kernels 2, 3 and 1), forward and
     backward of ``Σ out · R``."""
-    g = _kernel_graph()
     plan = g.sort_plan.to(dev)
     src, dst, rel, mask = (torch.as_tensor(a, device=dev) for a in g.arrays[:4])
     u_pad = g.char_ids.shape[0]
@@ -990,33 +1417,46 @@ def phase_dense_chunked(dev) -> dict:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     dev = phase_device()
     phase_build()
-    measured = phase_kernels(dev)
+    g = _kernel_graph()
+    measured = phase_kernels(dev, g)
+    forms = phase_kernel_forms(dev, g)
     served = phase_serving(dev)
     trained = phase_training(dev)
     # xl-d128 after xl: the kernels line keeps xl's launches.
     xl_d128 = phase_training(dev, 128)
     trained["parity"] = phase_training_parity(dev)
-    two_stream = {d: phase_two_stream(dev, d) for d in (64, 128)}
+    # The speed mode's path: the xl and xl-d128 steps in bf16 and in one
+    # TF32 pass, the speed-mode forward and the bench-size parity.
+    speed = {f"{label} d={width}": phase_training(dev, width, mode)
+             for label, mode in (("bf16", SPEED), ("precision=default", ONE_PASS))
+             for width in (WIDTH, 128)}
+    speed["forward"] = phase_speed_forward(dev)
+    speed["parity"] = phase_speed_parity(dev)
+    two_stream = {d: phase_two_stream(dev, g, d) for d in (64, 128)}
     grouped = phase_grouped(dev)
     dense_chunked = phase_dense_chunked(dev)
     if FAILURES:
         log(f"chip_smoke.py: {len(FAILURES)} check(s) failed: {FAILURES}")
         return 1
-    keys = ("max_abs_err", "dw_scaled_err", "f64_err", "plain_f64_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "cuda_core_bound_ms", "library_ms")
+    keys = ("max_abs_err", "dw_scaled_err", "f64_err", "plain_f64_err",
+            "f64_scaled_err", "plain_f64_scaled_err", "tol", "ms", "plain_ms",
+            "bound_ms", "bound_by", "cuda_core_bound_ms", "library_ms", "bmm_ms")
 
-    def numbers(name, d):
-        return {key: measured[(name, d)][key] for key in keys
-                if key in measured[(name, d)]}
+    def numbers(r):
+        return {key: r[key] for key in keys if key in r}
 
     # launches: kernels 1-3 over the timed training steps, kernels 5 and 6
     # in the d=64 two-stream layer (their path); kernel 7 is on no path, as
-    # in the JAX package.
+    # in the JAX package. A form's launches: over the timed xl steps of its
+    # mode (bf16: speed mode; tf32: precision="default").
     path_launches = dict(trained["launches"], edge_transform_sorted=two_stream[64][
         "launches"]["edge_transform_sorted"], segment_outer=two_stream[64][
         "launches"]["segment_outer"])
+    mode_runs = {"bf16": speed[f"bf16 d={WIDTH}"],
+                 "tf32": speed[f"precision=default d={WIDTH}"]}
     line = {"kernels": [
         dict(
             name=name, route="cuda", source=k["source"], replaces=k["replaces"],
@@ -1025,14 +1465,26 @@ def main() -> int:
             launches_per_forward=served["launches"][name] // REQUESTS,
             launches_per_two_stream_layer=two_stream[64]["launches"][name],
             launches_per_grouped_step=grouped["launches"][name],
-            **numbers(name, 64), d128=numbers(name, 128),
+            **numbers(measured[(name, 64)]), d128=numbers(measured[(name, 128)]),
         )
         for name, k in KERNELS.items()
+    ] + [
+        dict(
+            name=f"{name}[{form}]", route="cuda", source=KERNELS[name]["source"],
+            replaces=replaces,
+            launches=mode_runs[form]["launches_by_form"][name][form],
+            launches_per_training_step=(
+                mode_runs[form]["launches_by_form"][name][form] // TRAIN_STEPS),
+            **numbers(forms[(name, form, 64)]), d128=numbers(forms[(name, form, 128)]),
+        )
+        for (name, form), replaces in FORM_REPLACES.items()
     ]}
     print(json.dumps({"serving": served["latencies"], "profile": served["profile"]}))
     print(json.dumps({"training": trained, "training_xl_d128": xl_d128}))
+    print(json.dumps({"speed_mode": speed}))
     print(json.dumps({"two_stream": two_stream, "grouped": grouped,
                       "dense_chunked": dense_chunked}))
+    log(f"chip_smoke.py: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(line))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

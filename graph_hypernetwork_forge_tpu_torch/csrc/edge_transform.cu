@@ -57,10 +57,33 @@
 // products 0.81-0.83 / 2.21-2.22). For kernel 5 too, 2 ring stages, one
 // block an SM, 2 n-tiles per group and unrolled K slices were no faster
 // beyond the 2% spread between calls.
+//
+// precision="default" runs kernel 2's body in one TF32 pass (kPasses = 1:
+// hi products alone, tf32x3::mma_tile<1>), the Hopper form of the TPU
+// kernel's one bf16 pass at default precision (JAX :169).
+//
+// Kernel 2's bf16 form (speed mode: x, banks and bias in bf16, the TPU
+// kernel's bf16 branch, JAX :166-182) is a body of its own on the m16n8k16
+// bf16 mma.sync (bf16_mma.cuh): one pass, both products into one f32
+// fragment, the bias added in f32 and one rounding to bf16 where the output
+// is stored (out dtype = input dtype, as in JAX). Its blocking is kernel 2's:
+// 128 rows x a 64- or 128-column slab, 8 warps of 32 rows x half the slab,
+// K = [x_src | x_dst] streamed in 32-wide slices through a 3-stage ring of
+// 16-byte cp.async copies (8 bf16; plain 2-byte copies when a width or
+// pointer is not 16-byte aligned). A tiles are [rows][k] and read with
+// ldmatrix; the bank slice is [k][n] (row-major [d_in, d_out]), the col B
+// operand's transpose, so it is read with ldmatrix.trans. Rows are padded by
+// 8 bf16 to odd multiples of 16 bytes: no bank conflicts. What bounds it:
+// bytes, half of kernel 2's (~0.4 GB at E=1.03M, d=64), against 17 GFLOP at
+// 989 TFLOP/s of dense bf16 (0.02 ms). On an H100 80GB HBM3 at 700 W it took
+// 0.219 / 0.472 ms at xl d=64 / 128 (cuBLAS's bf16 baddbmm of the same
+// products over tile-gathered banks: 0.335 / 0.712); the one-TF32-pass mode
+// 0.315 / 0.679.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16_mma.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -87,8 +110,8 @@ constexpr int smem_bytes2() {
 
 // kTwo (kernel 5): blockIdx.z 0 writes msg (x_src, W_msg, the bias) to
 // out, 1 writes selfc (x_dst, W_self) to out_self. Else (kernel 2) the sum
-// of both with the bias to out.
-template <int kBN, bool kVec, bool kTwo>
+// of both with the bias to out. kPasses: 3 (3xTF32) or 1 TF32 pass.
+template <int kBN, bool kVec, bool kTwo, int kPasses>
 __global__ void __launch_bounds__(kThreads2, 2)
 edge_transform_kernel(const float* __restrict__ x_src,
                       const float* __restrict__ x_dst,
@@ -201,10 +224,10 @@ edge_transform_kernel(const float* __restrict__ x_src,
             *reinterpret_cast<const float2*>(a + r * kXStride + kb + 2 * tig);
         const float2 q = *reinterpret_cast<const float2*>(
             a + (r + 8) * kXStride + kb + 2 * tig);
-        tf32x3::split(p.x, ahi[i][0], alo[i][0]);
-        tf32x3::split(q.x, ahi[i][1], alo[i][1]);
-        tf32x3::split(p.y, ahi[i][2], alo[i][2]);
-        tf32x3::split(q.y, ahi[i][3], alo[i][3]);
+        tf32x3::operand<kPasses>(p.x, ahi[i][0], alo[i][0]);
+        tf32x3::operand<kPasses>(q.x, ahi[i][1], alo[i][1]);
+        tf32x3::operand<kPasses>(p.y, ahi[i][2], alo[i][2]);
+        tf32x3::operand<kPasses>(q.y, ahi[i][3], alo[i][3]);
       }
       // B: rows kb + 2 tig and kb + 2 tig + 1 of the weight slice.
       const float* b0 = b + (kb + 2 * tig) * kWS + wn * (kBN / 2) + gid;
@@ -214,10 +237,10 @@ edge_transform_kernel(const float* __restrict__ x_src,
 #pragma unroll
         for (int j = 0; j < NG; ++j) {
           const int n = (q * NG + j) * 8;
-          tf32x3::split(b0[n], bhi[j][0], blo[j][0]);
-          tf32x3::split(b0[kWS + n], bhi[j][1], blo[j][1]);
+          tf32x3::operand<kPasses>(b0[n], bhi[j][0], blo[j][0]);
+          tf32x3::operand<kPasses>(b0[kWS + n], bhi[j][1], blo[j][1]);
         }
-        tf32x3::mma3_tile<2, NG>(acc[q], ahi, alo, bhi, blo);
+        tf32x3::mma_tile<kPasses, 2, NG>(acc[q], ahi, alo, bhi, blo);
       }
     }
   }
@@ -251,13 +274,13 @@ edge_transform_kernel(const float* __restrict__ x_src,
     }
 }
 
-template <int kBN, bool kVec, bool kTwo>
+template <int kBN, bool kVec, bool kTwo, int kPasses>
 cudaError_t launch(const float* x_src, const float* x_dst,
                    const int32_t* rel_sorted, const float* w_msg,
                    const float* w_self, const float* bias, float* out,
                    float* out_self, int num_edges, int d_in, int d_out,
                    cudaStream_t stream) {
-  auto kernel = edge_transform_kernel<kBN, kVec, kTwo>;
+  auto kernel = edge_transform_kernel<kBN, kVec, kTwo, kPasses>;
   constexpr int smem = smem_bytes2<kBN>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -274,7 +297,7 @@ cudaError_t launch(const float* x_src, const float* x_dst,
 }
 
 // The instance for d_out (a 64- or 128-column slab) and vec.
-template <bool kTwo>
+template <bool kTwo, int kPasses>
 cudaError_t dispatch(const void* x_src, const void* x_dst,
                      const void* rel_sorted, const void* w_msg,
                      const void* w_self, const void* bias, void* out,
@@ -290,33 +313,248 @@ cudaError_t dispatch(const void* x_src, const void* x_dst,
   const auto o2 = static_cast<float*>(out_self);
   const auto s = reinterpret_cast<cudaStream_t>(stream);
   if (d_out <= 64) {
-    return vec ? launch<64, true, kTwo>(xs, xd, rel, wm, ws, b, o, o2,
-                                        num_edges, d_in, d_out, s)
-               : launch<64, false, kTwo>(xs, xd, rel, wm, ws, b, o, o2,
-                                         num_edges, d_in, d_out, s);
+    return vec ? launch<64, true, kTwo, kPasses>(xs, xd, rel, wm, ws, b, o,
+                                                 o2, num_edges, d_in, d_out, s)
+               : launch<64, false, kTwo, kPasses>(xs, xd, rel, wm, ws, b, o,
+                                                  o2, num_edges, d_in, d_out,
+                                                  s);
   }
-  return vec ? launch<128, true, kTwo>(xs, xd, rel, wm, ws, b, o, o2,
-                                       num_edges, d_in, d_out, s)
-             : launch<128, false, kTwo>(xs, xd, rel, wm, ws, b, o, o2,
-                                        num_edges, d_in, d_out, s);
+  return vec ? launch<128, true, kTwo, kPasses>(xs, xd, rel, wm, ws, b, o, o2,
+                                                num_edges, d_in, d_out, s)
+             : launch<128, false, kTwo, kPasses>(xs, xd, rel, wm, ws, b, o,
+                                                 o2, num_edges, d_in, d_out,
+                                                 s);
+}
+
+// ---- Kernel 2's bf16 form: tensor cores, one bf16 pass -------------------
+
+using bf16mma::bf16;
+
+constexpr int BKH = 32;             // K slice per ring stage, bf16
+constexpr int kXStrideH = BKH + 8;  // 40 bf16 = 80 bytes: ldmatrix conflict-free
+
+template <int kBN>
+__host__ __device__ constexpr int w_stride_h() { return kBN + 8; }
+
+template <int kBN>
+constexpr int smem_bytes_h() {
+  return kStages2 * (BM2 * kXStrideH + BKH * w_stride_h<kBN>()) * 2;
+}
+
+template <int kBN, bool kVec>
+__global__ void __launch_bounds__(kThreads2, 2)
+edge_transform_bf16_kernel(const bf16* __restrict__ x_src,
+                           const bf16* __restrict__ x_dst,
+                           const int32_t* __restrict__ rel_sorted,
+                           const bf16* __restrict__ w_msg,
+                           const bf16* __restrict__ w_self,
+                           const bf16* __restrict__ bias,
+                           bf16* __restrict__ out, int num_edges, int d_in,
+                           int d_out) {
+  constexpr int NT = kBN / 16;  // n-tiles of a warp (32 x kBN / 2)
+  constexpr int kWS = w_stride_h<kBN>();
+  constexpr int kAStage = BM2 * kXStrideH;
+  constexpr int kBStage = BKH * kWS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* const As = reinterpret_cast<bf16*>(smem_raw);  // [stage][BM2][kXStrideH]
+  bf16* const Bs = As + kStages2 * kAStage;            // [stage][BKH][kWS]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wm = warp & 3, wn = warp >> 2;  // 4 x 2 warps
+  const int64_t row0 = (int64_t)blockIdx.x * BM2;
+  const int col0 = blockIdx.y * kBN;
+  const int rel = rel_sorted[(row0 / kTileRows) * kTileRows];
+  const int64_t bank = (int64_t)rel * d_in * d_out;
+  const int kc = (d_in + BKH - 1) / BKH;  // K slices per half
+  const int chunks = 2 * kc;
+
+  // K slice c of [x_src | x_dst] and [W_msg ; W_self] into ring stage s.
+  auto load = [&](int c, int s) {
+    const int half = c >= kc;
+    const int k0 = (c - half * kc) * BKH;
+    const bf16* __restrict__ x = half ? x_dst : x_src;
+    const bf16* __restrict__ w = (half ? w_self : w_msg) + bank;
+    bf16* a = As + s * kAStage;
+    bf16* b = Bs + s * kBStage;
+    if (kVec) {
+#pragma unroll
+      for (int v = tid; v < BM2 * BKH / 8; v += kThreads2) {
+        const int r = v / (BKH / 8), k = (v % (BKH / 8)) * 8;
+        const int64_t row = row0 + r;
+        const bool ok = row < num_edges && k0 + k < d_in;
+        bf16mma::copy8(a + r * kXStrideH + k, ok ? x + row * d_in + k0 + k : x,
+                       ok);
+      }
+#pragma unroll
+      for (int v = tid; v < BKH * kBN / 8; v += kThreads2) {
+        const int k = v / (kBN / 8), n = (v % (kBN / 8)) * 8;
+        const bool ok = k0 + k < d_in && col0 + n < d_out;
+        bf16mma::copy8(b + k * kWS + n,
+                       ok ? w + (int64_t)(k0 + k) * d_out + col0 + n : w, ok);
+      }
+    } else {
+#pragma unroll 4
+      for (int v = tid; v < BM2 * BKH; v += kThreads2) {
+        const int r = v / BKH, k = v % BKH;
+        const int64_t row = row0 + r;
+        const bool ok = row < num_edges && k0 + k < d_in;
+        bf16mma::copy1(a + r * kXStrideH + k, x + (ok ? row * d_in + k0 + k : 0),
+                       ok);
+      }
+#pragma unroll 4
+      for (int v = tid; v < BKH * kBN; v += kThreads2) {
+        const int k = v / kBN, n = v % kBN;
+        const bool ok = k0 + k < d_in && col0 + n < d_out;
+        bf16mma::copy1(b + k * kWS + n,
+                       w + (ok ? (int64_t)(k0 + k) * d_out + col0 + n : 0), ok);
+      }
+    }
+  };
+
+  float acc[2][NT][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int l = 0; l < 4; ++l) acc[i][j][l] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages2 - 1; ++s) {
+    if (s < chunks) load(s, s);
+    tf32x3::cp_async_commit();
+  }
+  for (int c = 0; c < chunks; ++c) {
+    tf32x3::cp_async_wait<kStages2 - 2>();
+    __syncthreads();  // slice c has landed; slice c - 1's stage is free
+    if (c + kStages2 - 1 < chunks)
+      load(c + kStages2 - 1, (c + kStages2 - 1) % kStages2);
+    tf32x3::cp_async_commit();
+
+    const bf16* a = As + (c % kStages2) * kAStage + wm * 32 * kXStrideH;
+    const bf16* b = Bs + (c % kStages2) * kBStage + wn * (kBN / 2);
+#pragma unroll
+    for (int kb = 0; kb < BKH; kb += 16) {
+      uint32_t af[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        bf16mma::load_a(af[i], a + i * 16 * kXStrideH + kb, kXStrideH, lane);
+#pragma unroll
+      for (int q = 0; q < NT / 2; ++q) {
+        uint32_t bf[2][2];
+        bf16mma::load_b2_trans(bf, b + kb * kWS + q * 16, kWS, lane);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          bf16mma::mma(acc[i][2 * q], af[i], bf[0]);
+          bf16mma::mma(acc[i][2 * q + 1], af[i], bf[1]);
+        }
+      }
+    }
+  }
+
+  const bf16* __restrict__ b_rel = bias + (int64_t)rel * d_out;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int n = col0 + wn * (kBN / 2) + j * 8 + 2 * tig;
+    const float bias0 = n < d_out ? __bfloat162float(b_rel[n]) : 0.f;
+    const float bias1 = n + 1 < d_out ? __bfloat162float(b_rel[n + 1]) : 0.f;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int64_t row = row0 + wm * 32 + i * 16 + gid + 8 * h;
+        if (row >= num_edges) continue;
+        const float v0 = acc[i][j][2 * h] + bias0;
+        const float v1 = acc[i][j][2 * h + 1] + bias1;
+        bf16* dst = out + row * d_out + n;
+        if (kVec) {  // d_out % 8 == 0: n and n + 1 both in or both out
+          if (n < d_out)
+            *reinterpret_cast<__nv_bfloat162*>(dst) = bf16mma::pack(v0, v1);
+        } else {
+          if (n < d_out) dst[0] = __float2bfloat16(v0);
+          if (n + 1 < d_out) dst[1] = __float2bfloat16(v1);
+        }
+      }
+  }
+}
+
+template <int kBN, bool kVec>
+cudaError_t launch_bf16(const bf16* x_src, const bf16* x_dst,
+                        const int32_t* rel_sorted, const bf16* w_msg,
+                        const bf16* w_self, const bf16* bias, bf16* out,
+                        int num_edges, int d_in, int d_out,
+                        cudaStream_t stream) {
+  auto kernel = edge_transform_bf16_kernel<kBN, kVec>;
+  constexpr int smem = smem_bytes_h<kBN>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  dim3 grid((num_edges + BM2 - 1) / BM2, (d_out + kBN - 1) / kBN);
+  kernel<<<grid, kThreads2, smem, stream>>>(x_src, x_dst, rel_sorted, w_msg,
+                                            w_self, bias, out, num_edges,
+                                            d_in, d_out);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // Kernel 2. x_src, x_dst: [E, d_in] f32; rel_sorted: [E] int32; w_msg,
 // w_self: [U, d_in, d_out] f32; bias: [U, d_out] f32; out: [E, d_out] f32. All
-// contiguous. vec != 0: d_in and d_out are multiples of 4 and every pointer
-// is 16-byte aligned (16-byte copies). Launches on `stream`; returns the
-// CUDA error of the launch.
+// contiguous. passes: 3 (3xTF32) or 1 (one TF32 pass). vec != 0: d_in and
+// d_out are multiples of 4 and every pointer is 16-byte aligned (16-byte
+// copies). Launches on `stream`; returns the CUDA error of the launch.
 extern "C" int ghf_edge_transform(const void* x_src, const void* x_dst,
                                   const void* rel_sorted, const void* w_msg,
                                   const void* w_self, const void* bias,
                                   void* out, int num_edges, int d_in,
-                                  int d_out, int vec, void* stream) {
+                                  int d_out, int passes, int vec,
+                                  void* stream) {
   if (num_edges <= 0 || d_out <= 0) return (int)cudaSuccess;
-  return (int)dispatch<false>(x_src, x_dst, rel_sorted, w_msg, w_self, bias,
-                              out, nullptr, num_edges, d_in, d_out, vec,
-                              stream);
+  if (passes == 3)
+    return (int)dispatch<false, 3>(x_src, x_dst, rel_sorted, w_msg, w_self,
+                                   bias, out, nullptr, num_edges, d_in, d_out,
+                                   vec, stream);
+  if (passes == 1)
+    return (int)dispatch<false, 1>(x_src, x_dst, rel_sorted, w_msg, w_self,
+                                   bias, out, nullptr, num_edges, d_in, d_out,
+                                   vec, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Kernel 2's bf16 form: x_src, x_dst, w_msg, w_self, bias and out as
+// ghf_edge_transform's, in bf16. vec != 0: d_in and d_out are multiples of
+// 8 and every pointer is 16-byte aligned (16-byte copies).
+extern "C" int ghf_edge_transform_bf16(const void* x_src, const void* x_dst,
+                                       const void* rel_sorted,
+                                       const void* w_msg, const void* w_self,
+                                       const void* bias, void* out,
+                                       int num_edges, int d_in, int d_out,
+                                       int vec, void* stream) {
+  if (num_edges <= 0 || d_out <= 0) return (int)cudaSuccess;
+  const auto xs = static_cast<const bf16*>(x_src);
+  const auto xd = static_cast<const bf16*>(x_dst);
+  const auto rel = static_cast<const int32_t*>(rel_sorted);
+  const auto wm = static_cast<const bf16*>(w_msg);
+  const auto ws = static_cast<const bf16*>(w_self);
+  const auto b = static_cast<const bf16*>(bias);
+  const auto o = static_cast<bf16*>(out);
+  const auto s = reinterpret_cast<cudaStream_t>(stream);
+  if (d_out <= 64) {
+    return (int)(vec ? launch_bf16<64, true>(xs, xd, rel, wm, ws, b, o,
+                                             num_edges, d_in, d_out, s)
+                     : launch_bf16<64, false>(xs, xd, rel, wm, ws, b, o,
+                                              num_edges, d_in, d_out, s));
+  }
+  return (int)(vec ? launch_bf16<128, true>(xs, xd, rel, wm, ws, b, o,
+                                            num_edges, d_in, d_out, s)
+                   : launch_bf16<128, false>(xs, xd, rel, wm, ws, b, o,
+                                             num_edges, d_in, d_out, s));
 }
 
 // Kernel 5. As kernel 2, with two outputs msg, selfc: [E, d_out] f32.
@@ -327,6 +565,7 @@ extern "C" int ghf_edge_transform_two(const void* x_src, const void* x_dst,
                                       void* selfc, int num_edges, int d_in,
                                       int d_out, int vec, void* stream) {
   if (num_edges <= 0 || d_out <= 0) return (int)cudaSuccess;
-  return (int)dispatch<true>(x_src, x_dst, rel_sorted, w_msg, w_self, bias,
-                             msg, selfc, num_edges, d_in, d_out, vec, stream);
+  return (int)dispatch<true, 3>(x_src, x_dst, rel_sorted, w_msg, w_self, bias,
+                                msg, selfc, num_edges, d_in, d_out, vec,
+                                stream);
 }

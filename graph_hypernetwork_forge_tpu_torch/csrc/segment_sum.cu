@@ -41,7 +41,18 @@
 // consecutive rows per step, so a step's loads are one contiguous span. The
 // lanes' partial sums are combined by a fixed butterfly of shuffles. Four
 // steps are issued before they are added, to keep loads in flight.
+//
+// Kernel 1's bf16 form (the speed mode's rows: the TPU kernel's bf16
+// branch, one pass with f32 sums, segment_sum.py:69, :117-118) is the same
+// two passes over rows of bf16: each lane loads 8 bf16 (16 bytes) at a
+// time, converts them to f32 exactly, and everything after the load (the
+// sums, the scratch, the output) is f32. The order of the sums is that of
+// the f32 form, so it is bitwise deterministic too. It moves half the
+// input bytes of the f32 form (~0.15 GB at R=1.03M, N=50k, d=64): 0.094 /
+// 0.150 ms at d=64 / 128 on an H100 80GB HBM3 at 700 W, against 0.127 /
+// 0.220 for the f32 form.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -79,6 +90,57 @@ struct Vec<4> {
                        __shfl_xor_sync(kFull, a.w, m));
   }
 };
+struct Float8 {
+  float4 lo, hi;
+};
+template <>
+struct Vec<8> {
+  using T = Float8;
+  __device__ static T zero() { return T{Vec<4>::zero(), Vec<4>::zero()}; }
+  __device__ static void add(T& a, const T& b) {
+    Vec<4>::add(a.lo, b.lo);
+    Vec<4>::add(a.hi, b.hi);
+  }
+  __device__ static T shfl_xor(const T& a, int m) {
+    return T{Vec<4>::shfl_xor(a.lo, m), Vec<4>::shfl_xor(a.hi, m)};
+  }
+};
+
+// Rows of `In` read VEC elements at a time (Raw) as VEC floats.
+template <int VEC, typename In>
+struct Rows;
+template <>
+struct Rows<1, float> {
+  using Raw = float;
+  __device__ static float load(const Raw* p) { return __ldg(p); }
+};
+template <>
+struct Rows<4, float> {
+  using Raw = float4;
+  __device__ static float4 load(const Raw* p) { return __ldg(p); }
+};
+// A bf16 is the high half of the f32 with the same value.
+__device__ __forceinline__ float bf16_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+template <>
+struct Rows<1, __nv_bfloat16> {
+  using Raw = unsigned short;
+  __device__ static float load(const Raw* p) { return bf16_lo(__ldg(p)); }
+};
+template <>
+struct Rows<8, __nv_bfloat16> {
+  using Raw = uint4;  // 8 bf16
+  __device__ static Float8 load(const Raw* p) {
+    const uint4 v = __ldg(p);
+    return Float8{
+        make_float4(bf16_lo(v.x), bf16_hi(v.x), bf16_lo(v.y), bf16_hi(v.y)),
+        make_float4(bf16_lo(v.z), bf16_hi(v.z), bf16_lo(v.w), bf16_hi(v.w))};
+  }
+};
 
 // Largest s in [0, n] with splits[s] <= r, given splits[0] <= r: a 32-way
 // search by the whole warp (about four dependent loads for n = 50k).
@@ -107,12 +169,12 @@ __device__ int advance(const int32_t* __restrict__ splits, int n, int s,
   }
 }
 
-// One stream: x is [num_rows, chunks] of VEC-float vectors sorted by
-// segment, splits its CSR bounds, out [N, chunks], partial [C, 2, chunks]
-// for its C = num_chunks row chunks.
-template <int VEC>
+// One stream: x is [num_rows, chunks] of VEC-element vectors of In sorted
+// by segment, splits its CSR bounds, out [N, chunks] and partial [C, 2,
+// chunks] of VEC-float vectors for its C = num_chunks row chunks.
+template <int VEC, typename In>
 struct Stream {
-  const typename Vec<VEC>::T* x;
+  const typename Rows<VEC, In>::Raw* x;
   const int32_t* splits;
   typename Vec<VEC>::T* out;
   typename Vec<VEC>::T* partial;
@@ -124,18 +186,19 @@ struct Stream {
 // past stream a's belong to stream b. Lanes form 32 / lanes_per_row groups
 // of lanes_per_row lanes (a power of two); blockIdx.y picks the window of
 // lanes_per_row vector columns.
-template <int VEC>
+template <int VEC, typename In>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-csr_chunk_kernel(Stream<VEC> a, Stream<VEC> b, int num_segments, int chunks,
-                 int lanes_per_row) {
+csr_chunk_kernel(Stream<VEC, In> a, Stream<VEC, In> b, int num_segments,
+                 int chunks, int lanes_per_row) {
   using V = Vec<VEC>;
   using T = typename V::T;
+  using R = Rows<VEC, In>;
   const int lane = threadIdx.x & 31;
   int chunk = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   const bool second = chunk >= a.num_chunks;
   if (second) chunk -= a.num_chunks;
   if (chunk >= (second ? b.num_chunks : a.num_chunks)) return;  // whole warp
-  const T* __restrict__ x = second ? b.x : a.x;
+  const typename R::Raw* __restrict__ x = second ? b.x : a.x;
   const int32_t* __restrict__ splits = second ? b.splits : a.splits;
   T* __restrict__ out = second ? b.out : a.out;
   T* __restrict__ partial = second ? b.partial : a.partial;
@@ -161,16 +224,16 @@ csr_chunk_kernel(Stream<VEC> a, Stream<VEC> b, int num_segments, int chunks,
       const int64_t step = rows_per_step;
       int64_t i = r + group;
       for (; i + 3 * step < stop; i += 4 * step) {
-        const T a0 = __ldg(x + i * chunks + col);
-        const T a1 = __ldg(x + (i + step) * chunks + col);
-        const T a2 = __ldg(x + (i + 2 * step) * chunks + col);
-        const T a3 = __ldg(x + (i + 3 * step) * chunks + col);
+        const T a0 = R::load(x + i * chunks + col);
+        const T a1 = R::load(x + (i + step) * chunks + col);
+        const T a2 = R::load(x + (i + 2 * step) * chunks + col);
+        const T a3 = R::load(x + (i + 3 * step) * chunks + col);
         V::add(acc, a0);
         V::add(acc, a1);
         V::add(acc, a2);
         V::add(acc, a3);
       }
-      for (; i < stop; i += step) V::add(acc, __ldg(x + i * chunks + col));
+      for (; i < stop; i += step) V::add(acc, R::load(x + i * chunks + col));
     }
     // Fixed butterfly over the row groups (lanes lanes_per_row apart).
     for (int m = lanes_per_row; m < 32; m <<= 1) {
@@ -195,9 +258,9 @@ csr_chunk_kernel(Stream<VEC> a, Stream<VEC> b, int num_segments, int chunks,
 // segment that crosses chunks adds its first chunk's slot 1 and the
 // following chunks' slot 0, in chunk order; an empty segment writes zeros;
 // the rest were written by pass 1.
-template <int VEC>
+template <int VEC, typename In>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-csr_fixup_kernel(Stream<VEC> a, Stream<VEC> b, int num_streams,
+csr_fixup_kernel(Stream<VEC, In> a, Stream<VEC, In> b, int num_streams,
                  int num_segments, int chunks) {
   using V = Vec<VEC>;
   using T = typename V::T;
@@ -233,20 +296,21 @@ int lanes_for(int chunks) {
   return lanes;
 }
 
-template <int VEC>
-Stream<VEC> stream_of(const void* x, const void* splits, void* out,
-                      void* partial, int64_t num_rows) {
+template <int VEC, typename In = float>
+Stream<VEC, In> stream_of(const void* x, const void* splits, void* out,
+                          void* partial, int64_t num_rows) {
   using T = typename Vec<VEC>::T;
-  return Stream<VEC>{static_cast<const T*>(x),
-                     static_cast<const int32_t*>(splits), static_cast<T*>(out),
-                     static_cast<T*>(partial), num_rows,
-                     (int)((num_rows + kRowsPerChunk - 1) / kRowsPerChunk)};
+  return Stream<VEC, In>{
+      static_cast<const typename Rows<VEC, In>::Raw*>(x),
+      static_cast<const int32_t*>(splits), static_cast<T*>(out),
+      static_cast<T*>(partial), num_rows,
+      (int)((num_rows + kRowsPerChunk - 1) / kRowsPerChunk)};
 }
 
 // Both passes over one stream (num_streams 1, b unused) or two.
-template <int VEC>
-void launch(Stream<VEC> a, Stream<VEC> b, int num_streams, int num_segments,
-            int d, cudaStream_t s) {
+template <int VEC, typename In>
+void launch(Stream<VEC, In> a, Stream<VEC, In> b, int num_streams,
+            int num_segments, int d, cudaStream_t s) {
   const int chunks = d / VEC;
   const int lanes = lanes_for(chunks);
   if (num_streams == 1) b.num_chunks = 0;
@@ -255,13 +319,13 @@ void launch(Stream<VEC> a, Stream<VEC> b, int num_streams, int num_segments,
   if (num_chunks > 0) {
     const dim3 grid((unsigned)((num_chunks + kWarpsPerBlock - 1) / kWarpsPerBlock),
                     (chunks + lanes - 1) / lanes);
-    csr_chunk_kernel<VEC><<<grid, block, 0, s>>>(a, b, num_segments, chunks,
-                                                 lanes);
+    csr_chunk_kernel<VEC, In><<<grid, block, 0, s>>>(a, b, num_segments,
+                                                     chunks, lanes);
   }
   const int64_t warps = (int64_t)num_streams * num_segments;
   const dim3 grid2((unsigned)((warps + kWarpsPerBlock - 1) / kWarpsPerBlock));
-  csr_fixup_kernel<VEC><<<grid2, block, 0, s>>>(a, b, num_streams,
-                                                num_segments, chunks);
+  csr_fixup_kernel<VEC, In><<<grid2, block, 0, s>>>(a, b, num_streams,
+                                                    num_segments, chunks);
 }
 
 }  // namespace
@@ -282,11 +346,34 @@ extern "C" int ghf_csr_segment_sum(const void* x, const void* splits,
   if (num_segments <= 0 || d <= 0) return (int)cudaSuccess;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (vec == 4) {
-    const Stream<4> a = stream_of<4>(x, splits, out, partial, num_rows);
-    launch<4>(a, a, 1, num_segments, d, s);
+    const Stream<4, float> a = stream_of<4>(x, splits, out, partial, num_rows);
+    launch(a, a, 1, num_segments, d, s);
   } else if (vec == 1) {
-    const Stream<1> a = stream_of<1>(x, splits, out, partial, num_rows);
-    launch<1>(a, a, 1, num_segments, d, s);
+    const Stream<1, float> a = stream_of<1>(x, splits, out, partial, num_rows);
+    launch(a, a, 1, num_segments, d, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// Kernel 1's bf16 form: x is [num_rows, d] bf16, everything else as
+// ghf_csr_segment_sum (out and partial f32). vec is 8 when d % 8 == 0 and
+// x, out and partial are 16-byte aligned, else 1.
+extern "C" int ghf_csr_segment_sum_bf16(const void* x, const void* splits,
+                                        void* out, void* partial,
+                                        int64_t num_rows, int num_segments,
+                                        int d, int vec, void* stream) {
+  if (num_segments <= 0 || d <= 0) return (int)cudaSuccess;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (vec == 8) {
+    const Stream<8, __nv_bfloat16> a =
+        stream_of<8, __nv_bfloat16>(x, splits, out, partial, num_rows);
+    launch(a, a, 1, num_segments, d, s);
+  } else if (vec == 1) {
+    const Stream<1, __nv_bfloat16> a =
+        stream_of<1, __nv_bfloat16>(x, splits, out, partial, num_rows);
+    launch(a, a, 1, num_segments, d, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -306,13 +393,13 @@ extern "C" int ghf_dual_csr_segment_sum(
   if (num_segments <= 0 || d <= 0) return (int)cudaSuccess;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (vec == 4) {
-    launch<4>(stream_of<4>(x_a, splits_a, out_a, partial_a, num_rows_a),
-              stream_of<4>(x_b, splits_b, out_b, partial_b, num_rows_b), 2,
-              num_segments, d, s);
+    launch(stream_of<4>(x_a, splits_a, out_a, partial_a, num_rows_a),
+           stream_of<4>(x_b, splits_b, out_b, partial_b, num_rows_b), 2,
+           num_segments, d, s);
   } else if (vec == 1) {
-    launch<1>(stream_of<1>(x_a, splits_a, out_a, partial_a, num_rows_a),
-              stream_of<1>(x_b, splits_b, out_b, partial_b, num_rows_b), 2,
-              num_segments, d, s);
+    launch(stream_of<1>(x_a, splits_a, out_a, partial_a, num_rows_a),
+           stream_of<1>(x_b, splits_b, out_b, partial_b, num_rows_b), 2,
+           num_segments, d, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

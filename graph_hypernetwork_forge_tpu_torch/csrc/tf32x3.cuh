@@ -10,12 +10,14 @@
 // f32, so hi + lo carries 21 significant bits of x, and a.b = a_hi.b_hi +
 // a_hi.b_lo + a_lo.b_hi up to the dropped a_lo.b_lo (< 2^-22 |a.b|) and the
 // rounding of the lo halves. Single-pass TF32 (hi.hi alone) keeps 11 bits
-// and misses the repository's 3e-5 gate. On sm_90a cvt.rna.tf32.f32 lowers
-// to an add of half a TF32 ulp to the bits, a mask, and an infinity test
-// with a select; split() keeps the add and the mask and drops the test (an
-// infinite operand gives NaN instead of an infinity): 4 instructions a
-// split instead of 8. The tensor cores read only the 19 high bits of a TF32
-// operand, so lo needs the add alone.
+// and misses the repository's 3e-5 gate; kernels 2 and 3 offer it as their
+// precision="default" mode (operand<1>, mma_tile<1, ...>), the Hopper form
+// of the TPU's one bf16 pass, outside parity mode. On sm_90a
+// cvt.rna.tf32.f32 lowers to an add of half a TF32 ulp to the bits, a
+// mask, and an infinity test with a select; split() keeps the add and the
+// mask and drops the test (an infinite operand gives NaN instead of an
+// infinity): 4 instructions a split instead of 8. The tensor cores read
+// only the 19 high bits of a TF32 operand, so lo needs the add alone.
 //
 // The sums. The tensor cores add each step's products into the f32
 // accumulator without rounding to nearest, and a long chain of mma.sync into
@@ -39,6 +41,18 @@ namespace tf32x3 {
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
   lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
+}
+
+// The operand of kPasses TF32 passes: the split for 3; for 1 (one TF32
+// pass, precision="default") hi alone, and lo is neither set nor read.
+template <int kPasses>
+__device__ __forceinline__ void operand(float x, uint32_t& hi, uint32_t& lo) {
+  static_assert(kPasses == 1 || kPasses == 3, "1 or 3 TF32 passes");
+  if constexpr (kPasses == 3) {
+    split(x, hi, lo);
+  } else {
+    hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  }
 }
 
 // d += a . b on the tensor cores: one m16n8k8 TF32 product, f32 sums.
@@ -86,6 +100,26 @@ __device__ __forceinline__ void mma3_tile(float (&d)[MT][NT][4],
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int l = 0; l < 4; ++l) d[i][j][l] += t[i][j][l];
+}
+
+// d += a . b over an MT x NT block of fragments in kPasses TF32 passes:
+// mma3_tile for 3; for 1 each hi product straight into the running sums,
+// as a TF32 GEMM takes them (its error is the operands' rounding to TF32,
+// ~2^-11 relative, which any drift of the sums stays far below).
+template <int kPasses, int MT, int NT>
+__device__ __forceinline__ void mma_tile(float (&d)[MT][NT][4],
+                                         const uint32_t (&a_hi)[MT][4],
+                                         const uint32_t (&a_lo)[MT][4],
+                                         const uint32_t (&b_hi)[NT][2],
+                                         const uint32_t (&b_lo)[NT][2]) {
+  if constexpr (kPasses == 3) {
+    mma3_tile<MT, NT>(d, a_hi, a_lo, b_hi, b_lo);
+  } else {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mma(d[i][j], a_hi[i], b_hi[j]);
+  }
 }
 
 // Asynchronous global -> shared copies. With `valid` false nothing is read

@@ -71,8 +71,19 @@ class HyperGNNConfig:
 
     ``rel_sorted`` and ``group_padded`` promise the edge layout of
     ``encode_graph(sort_by_relation=True, group_pad=256)``; wrong results
-    follow if the layout is otherwise. The port runs ``precision="highest"``
-    and ``compute_dtype="float32"`` only.
+    follow if the layout is otherwise.
+
+    ``compute_dtype="bfloat16"`` is the speed mode: message passing stores
+    and moves the activations and the generated banks in bf16 (the kernels
+    take them in one bf16 pass), every reduction sums in f32, and the
+    parameters, Adam, LayerNorm, the residual and the loss stay f32; it
+    opts out of the f32 parity gate (~4e-3 relative). ``precision`` reaches
+    the hand-written matrix kernels (``"highest"``: 3xTF32, f32-class;
+    ``"default"``: one TF32 pass, outside parity mode). PyTorch's own
+    products (the generators' MLPs, the input projection, scoring) run in
+    full float32 whatever it says: choosing the card turns PyTorch's TF32
+    off for the whole process (``device.resolve_device``), which parity
+    runs in the same process rely on.
     """
 
     text_dim: int
@@ -156,11 +167,6 @@ def apply_hypergnn(
     use_dropout = train and config.dropout > 0.0
     if use_dropout and gen is None:
         raise ValueError("dropout requires a torch.Generator in training mode")
-    if config.precision != "highest" or config.compute_dtype != "float32":
-        raise NotImplementedError(
-            "the port runs precision='highest', compute_dtype='float32' only; "
-            "the bf16 speed mode is not ported yet"
-        )
     h = torch.relu(linear_apply(params["input_proj"], node_features))
     text_embs = apply_text_encoder(params["text_encoder"], char_ids, text_lengths)
     n = node_features.shape[0]
@@ -185,8 +191,10 @@ def apply_hypergnn(
             rel_sorted=config.rel_sorted,
             sort_plan=sort_plan,
             group_padded=config.group_padded,
+            precision=config.precision,
+            compute_dtype=config.compute_dtype,
         )
-        # residual (hidden → hidden) → ReLU → dropout → LayerNorm
+        # residual (hidden → hidden) → ReLU → dropout → LayerNorm, in f32
         h_new = torch.relu(h_new + h)
         if h_keep is not None:
             h_new = torch.where(h_keep, h_new / (1.0 - p), 0.0)
@@ -233,6 +241,9 @@ class HyperGNN(nn.Module):
     the graph for a backward and applies dropout, drawing its masks from a
     generator the model holds (seeded from ``seed``) unless one is passed.
     After :meth:`eval` the forward runs under ``torch.inference_mode()``.
+    A call's ``train=`` overrides the mode for that call, as the JAX
+    wrapper's does. As there, the wrapper takes no ``compute_dtype``: speed
+    mode runs through :func:`apply_hypergnn` with a config.
     """
 
     def __init__(
@@ -260,6 +271,10 @@ class HyperGNN(nn.Module):
             rel_sorted=True,
             group_padded=True,
         )
+        self.text_dim, self.node_feat_dim, self.hidden_dim = (
+            text_dim, node_feat_dim, hidden_dim
+        )
+        self.num_layers, self.dropout = num_layers, dropout
         self.device = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
         self.params = tree_map(
@@ -293,10 +308,15 @@ class HyperGNN(nn.Module):
         )
 
     def forward_encoded(
-        self, node_features, graph: EncodedGraph, *, gen: torch.Generator | None = None
+        self, node_features, graph: EncodedGraph, *, train: bool | None = None,
+        gen: torch.Generator | None = None,
     ) -> torch.Tensor:
+        """The forward of an encoded graph; ``train`` (default: the
+        module's mode) turns on dropout and the recording for a backward."""
         validate_graph_for_config(graph, self.config)
-        mode = contextlib.nullcontext() if self.training else torch.inference_mode()
+        if train is None:
+            train = self.training
+        mode = contextlib.nullcontext() if train else torch.inference_mode()
         with mode:
             feats = torch.as_tensor(
                 node_features, dtype=torch.float32, device=self.device
@@ -307,16 +327,17 @@ class HyperGNN(nn.Module):
             plan = None if graph.sort_plan is None else graph.sort_plan.to(self.device)
             return apply_hypergnn(
                 self.config, self.params, feats, src, dst, rel_ids, edge_mask,
-                char_ids, lengths, train=self.training,
+                char_ids, lengths, train=train,
                 gen=self.dropout_gen if gen is None else gen, sort_plan=plan,
             )
 
     def forward(
-        self, node_features, edge_index, edge_texts: Sequence[str]
+        self, node_features, edge_index, edge_texts: Sequence[str], *,
+        train: bool | None = None, gen: torch.Generator | None = None,
     ) -> torch.Tensor:
         num_nodes = int(node_features.shape[0])
         graph = self.preprocess(edge_index, edge_texts, num_nodes)
-        return self.forward_encoded(node_features, graph)
+        return self.forward_encoded(node_features, graph, train=train, gen=gen)
 
     def score_triple(self, head_emb, tail_emb) -> torch.Tensor:
         """Dot-product link score; ``[d] → scalar`` or ``[B, d] → [B]``."""
@@ -325,3 +346,12 @@ class HyperGNN(nn.Module):
     def num_parameters(self) -> int:
         """Total parameter count."""
         return sum(p.numel() for p in tree_leaves(self.params))
+
+    # The JAX wrapper's aliases of the reference's attribute names.
+    @property
+    def weight_generators(self) -> list:
+        return self.params["weight_generators"]
+
+    @property
+    def layer_norms(self) -> list:
+        return self.params["layer_norms"]

@@ -4,6 +4,7 @@ Each wrapper takes the plain version for tensors on the CPU and launches
 its kernel for tensors on a CUDA device; there is no other fallback.
 """
 
+from graph_hypernetwork_forge_tpu_torch.ops.cuda import _common
 from graph_hypernetwork_forge_tpu_torch.ops.cuda.edge_transform import (
     edge_contributions_cuda_sorted,
     edge_transform_sorted,
@@ -40,9 +41,10 @@ _COUNTED = (
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel wrapper's launch count to 0."""
+    """Set every kernel wrapper's launch count, and its count per form
+    (``launches_by_form``: "f32", "tf32", "bf16"), to 0."""
     for fn in _COUNTED:
-        fn.launches = 0
+        _common.reset_counts(fn)
 
 
 __all__ = [

@@ -6,6 +6,46 @@ import ctypes
 
 import torch
 
+# The data types the kernels take: float32 (kernels 1-7) and bfloat16, the
+# speed mode's storage type (kernels 1-3).
+F32_BF16 = (torch.float32, torch.bfloat16)
+
+# The forms a kernel is launched in: "f32" (f32 data; the matrix kernels in
+# 3xTF32 on the tensor cores), "tf32" (f32 data, the matrix kernels in one
+# TF32 pass, precision="default") and "bf16" (bf16 data, f32 sums).
+FORMS = ("f32", "tf32", "bf16")
+
+
+def reset_counts(fn) -> None:
+    """Zero a wrapper's launch count and its count per form."""
+    fn.launches = 0
+    fn.launches_by_form = dict.fromkeys(FORMS, 0)
+
+
+def count_launch(fn, form: str) -> None:
+    """One launch of ``fn``'s kernel in ``form``."""
+    fn.launches += 1
+    fn.launches_by_form[form] += 1
+
+
+def tf32_passes(precision) -> int:
+    """TF32 passes of a matrix kernel's f32 products: 3 (the 3xTF32 split,
+    f32-class) for ``"highest"`` and ``"high"``, 1 for ``"default"`` or
+    ``None`` (the Hopper form of the TPU's one bf16 pass)."""
+    if precision in ("highest", "high"):
+        return 3
+    if precision in ("default", None):
+        return 1
+    raise ValueError(f"unknown precision {precision!r}")
+
+
+def matrix_form(dtype: torch.dtype, precision) -> str:
+    """The form a matrix kernel runs in for ``dtype`` data at ``precision``;
+    bf16 operands take one bf16 pass whatever the precision, as in JAX."""
+    if dtype == torch.bfloat16:
+        return "bf16"
+    return "f32" if tf32_passes(precision) == 3 else "tf32"
+
 
 def require_inference(kernel: str, *tensors: torch.Tensor) -> None:
     """Refuse inputs that want a gradient at a raw launch, which records
@@ -22,15 +62,25 @@ def require_inference(kernel: str, *tensors: torch.Tensor) -> None:
 
 
 def require_cuda(kernel: str, device: torch.device, *named) -> None:
-    """Every ``(name, tensor, dtype)`` lies on ``device``, has ``dtype`` and
-    is contiguous."""
-    for name, t, dtype in named:
+    """Every ``(name, tensor, dtypes)`` lies on ``device``, has one of
+    ``dtypes`` (a dtype or a tuple of them) and is contiguous."""
+    for name, t, dtypes in named:
+        allowed = dtypes if isinstance(dtypes, tuple) else (dtypes,)
         if t.device != device:
             raise ValueError(f"{kernel}: {name} is on {t.device}, expected {device}")
-        if t.dtype != dtype:
-            raise TypeError(f"{kernel}: {name} is {t.dtype}, expected {dtype}")
+        if t.dtype not in allowed:
+            want = " or ".join(str(d) for d in allowed)
+            raise TypeError(f"{kernel}: {name} is {t.dtype}, expected {want}")
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+def require_same_dtype(kernel: str, **data: torch.Tensor) -> torch.dtype:
+    """All data operands of one launch share one dtype; returns it."""
+    dtypes = {name: t.dtype for name, t in data.items()}
+    if len(set(dtypes.values())) > 1:
+        raise TypeError(f"{kernel}: data operands differ in dtype: {dtypes}")
+    return next(iter(dtypes.values()))
 
 
 def stream_of(device: torch.device) -> ctypes.c_void_p:
@@ -49,9 +99,13 @@ def raise_on_error(kernel: str, code: int) -> None:
         )
 
 
-def vec16(*tensors: torch.Tensor, widths: tuple[int, ...]) -> int:
+def vec16(*tensors: torch.Tensor, widths: tuple[int, ...],
+          dtype: torch.dtype = torch.float32) -> int:
     """1 when a kernel may move 16 bytes at a time: every row width is a
-    multiple of 4 floats and every tensor starts 16-byte aligned; else 0."""
+    multiple of 16 bytes of ``dtype`` (4 floats, 8 bf16) and every tensor
+    starts 16-byte aligned; else 0."""
+    per16 = 16 // torch.empty((), dtype=dtype).element_size()
     return int(
-        all(w % 4 == 0 for w in widths) and all(t.data_ptr() % 16 == 0 for t in tensors)
+        all(w % per16 == 0 for w in widths)
+        and all(t.data_ptr() % 16 == 0 for t in tensors)
     )

@@ -11,7 +11,10 @@ W_msg[r] + x_dst[e] @ W_self[r] + bias[r]``, the function of the TPU kernel
 autograd Function has the JAX package's VJP (``_combined_bwd``, same file
 :277-315): kernel 3 (``ops/cuda/edge_transform_bwd.py``) gives ``dx_src``,
 ``dx_dst``, ``dW_msg`` and ``dW_self`` in one pass, and ``dbias`` is the
-segment-sum of ``g`` over ``rel_splits`` (kernel 1).
+segment-sum of ``g`` over ``rel_splits`` (kernel 1). It takes bf16 data
+(speed mode: bf16 products summed in f32, the output rounded once to bf16)
+and, for f32 data, ``precision="default"`` (one TF32 pass instead of
+3xTF32), as the TPU kernel's ``precision`` and bf16 branch.
 
 Kernel 5, :func:`edge_transform_sorted`: the two streams apart, ``msg[e] =
 x_src[e] @ W_msg[r] + bias[r]`` and ``selfc[e] = x_dst[e] @ W_self[r]``, the
@@ -57,8 +60,15 @@ def edge_transform_sorted_combined_plain(
 ) -> torch.Tensor:
     """Plain PyTorch version: one ``bmm`` per bank over 256-row tiles.
 
-    Gathers one ``[d_in, d_out]`` weight per tile, never per edge.
+    Gathers one ``[d_in, d_out]`` weight per tile, never per edge. bf16
+    operands are upcast and multiplied in f32 (bf16 products are exact in
+    f32) and the result rounded once to bf16, the kernel's bf16 form.
     """
+    dtype = x_src.dtype
+    if dtype == torch.bfloat16:
+        x_src, x_dst, w_msg, w_self, bias = (
+            t.float() for t in (x_src, x_dst, w_msg, w_self, bias)
+        )
     e = x_src.shape[0]
     d_out = w_msg.shape[-1]
     tile_rel = rel_sorted[::GROUP_PAD].long()
@@ -66,7 +76,7 @@ def edge_transform_sorted_combined_plain(
         as_tiles(x_dst), w_self[tile_rel]
     )
     out = out + bias[tile_rel][:, None, :]
-    return out.reshape(-1, d_out)[:e]
+    return out.reshape(-1, d_out)[:e].to(dtype)
 
 
 def edge_transform_sorted_plain(
@@ -91,23 +101,27 @@ def edge_transform_sorted_plain(
 def _lib() -> ctypes.CDLL:
     lib = load("edge_transform")
     fn = lib.ghf_edge_transform
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    bf16 = lib.ghf_edge_transform_bf16
+    bf16.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    bf16.restype = ctypes.c_int
     two = lib.ghf_edge_transform_two
     two.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     two.restype = ctypes.c_int
     return lib
 
 
-def _check(name, x_src, x_dst, rel_sorted, w_msg, w_self, bias):
+def _check(name, dtypes, x_src, x_dst, rel_sorted, w_msg, w_self, bias):
     """The launch checks of kernels 2 and 5 → ``(E, d_in, d_out)``."""
     _common.require_inference(name, x_src, x_dst, w_msg, w_self, bias)
-    f32 = torch.float32
     _common.require_cuda(
-        name, x_src.device, ("x_src", x_src, f32), ("x_dst", x_dst, f32),
-        ("rel_sorted", rel_sorted, torch.int32), ("w_msg", w_msg, f32),
-        ("w_self", w_self, f32), ("bias", bias, f32),
+        name, x_src.device, ("x_src", x_src, dtypes), ("x_dst", x_dst, dtypes),
+        ("rel_sorted", rel_sorted, torch.int32), ("w_msg", w_msg, dtypes),
+        ("w_self", w_self, dtypes), ("bias", bias, dtypes),
     )
+    _common.require_same_dtype(name, x_src=x_src, x_dst=x_dst, w_msg=w_msg,
+                               w_self=w_self, bias=bias)
     e, d_in = x_src.shape
     u, _, d_out = w_msg.shape
     if (
@@ -124,33 +138,44 @@ def _check(name, x_src, x_dst, rel_sorted, w_msg, w_self, bias):
     return e, d_in, d_out
 
 
-def _launch(two: bool, x_src, x_dst, rel_sorted, w_msg, w_self, bias):
-    """Kernel 5 (``two``: ``(msg, selfc)``) or kernel 2 (one summed output)
-    on CUDA tensors, the matching plain version on CPU tensors."""
+def _launch(two: bool, x_src, x_dst, rel_sorted, w_msg, w_self, bias,
+            precision="highest"):
+    """Kernel 5 (``two``: ``(msg, selfc)``, f32 in 3xTF32) or kernel 2 (one
+    summed output, in the form of its data and ``precision``) on CUDA
+    tensors, the matching plain version on CPU tensors."""
     name = _NAME_TWO if two else _NAME
     args = (x_src, x_dst, rel_sorted, w_msg, w_self, bias)
+    form = "f32" if two else _common.matrix_form(x_src.dtype, precision)
     if x_src.device.type == "cpu":
         plain = edge_transform_sorted_plain if two else edge_transform_sorted_combined_plain
         return plain(*args)
     if x_src.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x_src.device}")
-    e, d_in, d_out = _check(name, *args)
-    dev = x_src.device
+    e, d_in, d_out = _check(
+        name, torch.float32 if two else _common.F32_BF16, *args
+    )
+    dev, dtype = x_src.device, x_src.dtype
     outs = [
-        torch.empty((e, d_out), dtype=torch.float32, device=dev)
+        torch.empty((e, d_out), dtype=dtype, device=dev)
         for _ in range(2 if two else 1)
     ]
     lib = _lib()
-    launch = lib.ghf_edge_transform_two if two else lib.ghf_edge_transform
     ptrs = [_common.ptr(t) for t in (*args, *outs)]
-    vec = _common.vec16(*args, *outs, widths=(d_in, d_out))
+    vec = _common.vec16(*args, *outs, widths=(d_in, d_out), dtype=dtype)
+    if two:
+        launch, sizes = lib.ghf_edge_transform_two, (e, d_in, d_out)
+    elif form == "bf16":
+        launch, sizes = lib.ghf_edge_transform_bf16, (e, d_in, d_out)
+    else:
+        launch = lib.ghf_edge_transform
+        sizes = (e, d_in, d_out, _common.tf32_passes(precision))
     with torch.cuda.device(dev):
-        code = launch(*ptrs, e, d_in, d_out, vec, _common.stream_of(dev))
+        code = launch(*ptrs, *sizes, vec, _common.stream_of(dev))
     _common.raise_on_error(name, code)
     if two:
-        edge_transform_sorted.launches += 1
+        _common.count_launch(edge_transform_sorted, form)
         return tuple(outs)
-    edge_transform_sorted_combined.launches += 1
+    _common.count_launch(edge_transform_sorted_combined, form)
     return outs[0]
 
 
@@ -158,10 +183,13 @@ class _EdgeTransformSortedCombined(torch.autograd.Function):
     """Kernel 2 forward; kernel 3 plus the ``dbias`` segment-sum backward."""
 
     @staticmethod
-    def forward(ctx, x_src, x_dst, rel_sorted, w_msg, w_self, bias, rel_splits):
+    def forward(ctx, x_src, x_dst, rel_sorted, w_msg, w_self, bias, rel_splits,
+                precision):
         # The residuals of the JAX VJP: both gathered streams and the banks.
         ctx.save_for_backward(x_src, x_dst, rel_sorted, w_msg, w_self, rel_splits)
-        return _launch(False, x_src, x_dst, rel_sorted, w_msg, w_self, bias)
+        ctx.precision, ctx.bias_dtype = precision, bias.dtype
+        return _launch(False, x_src, x_dst, rel_sorted, w_msg, w_self, bias,
+                       precision)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -169,13 +197,16 @@ class _EdgeTransformSortedCombined(torch.autograd.Function):
         x_src, x_dst, rel_sorted, w_msg, w_self, rel_splits = ctx.saved_tensors
         g = g.contiguous()
         dx_src, dx_dst, dw_msg, dw_self = edge_transform_combined_bwd(
-            g, x_src, x_dst, rel_sorted, w_msg, w_self
+            g, x_src, x_dst, rel_sorted, w_msg, w_self, precision=ctx.precision
         )
         u = w_msg.shape[0]
         if rel_splits is None:
             rel_splits = rel_bounds(rel_sorted, u)
-        dbias = csr_segment_sum(g, rel_splits, u)
-        return dx_src, dx_dst, None, dw_msg, dw_self, dbias, None
+        # dW and dbias are summed in f32 and cast to their parameters' dtype
+        # (JAX _combined_bwd :293-294, :308).
+        dbias = csr_segment_sum(g, rel_splits, u).to(ctx.bias_dtype)
+        return (dx_src, dx_dst, None, dw_msg.to(w_msg.dtype),
+                dw_self.to(w_self.dtype), dbias, None, None)
 
 
 def edge_transform_sorted_combined(
@@ -186,6 +217,7 @@ def edge_transform_sorted_combined(
     w_self: torch.Tensor,
     bias: torch.Tensor,
     rel_splits: torch.Tensor | None = None,
+    precision="highest",
 ) -> torch.Tensor:
     """Per-edge ``msg + self`` contribution over single-relation tiles → ``[E, d_out]``.
 
@@ -198,18 +230,23 @@ def edge_transform_sorted_combined(
             groups (``SortPlan.rel_splits``) over which the backward reduces
             ``dbias`` through kernel 1; without them it searches
             ``rel_sorted`` for the bounds (:func:`rel_bounds`).
+        precision: ``"highest"`` (3xTF32, f32-class) or ``"default"`` /
+            ``None`` (one TF32 pass) for the products of f32 data, forward
+            and backward; bf16 data takes one bf16 pass whatever it says.
 
-    Differentiable in every float input. CPU tensors take
-    :func:`edge_transform_sorted_combined_plain` (and kernel 3's plain
-    version in the backward); CUDA tensors launch the kernels (float32
-    data, int32 ids, all contiguous) or raise.
+    Differentiable in every float input. The output has the data's dtype;
+    dW and dbias are summed in f32 and cast to their parameters' dtype. CPU
+    tensors take :func:`edge_transform_sorted_combined_plain` (and kernel
+    3's plain version in the backward), exact f32 at any precision; CUDA
+    tensors launch the kernels (float32 or bfloat16 data, one dtype for
+    all, int32 ids, all contiguous) or raise.
     """
     return _EdgeTransformSortedCombined.apply(
-        x_src, x_dst, rel_sorted, w_msg, w_self, bias, rel_splits
+        x_src, x_dst, rel_sorted, w_msg, w_self, bias, rel_splits, precision
     )
 
 
-edge_transform_sorted_combined.launches = 0
+_common.reset_counts(edge_transform_sorted_combined)
 
 
 class _EdgeTransformSorted(torch.autograd.Function):
@@ -264,7 +301,7 @@ def edge_transform_sorted(
     return _EdgeTransformSorted.apply(x_src, x_dst, rel_sorted, w_msg, w_self, bias)
 
 
-edge_transform_sorted.launches = 0
+_common.reset_counts(edge_transform_sorted)
 
 
 def edge_contributions_cuda_sorted(

@@ -15,7 +15,8 @@ per run of up to :data:`RUN_TILES` consecutive tiles of one relation
 (:func:`run_bounds`); kernel 1 (``csr_segment_sum``) then adds each
 relation's partials over the run bounds, so one call of this wrapper
 launches kernel 3 once and kernel 1 once, and the result is bitwise
-deterministic.
+deterministic. Kernel 3 takes bf16 data (speed mode: dx in bf16, dW summed
+in f32) and, for f32 data, ``precision="default"`` (one TF32 pass).
 """
 
 from __future__ import annotations
@@ -92,7 +93,16 @@ def edge_transform_combined_bwd_plain(
     w_self: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version: per-tile ``bmm`` with one gathered weight per
-    tile, then the per-tile dW summed into its relation by ``index_add_``."""
+    tile, then the per-tile dW summed into its relation by ``index_add_``.
+
+    bf16 data is upcast and multiplied in f32; dx is rounded once to g's
+    dtype and dW stays f32, the kernel's bf16 form.
+    """
+    dtype = g.dtype
+    if dtype == torch.bfloat16:
+        g, x_src, x_dst, w_msg, w_self = (
+            t.float() for t in (g, x_src, x_dst, w_msg, w_self)
+        )
     e, d_in = x_src.shape
     u = w_msg.shape[0]
     gt, xs, xd = as_tiles(g), as_tiles(x_src), as_tiles(x_dst)
@@ -103,15 +113,18 @@ def edge_transform_combined_bwd_plain(
         [torch.bmm(xs.transpose(1, 2), gt), torch.bmm(xd.transpose(1, 2), gt)], dim=1
     )  # [tiles, 2 * d_in, d_out]
     dw = part.new_zeros((u,) + tuple(part.shape[1:])).index_add_(0, tile_rel, part)
-    return dx_src, dx_dst, dw[:, :d_in], dw[:, d_in:]
+    return dx_src.to(dtype), dx_dst.to(dtype), dw[:, :d_in], dw[:, d_in:]
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = load("edge_transform_bwd")
     fn = lib.ghf_edge_transform_bwd
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    bf16 = lib.ghf_edge_transform_bwd_bf16
+    bf16.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    bf16.restype = ctypes.c_int
     return lib
 
 
@@ -122,6 +135,7 @@ def edge_transform_combined_bwd(
     rel_sorted: torch.Tensor,
     w_msg: torch.Tensor,
     w_self: torch.Tensor,
+    precision="highest",
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dx_src [E, d_in], dx_dst, dW_msg [U, d_in, d_out], dW_self)``.
 
@@ -131,23 +145,31 @@ def edge_transform_combined_bwd(
         rel_sorted: ``[E]`` relation ids, non-decreasing, each relation's
             group starting on a 256-row boundary.
         w_msg, w_self: ``[U, d_in, d_out]`` the forward's weight banks.
+        precision: ``"highest"`` (3xTF32) or ``"default"`` / ``None`` (one
+            TF32 pass) for f32 data; bf16 data takes one bf16 pass.
 
-    CPU tensors take :func:`edge_transform_combined_bwd_plain`; CUDA
-    tensors launch the kernel (float32 data, int32 ids, all contiguous) or
-    raise. This is a forward-only launch: the combined transform's autograd
-    Function calls it from its backward.
+    dx has g's dtype; dW is f32. CPU tensors take
+    :func:`edge_transform_combined_bwd_plain`; CUDA tensors launch the
+    kernel (float32 or bfloat16 data, one dtype for all, the bf16 form at
+    d_out <= 128; int32 ids; all contiguous) or raise. This is a
+    forward-only launch: the combined transform's autograd Function calls
+    it from its backward.
     """
+    form = _common.matrix_form(g.dtype, precision)
     if g.device.type == "cpu":
         return edge_transform_combined_bwd_plain(g, x_src, x_dst, rel_sorted, w_msg, w_self)
     if g.device.type != "cuda":
         raise ValueError(f"{_NAME}: unsupported device {g.device}")
     _common.require_inference(_NAME, g, x_src, x_dst, w_msg, w_self)
     dev = g.device
-    f32 = torch.float32
+    f32, data = torch.float32, _common.F32_BF16
     _common.require_cuda(
-        _NAME, dev, ("g", g, f32), ("x_src", x_src, f32), ("x_dst", x_dst, f32),
-        ("rel_sorted", rel_sorted, torch.int32), ("w_msg", w_msg, f32),
-        ("w_self", w_self, f32),
+        _NAME, dev, ("g", g, data), ("x_src", x_src, data), ("x_dst", x_dst, data),
+        ("rel_sorted", rel_sorted, torch.int32), ("w_msg", w_msg, data),
+        ("w_self", w_self, data),
+    )
+    dtype = _common.require_same_dtype(
+        _NAME, g=g, x_src=x_src, x_dst=x_dst, w_msg=w_msg, w_self=w_self
     )
     e, d_in = x_src.shape
     u, _, d_out = w_msg.shape
@@ -162,24 +184,33 @@ def edge_transform_combined_bwd(
             f"w_msg {tuple(w_msg.shape)}, w_self {tuple(w_self.shape)} do not "
             "fit together"
         )
-    t_splits, r_splits, max_runs = run_bounds(rel_sorted, u, RUN_TILES)
-    dx_src = torch.empty((e, d_in), dtype=f32, device=dev)
-    dx_dst = torch.empty((e, d_in), dtype=f32, device=dev)
-    partial = torch.empty((max_runs, 2 * d_in * d_out), dtype=f32, device=dev)
-    floats = (g, x_src, x_dst, w_msg, w_self, dx_src, dx_dst, partial)
-    with torch.cuda.device(dev):
-        code = _lib().ghf_edge_transform_bwd(
-            _common.ptr(g), _common.ptr(x_src), _common.ptr(x_dst),
-            _common.ptr(t_splits), _common.ptr(r_splits),
-            _common.ptr(w_msg), _common.ptr(w_self),
-            _common.ptr(dx_src), _common.ptr(dx_dst), _common.ptr(partial),
-            e, d_in, d_out, u, RUN_TILES, max_runs,
-            _common.vec16(*floats, widths=(d_in, d_out)), _common.stream_of(dev),
+    if form == "bf16" and d_out > 128:
+        raise NotImplementedError(
+            f"{_NAME}: the bf16 form takes d_out <= 128 (one slab, dx rounded "
+            f"once from its whole sum); got d_out = {d_out}"
         )
+    t_splits, r_splits, max_runs = run_bounds(rel_sorted, u, RUN_TILES)
+    dx_src = torch.empty((e, d_in), dtype=dtype, device=dev)
+    dx_dst = torch.empty((e, d_in), dtype=dtype, device=dev)
+    partial = torch.empty((max_runs, 2 * d_in * d_out), dtype=f32, device=dev)
+    data_ptrs = (g, x_src, x_dst, t_splits, r_splits, w_msg, w_self, dx_src,
+                 dx_dst, partial)
+    sizes = (e, d_in, d_out, u, RUN_TILES, max_runs)
+    vec = _common.vec16(g, x_src, x_dst, w_msg, w_self, dx_src, dx_dst, partial,
+                        widths=(d_in, d_out), dtype=dtype)
+    lib = _lib()
+    if form == "bf16":
+        launch = lib.ghf_edge_transform_bwd_bf16
+    else:
+        launch = lib.ghf_edge_transform_bwd
+        sizes += (_common.tf32_passes(precision),)
+    with torch.cuda.device(dev):
+        code = launch(*(_common.ptr(t) for t in data_ptrs), *sizes, vec,
+                      _common.stream_of(dev))
     _common.raise_on_error(_NAME, code)
-    edge_transform_combined_bwd.launches += 1
+    _common.count_launch(edge_transform_combined_bwd, form)
     dw = csr_segment_sum(partial, r_splits, u).view(u, 2, d_in, d_out)
     return dx_src, dx_dst, dw[:, 0], dw[:, 1]
 
 
-edge_transform_combined_bwd.launches = 0
+_common.reset_counts(edge_transform_combined_bwd)

@@ -102,9 +102,9 @@ def segment_outer(
             _common.stream_of(dev),
         )
     _common.raise_on_error(_NAME, code)
-    segment_outer.launches += 1
+    _common.count_launch(segment_outer, "f32")
     dw = csr_segment_sum(partial, r_splits, num_rel)
     return dw.view(num_rel, d_in, d_out)
 
 
-segment_outer.launches = 0
+_common.reset_counts(segment_outer)

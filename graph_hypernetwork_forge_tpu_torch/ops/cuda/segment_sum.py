@@ -16,7 +16,8 @@ there.
 On the card the kernels split the rows into fixed chunks, one warp each,
 and add the pieces of segments that cross chunks in a second pass, so a
 segment of any length costs no more than its rows; the sums are bitwise
-deterministic.
+deterministic. Kernel 1 also takes bf16 rows (the speed mode's, the TPU
+kernel's bf16 branch): read as bf16, summed and written in f32.
 """
 
 from __future__ import annotations
@@ -37,7 +38,8 @@ def csr_segment_sum_plain(
 ) -> torch.Tensor:
     """Plain PyTorch version: ``index_add_`` over ids expanded from ``splits``.
 
-    Sums in float32, or in float64 for float64 rows (the gradient checks).
+    Sums in float32 (bf16 rows upcast first), or in float64 for float64
+    rows (the gradient checks).
     """
     s = splits[: num_segments + 1].long()
     ids = torch.repeat_interleave(
@@ -60,6 +62,9 @@ def _lib() -> ctypes.CDLL:
         + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
+    bf16 = lib.ghf_csr_segment_sum_bf16
+    bf16.argtypes = fn.argtypes
+    bf16.restype = ctypes.c_int
     dual = lib.ghf_dual_csr_segment_sum
     stream = [ctypes.c_void_p] * 4 + [ctypes.c_int64]
     dual.argtypes = stream * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -68,10 +73,11 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_stream(name, dev, x_sorted, splits, num_segments) -> None:
+def _check_stream(name, dev, x_sorted, splits, num_segments,
+                  dtypes=torch.float32) -> None:
     """Device, dtype, contiguity and shape checks of one CSR stream."""
     _common.require_cuda(
-        name, dev, ("x_sorted", x_sorted, torch.float32),
+        name, dev, ("x_sorted", x_sorted, dtypes),
         ("splits", splits, torch.int32),
     )
     if x_sorted.dim() != 2 or splits.dim() != 1:
@@ -97,7 +103,8 @@ def csr_segment_sum(
     ``splits`` holds at least ``num_segments + 1`` non-decreasing int32
     row bounds with ``splits[num_segments] <= R``; only those are read.
     CPU tensors take :func:`csr_segment_sum_plain`; CUDA tensors launch the
-    kernel (float32 rows, int32 splits, both contiguous) or raise.
+    kernel (float32 or bfloat16 rows, summed in f32; int32 splits; both
+    contiguous) or raise.
     """
     if x_sorted.device.type == "cpu":
         return csr_segment_sum_plain(x_sorted, splits, num_segments)
@@ -105,24 +112,27 @@ def csr_segment_sum(
         raise ValueError(f"{_NAME}: unsupported device {x_sorted.device}")
     _common.require_inference(_NAME, x_sorted)
     dev = x_sorted.device
-    _check_stream(_NAME, dev, x_sorted, splits, num_segments)
+    _check_stream(_NAME, dev, x_sorted, splits, num_segments, _common.F32_BF16)
     rows, d = (int(s) for s in x_sorted.shape)
     lib = _lib()
     out = torch.empty((num_segments, d), dtype=torch.float32, device=dev)
     partial = _scratch(lib, rows, d, dev)
+    bf16 = x_sorted.dtype == torch.bfloat16
+    launch, vec = (lib.ghf_csr_segment_sum_bf16, 8) if bf16 else (lib.ghf_csr_segment_sum, 4)
     with torch.cuda.device(dev):
-        code = lib.ghf_csr_segment_sum(
+        code = launch(
             _common.ptr(x_sorted), _common.ptr(splits), _common.ptr(out),
             _common.ptr(partial), rows, num_segments, d,
-            4 if _common.vec16(x_sorted, widths=(d,)) else 1,
+            vec if _common.vec16(x_sorted, out, partial, widths=(d,),
+                                 dtype=x_sorted.dtype) else 1,
             _common.stream_of(dev),
         )
     _common.raise_on_error(_NAME, code)
-    csr_segment_sum.launches += 1
+    _common.count_launch(csr_segment_sum, "bf16" if bf16 else "f32")
     return out
 
 
-csr_segment_sum.launches = 0
+_common.reset_counts(csr_segment_sum)
 
 _DUAL = "dual_sorted_segment_sum"
 
@@ -193,8 +203,8 @@ def dual_sorted_segment_sum(
             _common.stream_of(dev),
         )
     _common.raise_on_error(_DUAL, code)
-    dual_sorted_segment_sum.launches += 1
+    _common.count_launch(dual_sorted_segment_sum, "f32")
     return out_a, out_b
 
 
-dual_sorted_segment_sum.launches = 0
+_common.reset_counts(dual_sorted_segment_sum)

@@ -16,15 +16,18 @@ Backends:
 
 ``cuda``
     The kernel path, counterpart of the JAX package's ``pallas`` and
-    ``pallas_packed``. On the relation-sorted, group-padded layout with a
-    :class:`~graph_hypernetwork_forge_tpu_torch.data.encoding.SortPlan`, the
-    edge transform kernel (``ops/cuda/edge_transform.py``) writes each
-    edge's ``msg + self`` contribution and the CSR segment-sum kernel
-    (``ops/cuda/segment_sum.py``) reduces them in dst order; one divide by
-    the clamped count. On CPU tensors both run their plain versions. It is
-    differentiable: the gathers, the transform and the tail are autograd
-    Functions whose backwards run the fused backward kernel and reduce
-    every cotangent through the CSR segment-sum, sort-free.
+    ``pallas_packed``. On the relation-sorted, group-padded layout the edge
+    transform kernel (``ops/cuda/edge_transform.py``) writes each edge's
+    ``msg + self`` contribution; with a
+    :class:`~graph_hypernetwork_forge_tpu_torch.data.encoding.SortPlan` the
+    CSR segment-sum kernel (``ops/cuda/segment_sum.py``) reduces them in dst
+    order, the counts come from the plan, and every gather's cotangent is
+    reduced through kernel 1, sort-free; without one (JAX's ``pallas``
+    without a plan) the rows are plain gathers, the counts come from the
+    mask and the reduction is an ``index_add_`` over dst. One divide by the
+    clamped count. On CPU tensors the kernels run their plain versions. It
+    is differentiable: the transform's backward is the fused backward
+    kernel. ``pallas`` on an unsorted layout runs ``grouped``, as in JAX.
 
 ``dense``
     One ``[2U]``-batched product ``HW[u] = H @ W[u]`` over both banks, then
@@ -54,8 +57,16 @@ Backends:
 (:func:`two_stream_tail`): ``(msg, self)`` reduced over dst in one fused
 ``[E, 2d]`` segment-sum (two above a budget), divided by the count twice.
 ``auto`` picks ``cuda`` on the kernel layout and otherwise as the JAX
-package's ``_pick_backend`` does. Products run in full float32: the port's
-entry points turn TF32 off when they choose the card
+package's ``_pick_backend`` does.
+
+Speed mode (``compute_dtype="bfloat16"``, JAX's): ``h``, the banks and the
+bias are cast to bf16 here, so every backend stores and moves them in bf16;
+the kernels take bf16 operands in one pass with f32 sums, every reduction
+(kernel 1, ``segment_sum``, the chunked accumulators) sums in f32, and the
+output is f32. ``precision`` reaches the hand-written matrix kernels only:
+``"highest"`` (3xTF32, f32-class) or ``"default"`` (one TF32 pass) on f32
+data. PyTorch's own products run in full float32 whatever it says: the
+port's entry points turn TF32 off when they choose the card
 (``device.resolve_device``).
 """
 
@@ -68,6 +79,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from graph_hypernetwork_forge_tpu_torch.data.encoding import GROUP_PAD
+from graph_hypernetwork_forge_tpu_torch.ops.cuda._common import tf32_passes
 from graph_hypernetwork_forge_tpu_torch.ops.cuda.edge_transform import (
     edge_transform_sorted_combined,
 )
@@ -130,14 +142,17 @@ def resolve_backend(
     """The backend a config runs (pure).
 
     The JAX package's kernel backends ``pallas`` and ``pallas_packed`` are
-    ``cuda`` here. ``auto`` picks ``cuda`` on the layout the kernels need
-    (relation-sorted, group-padded, with a sort plan), at any size and on
-    any device (on the CPU the kernels' plain versions run); on any other
-    layout it picks as :func:`_pick_backend`. The other backends run as
-    asked.
+    ``cuda`` here, except that ``pallas`` on an unsorted layout is
+    ``grouped``, as JAX falls back. ``auto`` picks ``cuda`` on the layout
+    the kernels need (relation-sorted, group-padded, with a sort plan), at
+    any size and on any device (on the CPU the kernels' plain versions
+    run); on any other layout it picks as :func:`_pick_backend`. The other
+    backends run as asked.
     """
     if backend not in get_args(Backend):
         raise ValueError(f"unknown backend {backend!r}")
+    if backend == "pallas" and not rel_sorted:
+        return "grouped"
     if backend in ("pallas", "pallas_packed", "cuda"):
         return "cuda"
     if backend == "auto" and rel_sorted and group_padded and has_sort_plan:
@@ -147,13 +162,21 @@ def resolve_backend(
     )
 
 
-def _check_cuda_layout(rel_sorted, group_padded, sort_plan) -> None:
-    if not rel_sorted or not group_padded or sort_plan is None:
+def _check_cuda_layout(backend, rel_sorted, group_padded, sort_plan) -> None:
+    if not rel_sorted or not group_padded:
         raise ValueError(
-            "backend='cuda' requires a rel-sorted GROUP_PAD-padded layout "
-            "and a SortPlan (encode_graph(..., sort_by_relation=True, "
-            f"with_sort_plan=True, group_pad={GROUP_PAD}))"
+            f"backend={backend!r} requires a rel-sorted GROUP_PAD-padded "
+            "layout (encode_graph(..., sort_by_relation=True, "
+            f"group_pad={GROUP_PAD}))"
         )
+    if backend == "pallas_packed" and sort_plan is None:
+        # As the JAX package refuses it (its ops/message_passing.py:559-569).
+        raise ValueError(
+            "backend='pallas_packed' requires a rel-sorted GROUP_PAD-padded "
+            "layout and a SortPlan"
+        )
+    if sort_plan is None:
+        return
     # A relation group that does not start on a 256-row boundary would make
     # a tile apply its first relation's weights to a second relation's
     # rows. encode_graph(group_pad=256) guarantees alignment; plans that
@@ -290,7 +313,9 @@ class _MpChunked(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, w_msg, w_self, bias, src, dst, rel_ids, mask, n, chunk):
         d_out = w_msg.shape[-1]
-        # f32 accumulators (f64 for f64 inputs, as in the gradient checks).
+        # f32 accumulators (f64 for f64 inputs, as in the gradient checks);
+        # bf16 chunk terms are upcast by the product with the f32 mask, as
+        # in JAX.
         acc = dict(dtype=torch.promote_types(h.dtype, torch.float32), device=h.device)
         agg, selft = torch.zeros((n, d_out), **acc), torch.zeros((n, d_out), **acc)
         cnt = torch.zeros((n,), **acc)
@@ -303,27 +328,35 @@ class _MpChunked(torch.autograd.Function):
             cnt.index_add_(0, dst[s], m)
         cnt = cnt.clamp(min=1.0)
         ctx.save_for_backward(h, w_msg, w_self, src, dst, rel_ids, mask, cnt)
-        ctx.chunk = chunk
+        ctx.chunk, ctx.bias_dtype = chunk, bias.dtype
         return (agg + selft) / cnt[:, None]
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         h, w_msg, w_self, src, dst, rel_ids, mask, cnt = ctx.saved_tensors
+        # Every cotangent is accumulated in the forward's accumulator dtype
+        # whatever the storage dtype (bf16 operands upcast per chunk) and
+        # cast to its input's dtype at the end, as JAX's _mp_chunked_bwd
+        # (its ops/message_passing.py:177-237).
+        acc = dict(dtype=cnt.dtype, device=h.device)
         g_over_cnt = g / cnt[:, None]
-        dh = torch.zeros_like(h)
-        dw_msg, dw_self = torch.zeros_like(w_msg), torch.zeros_like(w_self)
-        dbias = g.new_zeros((w_msg.shape[0], w_msg.shape[2]))
+        dh = torch.zeros(h.shape, **acc)
+        dw_msg, dw_self = torch.zeros(w_msg.shape, **acc), torch.zeros(w_self.shape, **acc)
+        dbias = torch.zeros((w_msg.shape[0], w_msg.shape[2]), **acc)
         for lo in range(0, src.shape[0], ctx.chunk):
             s = slice(lo, lo + ctx.chunk)
             src_c, dst_c, rel_c = src[s], dst[s], rel_ids[s]
             ge = g_over_cnt[dst_c] * mask[s][:, None]  # [chunk, d_out]
-            dh.index_add_(0, src_c, torch.einsum("eo,edo->ed", ge, w_msg[rel_c]))
-            dh.index_add_(0, dst_c, torch.einsum("eo,edo->ed", ge, w_self[rel_c]))
-            dw_msg.index_add_(0, rel_c, torch.einsum("ed,eo->edo", h[src_c], ge))
-            dw_self.index_add_(0, rel_c, torch.einsum("ed,eo->edo", h[dst_c], ge))
+            wm_c, ws_c = (w[rel_c].to(cnt.dtype) for w in (w_msg, w_self))
+            x_src, x_dst = h[src_c].to(cnt.dtype), h[dst_c].to(cnt.dtype)
+            dh.index_add_(0, src_c, torch.einsum("eo,edo->ed", ge, wm_c))
+            dh.index_add_(0, dst_c, torch.einsum("eo,edo->ed", ge, ws_c))
+            dw_msg.index_add_(0, rel_c, torch.einsum("ed,eo->edo", x_src, ge))
+            dw_self.index_add_(0, rel_c, torch.einsum("ed,eo->edo", x_dst, ge))
             dbias.index_add_(0, rel_c, ge)
-        return (dh, dw_msg, dw_self, dbias) + (None,) * 6
+        return (dh.to(h.dtype), dw_msg.to(w_msg.dtype), dw_self.to(w_self.dtype),
+                dbias.to(ctx.bias_dtype)) + (None,) * 6
 
 
 def _reduce_dst(x, dst, n, sort_plan):
@@ -351,7 +384,9 @@ def two_stream_tail(
     fused ``[E, 2d]`` segment-sum over dst (in dst-sorted order through the
     plan and kernel 1 when there is a plan, else ``index_add_``), or two
     ``[E, d]`` ones above ``_FUSED_TAIL_BUDGET_ELEMENTS``; then two true
-    divides, ``agg / cnt + self / cnt``, as the reference rounds them.
+    divides, ``agg / cnt + self / cnt``, as the reference rounds them. The
+    mask is cast to the streams' dtype, as JAX casts it, so bf16 streams
+    stay bf16 up to the f32 reduction.
     """
     n = num_nodes
     if sort_plan is not None:
@@ -360,15 +395,15 @@ def two_stream_tail(
         cnt = segment_count(dst, n, edge_mask).clamp(min=1.0)[:, None]
     if msg.numel() > _FUSED_TAIL_BUDGET_ELEMENTS:
         if edge_mask is not None:
-            msg = msg * edge_mask[:, None]
-            self_contrib = self_contrib * edge_mask[:, None]
+            msg = msg * edge_mask.to(msg.dtype)[:, None]
+            self_contrib = self_contrib * edge_mask.to(self_contrib.dtype)[:, None]
         total_msg = _reduce_dst(msg, dst, n, sort_plan)
         total_self = _reduce_dst(self_contrib, dst, n, sort_plan)
         return total_msg / cnt + total_self / cnt
     d_out = msg.shape[-1]
     both = torch.cat([msg, self_contrib], dim=-1)
     if edge_mask is not None:
-        both = both * edge_mask[:, None]
+        both = both * edge_mask.to(both.dtype)[:, None]
     total = _reduce_dst(both, dst, n, sort_plan)
     return total[:, :d_out] / cnt + total[:, d_out:] / cnt
 
@@ -388,6 +423,8 @@ def relational_message_passing(
     rel_sorted: bool = False,
     sort_plan=None,
     group_padded: bool = False,
+    precision="highest",
+    compute_dtype=None,
 ) -> torch.Tensor:
     """One round of relation-conditioned message passing → ``[N, d_out]`` f32.
 
@@ -402,14 +439,31 @@ def relational_message_passing(
             neither messages nor counts.
         backend: ``auto`` | ``cuda`` | ``dense`` | ``grouped`` |
             ``chunked`` | ``gather`` (``pallas`` and ``pallas_packed``
-            mean ``cuda``).
+            mean ``cuda``; ``pallas`` off the sorted layout ``grouped``).
         rel_sorted, group_padded: promises about the edge layout
             (``encode_graph(sort_by_relation=True[, group_pad=256])``);
             wrong results follow if the layout is otherwise.
         sort_plan: the layout's SortPlan with tensors on ``h``'s device.
+        precision: ``"highest"`` (the default: the kernels' products are
+            f32-class, 3xTF32) or ``"default"`` / ``None`` (one TF32 pass,
+            the Hopper form of the TPU's one bf16 pass; outside parity
+            mode). It reaches only the hand-written matrix kernels of the
+            ``cuda`` backend on f32 data; on the CPU their plain versions
+            are exact f32 at any precision.
+        compute_dtype: ``None`` / ``"float32"`` (parity mode) or
+            ``"bfloat16"`` (speed mode): ``h``, the banks and the bias are
+            stored and moved in bf16, every reduction sums in f32, and the
+            output is f32 (bf16-class, ~4e-3 relative; no parity gate).
 
     Returns the pre-residual embeddings.
     """
+    tf32_passes(precision)  # refuses an unknown precision on every backend
+    if compute_dtype in ("bfloat16", torch.bfloat16):
+        h, w_msg, w_self, bias = (
+            t.to(torch.bfloat16) for t in (h, w_msg, w_self, bias)
+        )
+    elif compute_dtype not in (None, "float32", torch.float32):
+        raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
     n = int(h.shape[0]) if num_nodes is None else num_nodes
     chosen = resolve_backend(
         backend, n, int(w_msg.shape[0]), int(src.shape[0]), int(w_msg.shape[2]),
@@ -418,24 +472,28 @@ def relational_message_passing(
     )
 
     if chosen == "cuda":
-        _check_cuda_layout(rel_sorted, group_padded, sort_plan)
+        _check_cuda_layout(backend, rel_sorted, group_padded, sort_plan)
         plan = sort_plan
-        x_src, x_dst = take_rows_pair(
-            h, src, dst,
-            plan.src_perm, plan.src_sorted, plan.src_splits,
-            plan.dst_perm, plan.dst_sorted, plan.dst_splits,
-        )
+        if plan is not None:
+            x_src, x_dst = take_rows_pair(
+                h, src, dst,
+                plan.src_perm, plan.src_sorted, plan.src_splits,
+                plan.dst_perm, plan.dst_sorted, plan.dst_splits,
+            )
+            rel_splits = plan.rel_splits
+            cnt = plan.in_degree[:n].clamp(min=1.0)[:, None]
+        else:
+            # JAX's pallas without a plan (its ops/message_passing.py:
+            # 659-684): plain gathers, counts from the mask.
+            x_src, x_dst = h.index_select(0, src), h.index_select(0, dst)
+            rel_splits = None
+            cnt = segment_count(dst, n, edge_mask).clamp(min=1.0)[:, None]
         contrib = edge_transform_sorted_combined(
-            x_src, x_dst, rel_ids, w_msg, w_self, bias, plan.rel_splits
+            x_src, x_dst, rel_ids, w_msg, w_self, bias, rel_splits, precision
         )
-        cnt = plan.in_degree[:n].clamp(min=1.0)[:, None]
         if edge_mask is not None:
-            contrib = contrib * edge_mask[:, None]
-        total = sorted_segment_sum_by_plan(
-            contrib, plan.dst_perm, plan.inv_dst_perm, plan.dst_sorted, n,
-            plan.dst_splits,
-        )
-        return total / cnt
+            contrib = contrib * edge_mask.to(contrib.dtype)[:, None]
+        return _reduce_dst(contrib, dst, n, plan) / cnt
 
     if chosen == "chunked":
         if edge_mask is None:

@@ -68,7 +68,9 @@ def segment_mean_clamped(
 def _sorted_sum(values_sorted, ids_sorted, num_segments, splits):
     """The forward of :func:`sorted_segment_sum`, recording nothing."""
     if splits is not None and values_sorted.dim() == 2:
-        if values_sorted.dtype in (torch.bfloat16, torch.float16):
+        # bf16 rows (speed mode) go to kernel 1's bf16 form, which sums
+        # them in f32 as it reads them: no [E, d] f32 copy.
+        if values_sorted.dtype == torch.float16:
             values_sorted = values_sorted.float()
         return csr_segment_sum(values_sorted.contiguous(), splits, num_segments)
     return segment_sum(values_sorted, ids_sorted, num_segments)

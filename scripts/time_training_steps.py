@@ -1,5 +1,7 @@
 #!/usr/bin/env python3
-"""Time the xl and xl-d128 training steps of the `cuda` backend, repeatedly.
+"""Time the xl and xl-d128 training steps of the `cuda` backend, repeatedly,
+in f32, in speed mode (compute_dtype="bfloat16") and in one TF32 pass
+(precision="default").
 
     python3 scripts/time_training_steps.py [REPEATS]
 
@@ -10,8 +12,10 @@ within one call. For each width it builds the xl training step as
 ``chip_smoke.py`` phase 5 does, takes one warm-up step, then REPEATS
 (default 5) times ``chip_smoke.TRAIN_STEPS`` steps on the host clock
 between two synchronises, and prints each repeat's ms/step, their min and
-median. ``chip_smoke.py`` reports one such sample, which host-side stalls
-on a shared machine can inflate.
+median, mode by mode in turn on the same graph (a tree whose
+``chip_smoke`` has no speed mode times f32 alone). ``chip_smoke.py``
+reports one such sample, which host-side stalls on a shared machine can
+inflate.
 """
 
 from __future__ import annotations
@@ -34,26 +38,33 @@ def main(repeats: int) -> int:
     dev = torch.device("cuda")
     print(f"card: {cs.card_line()} | tree {Path.cwd()}", flush=True)
     cs.phase_build()
+    modes = {"f32": None}
+    if hasattr(cs, "SPEED"):
+        modes.update({"bf16": cs.SPEED, "precision=default": cs.ONE_PASS})
     for width in (cs.WIDTH, 2 * cs.WIDTH):
         name = "xl" if width == cs.WIDTH else f"xl-d{width}"
         feats_np, ei, etexts, _ = cs.xl_edges(width=width)
         graph = cs.encode(ei, etexts)
         init = cs.init_hypergnn(cs.train_config(width=width), torch.Generator().manual_seed(0))
-        run, _ = cs._trainer(graph, feats_np, init, "cuda", dev, width)
-        run()
-        torch.cuda.synchronize()
-        samples = []
-        for _ in range(repeats):
-            t0 = time.perf_counter()
-            for _ in range(cs.TRAIN_STEPS):
-                run()
+        for label, mode in modes.items():
+            extra = {} if mode is None else {"mode": mode}
+            run, _ = cs._trainer(graph, feats_np, init, "cuda", dev, width, **extra)
+            run()
             torch.cuda.synchronize()
-            samples.append((time.perf_counter() - t0) / cs.TRAIN_STEPS * 1e3)
-        print(f"training {name}: ms/step over {cs.TRAIN_STEPS} steps, {repeats} repeats: "
-              f"{', '.join(f'{s:.3f}' for s in samples)} | min {min(samples):.3f} "
-              f"median {statistics.median(samples):.3f}", flush=True)
-        del run, graph, init
-        torch.cuda.empty_cache()
+            samples = []
+            for _ in range(repeats):
+                t0 = time.perf_counter()
+                for _ in range(cs.TRAIN_STEPS):
+                    run()
+                torch.cuda.synchronize()
+                samples.append((time.perf_counter() - t0) / cs.TRAIN_STEPS * 1e3)
+            print(f"training {name} {label}: ms/step over {cs.TRAIN_STEPS} steps, "
+                  f"{repeats} repeats: {', '.join(f'{s:.3f}' for s in samples)} | "
+                  f"min {min(samples):.3f} median {statistics.median(samples):.3f}",
+                  flush=True)
+            del run
+            torch.cuda.empty_cache()
+        del graph, init
     return 0
 
 

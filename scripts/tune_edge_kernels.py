@@ -9,8 +9,12 @@ under ``build/variants/`` with a few lines of a kernel source changed,
 built with the port's nvcc flags; the wrappers then launch it in place of
 the built-in library. ``edge_transform.cu`` holds kernels 2 and 5, so each
 of its variants times both. Variants named "ablation: ..." leave out part
-of the work (the products, the row loads, two of the three TF32 passes) to
-show where the time goes, so their errors are large. Each ``CSRC_DIR``
+of the work (the products, the row loads, two of kernel 6's three TF32
+passes) to show where the time goes, so their errors are large; kernels 2
+and 3 are also timed in their one-TF32-pass mode (precision="default").
+Kernels 3 and 6 are timed against the library composition that computes
+the same function: ``bmm`` per 256-row tile and ``index_add_`` of the tile
+partials into their relations (and ``bmm`` alone). Each ``CSRC_DIR``
 given (another tree's ``csrc/``, for example the parent commit's) is built
 and timed as one more variant, source by source where its C interface is
 the same as this tree's (else that source is skipped), so that two
@@ -58,14 +62,6 @@ K3_UNROLL = ("#pragma unroll 2\n        for (int kb = 0; kb < DOUT",
              "#pragma unroll 2\n        for (int kb = 0; kb < BM")
 DX = "      // ---- 1. dx = g W^T: warps 2 (rows) x 4 (bank, 32 columns) ----------\n      {"
 DW = "      // ---- 2. dW += X^T g: warps 4 (x_src^T, x_dst^T rows) x 2 (d_out) ---\n      {"
-K3_ONE_PASS = [
-    ("tf32x3::mma3_tile<MX, NX>(acc, ahi, alo, bhi, blo);",
-     "for (int i = 0; i < MX; ++i) for (int j = 0; j < NX; ++j) "
-     "tf32x3::mma(acc[i][j], ahi[i], bhi[j]);"),
-    ("tf32x3::mma3_tile<2, NG>(dw[q], ahi, alo, bhi, blo);",
-     "for (int i = 0; i < 2; ++i) for (int j = 0; j < NG; ++j) "
-     "tf32x3::mma(dw[q][i][j], ahi[i], bhi[j]);"),
-]
 K2_KSTEPS = "#pragma unroll 1\n    for (int ks = 0; ks < BK2 / 8; ++ks) {"
 K6_KSTEPS = "#pragma unroll 2\n    for (int kb = 0; kb < BM; kb += 8) {"
 VARIANTS = {
@@ -76,7 +72,6 @@ VARIANTS = {
         "ablation: dW product only": [(DX, "      if (false) {")],
         "ablation: staging only, no products": [(DX, "      if (false) {"),
                                                 (DW, "      if (false) {")],
-        "ablation: one TF32 pass": K3_ONE_PASS,
         "ablation: products only, no row loads": [
             ("      if (s < chunks) load(s, s);", ""),
             ("        load(ch + kStages - 1, (ch + kStages - 1) % kStages);", "        ;")],
@@ -106,10 +101,6 @@ VARIANTS = {
         "ablation: products only, no row loads": [
             ("    if (s < chunks) load(s, s);", ""),
             ("      load(c + kStages2 - 1, (c + kStages2 - 1) % kStages2);", "      ;")],
-        "ablation: one TF32 pass": [(
-            "tf32x3::mma3_tile<2, NG>(acc[q], ahi, alo, bhi, blo);",
-            "for (int i = 0; i < 2; ++i) for (int j = 0; j < NG; ++j) "
-            "tf32x3::mma(acc[q][i][j], ahi[i], bhi[j]);")],
     },
     "segment_outer": {
         "source": [],
@@ -256,23 +247,55 @@ def main(argv: list[str]) -> int:
         fwd = (xs, xd, rel, wm, ws, bias)
         bwd = (g_out, xs, xd, rel, wm, ws)
         outer = (xs, g_out, rel, u_pad)
+        plain2 = k2.edge_transform_sorted_combined_plain(*fwd)
+        plain3 = k3.edge_transform_combined_bwd_plain(*bwd)
         # (label, call, plain result, error) of each source's kernels.
         kernels_of = {
             "edge_transform": [
                 ("kernel 2", lambda: k2.edge_transform_sorted_combined(*fwd),
-                 k2.edge_transform_sorted_combined_plain(*fwd), abs_err),
+                 plain2, abs_err),
+                ("kernel 2, one TF32 pass",
+                 lambda: k2.edge_transform_sorted_combined(*fwd, precision="default"),
+                 plain2, abs_err),
                 ("kernel 5", lambda: k2.edge_transform_sorted(*fwd),
                  k2.edge_transform_sorted_plain(*fwd), abs_err),
             ],
             "edge_transform_bwd": [
                 ("kernel 3", lambda: k3.edge_transform_combined_bwd(*bwd),
-                 k3.edge_transform_combined_bwd_plain(*bwd), scaled_err),
+                 plain3, scaled_err),
+                ("kernel 3, one TF32 pass",
+                 lambda: k3.edge_transform_combined_bwd(*bwd, precision="default"),
+                 plain3, scaled_err),
             ],
             "segment_outer": [
                 ("kernel 6", lambda: k6.segment_outer(*outer),
                  k6.segment_outer_plain(*outer), scaled_err),
             ],
         }
+        # The library compositions of kernels 3 and 6: bmm per tile, then
+        # index_add_ of the tile partials into their relations.
+        tiles = e_rows // 256
+        tile_rel = rel[::256].long()
+        g_t, xs_t, xd_t = (t.view(tiles, 256, d) for t in (g_out, xs, xd))
+        w_t = torch.cat([wm, ws], dim=1)[tile_rel].transpose(1, 2).contiguous()
+        x_t = torch.cat([xs_t, xd_t], dim=2).transpose(1, 2)
+
+        def k3_library():
+            dw = torch.zeros(u_pad, 2 * d, d, device=dev)
+            return torch.bmm(g_t, w_t), dw.index_add_(0, tile_rel, torch.bmm(x_t, g_t))
+
+        def k6_library():
+            dw = torch.zeros(u_pad, d, d, device=dev)
+            return dw.index_add_(0, tile_rel, torch.bmm(xs_t.transpose(1, 2), g_t))
+
+        for label, call, bmm_alone in (
+            ("kernel 3", k3_library, lambda: (torch.bmm(g_t, w_t), torch.bmm(x_t, g_t))),
+            ("kernel 6", k6_library, lambda: torch.bmm(xs_t.transpose(1, 2), g_t)),
+        ):
+            print(f"{label} d={d} library, bmm + index_add_: {best_ms(call):.4f} ms; "
+                  f"bmm alone {best_ms(bmm_alone):.4f} ms", flush=True)
+        del g_t, xs_t, xd_t, w_t, x_t, k3_library, k6_library
+
         for (src, name), lib in libs.items():
             mod = MODULES[src]
             mod._lib = lambda lib=lib: lib
@@ -293,7 +316,7 @@ def main(argv: list[str]) -> int:
             mod._lib, restore = own[src][0], own[src][1]
             if restore is not None:
                 mod.RUN_TILES = restore
-        del xs, xd, g_out, wm, ws, bias, fwd, bwd, outer, kernels_of
+        del xs, xd, g_out, wm, ws, bias, fwd, bwd, outer, kernels_of, plain2, plain3
         torch.cuda.empty_cache()
     return 0
 

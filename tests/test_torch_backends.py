@@ -4,7 +4,8 @@ with the same backend, on the same numpy inputs.
 
 Layouts: the stored edge order (bucket-padded, masked pad edges), the
 relation-sorted order, and the sorted order with its SortPlan; every case
-also masks some real edges. Values at f32 atol 3e-5; gradients of
+also masks some real edges. ``pallas`` also where JAX runs it without a
+plan or off the sorted layout, and ``chunked`` in speed mode. Values at f32 atol 3e-5; gradients of
 ``Σ out · R`` (R fixed) at atol 3e-5 after dividing by ``max(1, max|ref|)``.
 """
 
@@ -53,15 +54,15 @@ def _case(layout, seed=0):
     return jg, pg, arrays, mask.astype(np.float32), r
 
 
-def _run_jax(jg, arrays, mask, r, backend, rel_sorted):
+def _run_jax(jg, arrays, mask, r, backend, rel_sorted, n=N, **kw):
     plan = (None if jg.sort_plan is None
             else jax.tree_util.tree_map(jnp.asarray, jg.sort_plan))
 
     def f(h, w_msg, w_self, bias):
         out = jmp.relational_message_passing(
             h, *(jnp.asarray(a) for a in jg.arrays[:3]), w_msg, w_self, bias,
-            num_nodes=N, edge_mask=jnp.asarray(mask), backend=backend,
-            rel_sorted=rel_sorted, sort_plan=plan,
+            num_nodes=n, edge_mask=jnp.asarray(mask), backend=backend,
+            rel_sorted=rel_sorted, sort_plan=plan, **kw,
         )
         return jnp.sum(out * jnp.asarray(r)), out
 
@@ -71,14 +72,14 @@ def _run_jax(jg, arrays, mask, r, backend, rel_sorted):
     return out, grads
 
 
-def _run_port(pg, arrays, mask, r, backend, rel_sorted):
+def _run_port(pg, arrays, mask, r, backend, rel_sorted, n=N, **kw):
     leaves = [torch.from_numpy(arrays[k]).requires_grad_(True)
               for k in ("h", "w_msg", "w_self", "bias")]
     out = pmp.relational_message_passing(
         leaves[0], *(torch.from_numpy(a) for a in pg.arrays[:3]), *leaves[1:],
-        num_nodes=N, edge_mask=torch.from_numpy(mask), backend=backend,
+        num_nodes=n, edge_mask=torch.from_numpy(mask), backend=backend,
         rel_sorted=rel_sorted,
-        sort_plan=None if pg.sort_plan is None else pg.sort_plan.to("cpu"),
+        sort_plan=None if pg.sort_plan is None else pg.sort_plan.to("cpu"), **kw,
     )
     (out * torch.from_numpy(r)).sum().backward()
     return out.detach(), [t.grad for t in leaves]
@@ -123,6 +124,81 @@ def test_backends_run_no_kernel_off_the_plan_and_agree_with_gather():
         for g, w in zip(grads, ref_grads):
             assert_scaled_close(g.numpy(), w.numpy(), err_msg=backend)
     assert kernels.csr_segment_sum.launches == 0
+
+
+# ROADMAP §3.1's inputs: (a) N=40, E=200, U=5, d=16 in the stored edge
+# order, where JAX's pallas falls back to grouped; (b) the group-padded
+# sorted layout at N=60, E=700 without a plan, where JAX's pallas gathers,
+# counts from the mask and reduces with segment_sum.
+_OFF_PLAN = [
+    (40, 200, dict(sort_by_relation=False)),
+    (60, 700, dict(sort_by_relation=True, group_pad=256)),
+]
+
+
+def _off_plan_case(n, e, layout, d=16, seed=11):
+    rng = np.random.default_rng(seed)
+    ei = np.stack([rng.integers(0, n, e), rng.integers(0, n, e)])
+    texts = [f"relation type {i} of the graph" for i in range(U)]
+    etexts = [texts[i] for i in rng.integers(0, U, e)]
+    jg, pg = (enc(ei, etexts, n, **layout) for enc in (jax_encode, encode_graph))
+    u_pad = pg.char_ids.shape[0]
+    arrays = dict(
+        h=rng.standard_normal((n, d)).astype(np.float32),
+        w_msg=(rng.standard_normal((u_pad, d, d)) / 4).astype(np.float32),
+        w_self=(rng.standard_normal((u_pad, d, d)) / 4).astype(np.float32),
+        bias=rng.standard_normal((u_pad, d)).astype(np.float32),
+    )
+    mask = (pg.edge_mask * (rng.random(pg.edge_mask.shape[0]) >= 0.1)).astype(np.float32)
+    r = rng.standard_normal((n, d)).astype(np.float32)
+    return jg, pg, arrays, mask, r
+
+
+@pytest.mark.parametrize("n,e,layout", _OFF_PLAN)
+def test_pallas_off_the_plan_matches_jax_pallas(n, e, layout):
+    jg, pg, arrays, mask, r = _off_plan_case(n, e, layout)
+    rel_sorted = layout["sort_by_relation"]
+    want, jgrads = _run_jax(jg, arrays, mask, r, "pallas", rel_sorted, n=n)
+    kernels.reset_launch_counts()
+    got, pgrads = _run_port(pg, arrays, mask, r, "pallas", rel_sorted, n=n,
+                            group_padded="group_pad" in layout)
+    assert got.shape == (n, 16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=ATOL)
+    for name, g, w in zip(("h", "w_msg", "w_self", "bias"), pgrads, jgrads):
+        assert tuple(g.shape) == w.shape, name
+        assert_scaled_close(g.numpy(), w, err_msg=name)
+    # Off the sorted layout pallas is grouped; without a plan on the padded
+    # layout it is the transform's plain version and index_add_ reductions.
+    assert kernels.csr_segment_sum.launches == 0
+
+
+def test_pallas_packed_still_refuses_what_jax_refuses():
+    jg, pg, arrays, mask, r = _off_plan_case(60, 700, _OFF_PLAN[1][2])
+    for a in (jg, pg):
+        assert a.sort_plan is None
+    with pytest.raises(ValueError, match="pallas_packed"):
+        _run_jax(jg, arrays, mask, r, "pallas_packed", True, n=60)
+    with pytest.raises(ValueError, match="pallas_packed"):
+        _run_port(pg, arrays, mask, r, "pallas_packed", True, n=60, group_padded=True)
+
+
+def test_chunked_speed_mode_accumulates_in_f32_like_jax():
+    # JAX's _mp_chunked sums every cotangent of bf16 operands in f32 and
+    # casts at the end; so does the port's _MpChunked. Values and
+    # gradients come back bf16-rounded on both sides: one bf16 ulp of the
+    # largest value apart at most.
+    jg, pg, arrays, mask, r = _case(LAYOUTS["stored-order"], seed=7)
+    want, jgrads = _run_jax(jg, arrays, mask, r, "chunked", False,
+                            compute_dtype="bfloat16")
+    got, pgrads = _run_port(pg, arrays, mask, r, "chunked", False,
+                            compute_dtype="bfloat16")
+    assert got.dtype == torch.float32
+    for name, g, w in [("out", got, want), *zip(("h", "w_msg", "w_self", "bias"),
+                                                pgrads, jgrads)]:
+        w = np.asarray(w)
+        assert g.dtype == torch.float32 and tuple(g.shape) == w.shape, name
+        np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                   atol=2.0**-7 * np.abs(w).max(), err_msg=name)
 
 
 def test_ragged_and_chunked_functions_pass_gradcheck(monkeypatch):

@@ -21,11 +21,12 @@ def sources(tmp_path, monkeypatch):
     return src
 
 
+@pytest.mark.parametrize("header_name", ["tf32x3.cuh", "bf16_mma.cuh"])
 @pytest.mark.parametrize("name", kernels.KERNEL_SOURCES)
-def test_library_path_changes_when_a_header_changes(sources, name):
+def test_library_path_changes_when_a_header_changes(sources, name, header_name):
     before = build._library_path(name)
     assert before == build._library_path(name), "the name must be stable"
-    header = sources / "tf32x3.cuh"
+    header = sources / header_name
     header.write_bytes(header.read_bytes() + b"\n// one more line\n")
     after = build._library_path(name)
     assert after != before

@@ -462,3 +462,150 @@ def test_backends_on_the_card_match_the_cpu(dev, backend, layout):
     torch.testing.assert_close(out, ref, rtol=0, atol=3e-5)
     for name, a, w in zip(("h", "w_msg", "w_self", "bias"), grads, ref_grads):
         _close_scaled(a, w, name)
+
+
+# ---------------------------------------------------------------------------
+# Speed mode: the bf16 forms of kernels 1, 2 and 3, and the one-TF32-pass
+# mode of kernels 2 and 3 (precision="default").
+# ---------------------------------------------------------------------------
+
+# One bf16 ulp of the largest value: the kernel and its plain version sum
+# the same exact f32 products in another order, so an element may round to
+# either neighbour.
+BF16_ULP = 2.0**-7
+# One TF32 pass keeps 11 bits of each operand: bf16-class, against float64.
+ONE_PASS_SCALED = 4e-3
+
+
+def _within_ulp(got, want, msg):
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= BF16_ULP * want.float().abs().max().item(), (msg, err)
+
+
+@pytest.mark.parametrize("d", [3, 64, 128])
+@pytest.mark.parametrize("skew", [False, True])
+def test_csr_kernel_bf16_form_matches_plain_and_is_deterministic(dev, d, skew):
+    # d=3 takes the 2-byte loads, 64 and 128 the 16-byte ones.
+    x, _, splits = segment_case(31, 5000, 300, d, skew)
+    xt = torch.from_numpy(x).to(dev).bfloat16()
+    st = torch.from_numpy(splits).to(dev)
+    kernels.reset_launch_counts()
+    a, b = csr_segment_sum(xt, st, 300), csr_segment_sum(xt, st, 300)
+    torch.cuda.synchronize()
+    assert csr_segment_sum.launches_by_form == {"f32": 0, "tf32": 0, "bf16": 2}
+    assert a.dtype == torch.float32 and torch.equal(a, b), "two runs differ"
+    _check_sums(a, xt.float().cpu().numpy(), splits, 300)
+    assert not a[-3:].any()
+
+
+_BF16_WIDTHS = [(64, 64), (128, 128), (16, 40), (128, 64), (36, 30)]
+
+
+@pytest.mark.parametrize("d_in,d_out", _BF16_WIDTHS)
+@pytest.mark.parametrize("tail_cut", [0, 100])
+def test_edge_transform_kernel_bf16_form_matches_plain(dev, d_in, d_out, tail_cut):
+    # 36 -> 30 takes the 2-byte copies; the rest the 16-byte ones.
+    args = [torch.from_numpy(a).to(dev) for a in run_case(24, d_in, d_out, tail_cut)]
+    args = [a.bfloat16() if a.is_floating_point() else a for a in args]
+    kernels.reset_launch_counts()
+    got = edge_transform_sorted_combined(*args)
+    torch.cuda.synchronize()
+    assert edge_transform_sorted_combined.launches_by_form["bf16"] == 1
+    assert got.dtype == torch.bfloat16
+    _within_ulp(got.cpu(), edge_transform_sorted_combined_plain(*args).cpu(), "out")
+
+
+@pytest.mark.parametrize("d_in,d_out", _BF16_WIDTHS)
+@pytest.mark.parametrize("tail_cut", [0, 100])
+def test_edge_transform_bwd_kernel_bf16_form_matches_plain(dev, d_in, d_out, tail_cut):
+    xs, xd, rel, wm, ws, _ = (torch.from_numpy(a).to(dev)
+                              for a in run_case(25, d_in, d_out, tail_cut))
+    g = torch.randn((xs.shape[0], d_out), generator=torch.Generator().manual_seed(7))
+    args = [t.to(dev).bfloat16() if t.is_floating_point() else t
+            for t in (g, xs, xd, rel, wm, ws)]
+    kernels.reset_launch_counts()
+    got = edge_transform_combined_bwd(*args)
+    again = edge_transform_combined_bwd(*args)
+    torch.cuda.synchronize()
+    assert edge_transform_combined_bwd.launches_by_form["bf16"] == 2
+    assert csr_segment_sum.launches_by_form["f32"] == 2  # the f32 run partials
+    want = edge_transform_combined_bwd_plain(*args)
+    for name, a, b, w in zip(("dx_src", "dx_dst", "dW_msg", "dW_self"), got, again, want):
+        assert torch.equal(a, b), f"{name}: two runs differ"
+        assert a.dtype == w.dtype, name
+    for name, a, w in zip(("dx_src", "dx_dst"), got[:2], want[:2]):
+        _within_ulp(a.cpu(), w.cpu(), name)
+    for name, a, w in zip(("dW_msg", "dW_self"), got[2:], want[2:]):
+        _close_scaled(a.cpu(), w.cpu(), name)
+        assert not a[[4, 6, 7]].any(), "relations without rows must be exactly zero"
+
+
+def test_bf16_forms_refuse_mixed_dtypes_and_kernel_5(dev):
+    args = [torch.from_numpy(a).to(dev) for a in edge_case(26, 16, 0)]
+    mixed = [a.bfloat16() if i in (0, 1) else a for i, a in enumerate(args)]
+    with pytest.raises(TypeError, match="dtype"):
+        edge_transform_sorted_combined(*mixed)
+    bf16 = [a.bfloat16() if a.is_floating_point() else a for a in args]
+    with pytest.raises(TypeError, match="float32"):
+        kernels.edge_transform_sorted(*bf16)
+
+
+@pytest.mark.parametrize("d_in,d_out", [(64, 64), (128, 128), (40, 72)])
+def test_one_tf32_pass_modes_are_bf16_class(dev, d_in, d_out):
+    # precision="default": kernels 2 and 3 in one TF32 pass, held against a
+    # float64 reference after dividing by max(1, max|reference|).
+    xs, xd, rel, wm, ws, b = (torch.from_numpy(a).to(dev)
+                              for a in run_case(27, d_in, d_out, 100))
+    g = torch.randn((xs.shape[0], d_out), generator=torch.Generator().manual_seed(8)).to(dev)
+    kernels.reset_launch_counts()
+    [(err2, _)] = _errors_against_float64(
+        lambda *a: edge_transform_sorted_combined(*a, precision="default"),
+        edge_transform_sorted_combined_plain, (xs, xd, rel, wm, ws, b), scaled=(0,))
+    errs3 = _errors_against_float64(
+        lambda *a: edge_transform_combined_bwd(*a, precision="default"),
+        edge_transform_combined_bwd_plain, (g, xs, xd, rel, wm, ws), scaled=(0, 1, 2, 3))
+    assert edge_transform_sorted_combined.launches_by_form["tf32"] == 1
+    assert edge_transform_combined_bwd.launches_by_form["tf32"] == 1
+    assert err2 < ONE_PASS_SCALED, err2
+    for name, (err, _) in zip(("dx_src", "dx_dst", "dW_msg", "dW_self"), errs3):
+        assert err < ONE_PASS_SCALED, (name, err)
+    # Genuinely one pass: well above 3xTF32's f32-class error.
+    assert err2 > 1e-6
+
+
+@pytest.mark.parametrize("mode", [dict(compute_dtype="bfloat16"), dict(precision="default")])
+def test_speed_mode_training_step_on_the_card_matches_the_cpu(dev, mode):
+    kg = ToyKnowledgeGraph()
+    graph = encode_graph(kg.edge_index, kg.edge_texts, kg.num_nodes,
+                         sort_by_relation=True, with_sort_plan=True, group_pad=256)
+    cfg = HyperGNNConfig(64, 16, 32, rel_sorted=True, group_padded=True, **mode)
+    init = init_hypergnn(cfg, torch.Generator().manual_seed(4))
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        state = create_train_state(tree_map(lambda t: t.to(device), init), adam(1e-3))
+        feats = torch.as_tensor(kg.node_features, dtype=torch.float32, device=device)
+        arrays = [torch.as_tensor(a, device=device) for a in graph.arrays]
+        kernels.reset_launch_counts()
+        params, _, loss = make_train_step(cfg, neg_mode="roll")(
+            state.params, state.opt_state, feats, *arrays,
+            torch.Generator(device=device), neg_dst=3,
+            sort_plan=graph.sort_plan.to(device))
+        if device.type == "cuda":
+            form = "bf16" if "compute_dtype" in mode else "tf32"
+            # Per layer kernel 1 in the tail, the two gather cotangents and
+            # dbias (bf16 rows in speed mode) and kernel 3's f32 partials;
+            # 2 in the f32 loss backward.
+            k1 = {"f32": 12, "tf32": 0, "bf16": 0}
+            if form == "bf16":
+                k1 = {"f32": 4, "tf32": 0, "bf16": 8}
+            assert csr_segment_sum.launches_by_form == k1
+            for fn in (edge_transform_sorted_combined, edge_transform_combined_bwd):
+                assert fn.launches_by_form[form] == fn.launches == 2
+        assert loss.dtype == torch.float32
+        runs.append((loss.item(), {p: t.grad.detach().cpu().double().flatten()
+                                   for p, t in named_leaves(params)}))
+    (l_card, card), (l_cpu, cpu) = runs
+    assert abs(l_card - l_cpu) <= 1e-2 * max(1.0, abs(l_cpu))
+    a = torch.cat([card[p] for p in sorted(cpu)])
+    b = torch.cat([cpu[p] for p in sorted(cpu)])
+    assert torch.nn.functional.cosine_similarity(a, b, dim=0).item() > 0.999

@@ -1,5 +1,6 @@
 """The port's TextEncoder and WeightGenerator against the JAX package's,
-with the same weights carried across by ``convert``, at f32 atol 3e-5."""
+with the same weights carried across by ``convert``, at f32 atol 3e-5, and
+the HyperGNN wrapper's API against the JAX wrapper's."""
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +16,7 @@ from graph_hypernetwork_forge_tpu_torch.convert import (
     text_encoder_from_jax,
     weight_generator_from_jax,
 )
+from graph_hypernetwork_forge_tpu_torch.data.knowledge_graph import ToyKnowledgeGraph
 from graph_hypernetwork_forge_tpu_torch.models import text_encoder as pte
 from graph_hypernetwork_forge_tpu_torch.models import weight_generator as pwg
 from graph_hypernetwork_forge_tpu_torch.models.hypergnn import HyperGNN
@@ -124,3 +126,42 @@ def test_layer_norm_uses_biased_variance_with_eps_inside():
     p = {"g": torch.ones(4), "b": torch.zeros(4)}
     want = torch.nn.functional.layer_norm(x, (4,), eps=1e-5)
     torch.testing.assert_close(layer_norm_apply(p, x), want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("num_layers", [1, 2])
+def test_hypergnn_wrapper_attributes_match_jax(num_layers):
+    # Twins of the JAX package's tests/test_hypergnn.py:26-34.
+    port = HyperGNN(text_dim=32, node_feat_dim=8, hidden_dim=16, num_layers=num_layers,
+                    device="cpu")
+    jax_model = JaxHyperGNN(text_dim=32, node_feat_dim=8, hidden_dim=16,
+                            num_layers=num_layers)
+    assert port.num_layers == jax_model.num_layers == num_layers
+    assert port.hidden_dim == jax_model.hidden_dim == 16
+    assert len(port.weight_generators) == len(jax_model.weight_generators) == num_layers
+    assert len(port.layer_norms) == len(jax_model.layer_norms) == num_layers
+    assert port.weight_generators[0].keys() == jax_model.weight_generators[0].keys()
+    assert port.layer_norms[-1].keys() == jax_model.layer_norms[-1].keys()
+    # The aliases are the module's own parameters, not copies.
+    params = {id(p) for p in port.parameters()}
+    assert id(port.layer_norms[0]["g"]) in params
+    assert id(port.weight_generators[0]["log_scales"]["W_msg"]) in params
+
+
+def test_hypergnn_train_override_matches_the_module_mode():
+    kg = ToyKnowledgeGraph()
+    args = (kg.node_features, kg.edge_index, kg.edge_texts)
+    model = HyperGNN(64, 16, 32, dropout=0.3, seed=1, device="cpu")
+    assert model.training
+    # train=False on a training module is the eval module's forward.
+    off = model(*args, train=False)
+    assert not off.requires_grad
+    want = model.eval()(*args)
+    assert torch.equal(off, want)
+    # train=True on an eval module is the training module's forward: the
+    # same dropout masks from the same generator, recorded for a backward.
+    on = model(*args, train=True, gen=torch.Generator().manual_seed(5))
+    assert on.requires_grad and not torch.equal(on, want)
+    model.train()
+    assert torch.equal(on, model(*args, gen=torch.Generator().manual_seed(5)))
+    encoded = model.preprocess(kg.edge_index, kg.edge_texts, kg.num_nodes)
+    assert torch.equal(model.forward_encoded(kg.node_features, encoded, train=False), want)
