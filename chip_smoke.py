@@ -26,14 +26,17 @@ JAX, and fails (non-zero exit, no result line) on any failed phase:
    kernels 3 and 6's dW of relations no tile visits exactly 0; kernels 3
    and 6 are also timed against the fair library composition, ``bmm`` per
    tile plus ``index_add_`` of the tile partials into their relations;
-   then the speed mode's forms at the same shapes: the bf16 forms of
-   kernels 1, 2 and 3 against their plain bf16 versions (bf16 outputs
-   within one bf16 ulp of the largest value, 2^-7 · max|plain|; f32 sums
-   of bf16 rows, kernel 3's dW among them, within the f32 gate),
-   deterministic, dW of unvisited relations 0, bounds in bf16 bytes or
-   operations over 989 TFLOP/s of dense bf16; and the one-TF32-pass mode
-   of kernels 2 and 3 (precision="default") by its float64 error, scaled
-   under 4e-3 (bf16-class), its bound at 495 TFLOP/s of TF32;
+   then every other form of the kernels at the same shapes: the bf16
+   forms of kernels 1, 2, 3, 5, 6 and 7 against their plain bf16 versions
+   (bf16 outputs within one bf16 ulp of the largest value, 2^-7 ·
+   max|plain|; f32 sums of bf16 rows, the dW of kernels 3 and 6 among
+   them, within the f32 gate), deterministic, dW of unvisited relations 0,
+   bounds in bf16 bytes or operations over 989 TFLOP/s of dense bf16; the
+   one-TF32-pass mode of kernels 2, 3, 5 and 6 (precision="default") by its
+   float64 error, scaled under 4e-3 (bf16-class), its bound at 495 TFLOP/s
+   of TF32; and mode="fast" of kernels 1 and 7 (f32 rows rounded to bf16
+   as read) within the f32 gate of its plain version, with its error
+   against the exact sums printed;
 4. serving: the xl model at full width (text=64, F=H=64, 2 layers, random
    weights from seed 0) answers 3 zero-shot requests, each wiring two edges
    of a never-seen relation text into the xl graph, then encoding, running
@@ -66,11 +69,14 @@ JAX, and fails (non-zero exit, no result line) on any failed phase:
 6. two-stream layer: one xl message-passing layer at d=64 and d=128
    through ``edge_contributions_cuda_sorted`` (kernel 5) and the
    two-stream tail, forward and backward (kernels 5, 6 and 1), against the
-   same layer through the ``cuda`` backend (kernels 2, 3 and 1): output and
-   the gradients of ``Σ out · R`` within the f32 gate (both sum in 3xTF32
-   on the tensor cores, in other orders, so they agree to rounding and not
-   bit for bit), the launches equal to the count derived from the code,
-   CUDA-event ms of both;
+   same layer through the ``cuda`` backend (kernels 2, 3 and 1): in f32
+   the output and the gradients of ``Σ out · R`` within the f32 gate (both
+   sum in 3xTF32 on the tensor cores, in other orders, so they agree to
+   rounding and not bit for bit); in speed mode (bf16 h, banks and bias)
+   against the ``cuda`` backend in speed mode (1e-2 scaled, gradient
+   cosine > 0.999); with precision="default" against the f32 layer (4e-3
+   scaled); in each form the launches by form equal to the count derived
+   from the code, and CUDA-event ms of both layers in that form;
 7. grouped: the xl model (weights at scale 1) on the relation-sorted
    layout with a sort plan and no group padding, where ``auto`` picks the
    ``grouped`` backend as the JAX package does, against the ``cuda``
@@ -80,9 +86,10 @@ JAX, and fails (non-zero exit, no result line) on any failed phase:
 8. dense and chunked: the bench config in the stored edge order, per-layer
    embeddings and parameter gradients against the card's ``gather`` oracle
    and against the CPU;
-9. the training line, the kernels line (each kernel, then each bf16 form
-   and one-TF32-pass mode as an entry of its own, ``name[form]``, with its
-   launches on its path), the card line and the result line, which is
+9. the training line, the kernels line (each kernel, then each bf16 form,
+   one-TF32-pass mode and ``mode="fast"`` as an entry of its own,
+   ``name[form]``, with its launches on its path), the card line and the
+   result line, which is
    last: ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
    "count": 1}}``.
 """
@@ -121,6 +128,7 @@ from graph_hypernetwork_forge_tpu_torch.models.hypergnn import (  # noqa: E402
 )
 from graph_hypernetwork_forge_tpu_torch.ops import cuda as kernels  # noqa: E402
 from graph_hypernetwork_forge_tpu_torch.ops.cuda import build  # noqa: E402
+from graph_hypernetwork_forge_tpu_torch.ops.cuda._common import FORMS  # noqa: E402
 from graph_hypernetwork_forge_tpu_torch.ops.message_passing import (  # noqa: E402
     relational_message_passing,
     resolve_backend,
@@ -265,7 +273,21 @@ TWO_STREAM_LAUNCHES = dict(
 # cotangents; the per-relation products are PyTorch matmuls.
 GROUPED_LAUNCHES = dict({name: 0 for name in STEP_LAUNCHES}, csr_segment_sum=4 * LAYERS)
 GROUPED_TIMED = 3
-FORMS = ("f32", "tf32", "bf16")
+
+
+def two_stream_launches_by_form(form: str) -> dict:
+    """Launches by form of one two-stream layer, forward and backward,
+    counted from the code: kernels 5 and 6 twice each in the layer's form
+    (as TWO_STREAM_LAUNCHES); kernel 1 six times, in speed mode over bf16
+    rows for the tail, dbias and the two gather cotangents (4) and over f32
+    rows for kernel 6's two run reductions (2)."""
+    out = {name: dict.fromkeys(FORMS, 0) for name in KERNELS}
+    out["edge_transform_sorted"][form] = out["segment_outer"][form] = 2
+    if form == "bf16":
+        out["csr_segment_sum"].update(bf16=4, f32=2)
+    else:
+        out["csr_segment_sum"]["f32"] = TWO_STREAM_LAUNCHES["csr_segment_sum"]
+    return out
 
 
 def mode_form(mode: dict) -> str:
@@ -317,6 +339,37 @@ FORM_REPLACES = {
         "graph_hypernetwork_forge_tpu/ops/pallas/edge_transform.py:368 "
         "_combined_bwd_fused_impl at default precision (one pass, :344)"
     ),
+    ("edge_transform_sorted", "bf16"): (
+        "graph_hypernetwork_forge_tpu/ops/pallas/edge_transform.py:108 "
+        "_edge_transform_fwd_impl of edge_transform_sorted (:530), its kernel's "
+        "bf16 branch (:90-103)"
+    ),
+    ("edge_transform_sorted", "tf32"): (
+        "graph_hypernetwork_forge_tpu/ops/pallas/edge_transform.py:108 "
+        "_edge_transform_fwd_impl at default precision (one pass, :92)"
+    ),
+    ("segment_outer", "bf16"): (
+        "graph_hypernetwork_forge_tpu/ops/pallas/edge_transform.py:473 "
+        "_segment_outer_impl, its kernel's bf16 branch (:461-468)"
+    ),
+    ("segment_outer", "tf32"): (
+        "graph_hypernetwork_forge_tpu/ops/pallas/edge_transform.py:473 "
+        "_segment_outer_impl at default precision (one pass, :461)"
+    ),
+    ("dual_sorted_segment_sum", "bf16"): (
+        "graph_hypernetwork_forge_tpu/ops/pallas/segment_sum.py:463 "
+        "dual_sorted_segment_sum_pallas, its kernel's bf16 rows (_make_dual_kernel "
+        ":270-271, :327-329)"
+    ),
+    ("csr_segment_sum", "fast"): (
+        "graph_hypernetwork_forge_tpu/ops/pallas/segment_sum.py:198 "
+        "sorted_segment_sum_pallas and :415 sorted_segment_sum_packed64 in "
+        "mode='fast' (_make_kernel :119-120)"
+    ),
+    ("dual_sorted_segment_sum", "fast"): (
+        "graph_hypernetwork_forge_tpu/ops/pallas/segment_sum.py:463 "
+        "dual_sorted_segment_sum_pallas in mode='fast' (_make_dual_kernel :330-333)"
+    ),
 }
 
 FAILURES: list[str] = []
@@ -340,6 +393,12 @@ def launch_counts() -> dict:
 
 def launch_counts_by_form() -> dict:
     return {name: dict(getattr(kernels, name).launches_by_form) for name in KERNELS}
+
+
+def nonzero(by_form: dict) -> dict:
+    """Launches by form without the zero counts, for the log."""
+    return {name: {f: n for f, n in forms.items() if n}
+            for name, forms in by_form.items() if any(forms.values())}
 
 
 def card_line() -> str:
@@ -723,10 +782,11 @@ def _tf32_library_ms(fn) -> float:
 
 
 def phase_kernel_forms(dev, g) -> dict:
-    """The speed mode's forms at the xl shapes: kernels 1, 2 and 3 in bf16
-    against their plain bf16 versions, and kernels 2 and 3 in one TF32 pass
-    (precision="default") by their float64 error, with times and bounds.
-    Keys ``(name, form, d)``."""
+    """Every form of the kernels besides f32, at the xl shapes: kernels 1,
+    2, 3, 5, 6 and 7 in bf16 against their plain bf16 versions; kernels 2,
+    3, 5 and 6 in one TF32 pass (precision="default") by their float64
+    error; kernels 1 and 7 in mode="fast" against their plain versions;
+    with times and bounds. Keys ``(name, form, d)``."""
     plan = g.sort_plan.to(dev)
     rel = torch.as_tensor(g.rel_ids, device=dev)
     e_rows, n, u_pad = g.rel_ids.shape[0], XL_N, g.char_ids.shape[0]
@@ -736,6 +796,8 @@ def phase_kernel_forms(dev, g) -> dict:
     u_vis, tiles = len(visited), e_rows // 256
     tile_rel = rel[::256].long()
     rows = int(g.sort_plan.dst_splits[n] - g.sort_plan.dst_splits[0])
+    rows_a = int(g.sort_plan.src_splits[n] - g.sort_plan.src_splits[0])
+    pad_src_sorted = torch.as_tensor(g.edge_mask[g.sort_plan.src_perm] == 0, device=dev)
     bf16 = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(1)
     results = {}
@@ -831,7 +893,61 @@ def phase_kernel_forms(dev, g) -> dict:
             ms=cuda_ms(lambda: fn(*bwd)), plain_ms=cuda_ms(lambda: plain_fn(*bwd)),
             library_ms=cuda_ms(k3_library), bound_ms=b_ms, bound_by=b_by,
         )
-        del out, again, plain, g_tiles, w_t, x_t, x_cat, k3_library, fwd, bwd
+        del out, again, plain, w_t, x_t, x_cat, k3_library
+
+        # Kernel 5's bf16 form on kernel 2's bf16 rows and banks: both
+        # outputs within one ulp. Library: baddbmm and bmm in bf16 over the
+        # tile-gathered banks (the gather not timed).
+        fn, plain_fn = kernels.edge_transform_sorted, kernels.edge_transform_sorted_plain
+        out, plain = fn(*fwd), plain_fn(*fwd)
+        torch.cuda.synchronize()
+        check([t.dtype for t in out] == [bf16, bf16],
+              f"edge_transform_sorted[bf16] d={d}: outputs not bf16")
+        xs_t, xd_t = (t.view(tiles, 256, d) for t in fwd[:2])
+        wm_t, ws_t = fwd[3][tile_rel], fwd[4][tile_rel]
+        b_tile = fwd[5][tile_rel][:, None, :]
+        b_ms, b_by = bound((4 * e_rows * d + 2 * u_vis * d * d + u_vis * d) * 2 + tiles * 4,
+                           4 * e_rows * d * d + e_rows * d, rate=BF16_FLOP_PER_S)
+        results[("edge_transform_sorted", "bf16", d)] = dict(
+            max_abs_err=max((a.float() - b.float()).abs().max().item()
+                            for a, b in zip(out, plain)),
+            tol=BF16_ULP * max(b.float().abs().max().item() for b in plain),
+            ms=cuda_ms(lambda: fn(*fwd)), plain_ms=cuda_ms(lambda: plain_fn(*fwd)),
+            library_ms=cuda_ms(lambda: (torch.baddbmm(b_tile, xs_t, wm_t),
+                                        torch.bmm(xd_t, ws_t))),
+            bound_ms=b_ms, bound_by=b_by,
+        )
+        del out, plain, xs_t, xd_t, wm_t, ws_t, b_tile
+
+        # Kernel 6's bf16 form of x_src against the bf16 cotangent: f32 dW
+        # (kernel 1's f32 form over the run partials) within the f32 gate,
+        # deterministic, 0 for unvisited relations. Library: bmm in bf16 per
+        # tile and index_add_ of the tile partials into their relations.
+        outer = (bwd[1], bwd[0], rel, u_pad)
+        fn, plain_fn = kernels.segment_outer, kernels.segment_outer_plain
+        out, again, plain = fn(*outer), fn(*outer), plain_fn(*outer)
+        torch.cuda.synchronize()
+        name = "segment_outer[bf16]"
+        check(out.dtype == torch.float32 and torch.equal(out, again),
+              f"{name} d={d}: not f32, or two runs differ")
+        check(bool(unvisited) and not out[unvisited].any(),
+              f"{name} d={d}: dW of the unvisited relations is not exactly 0")
+        x_tt, g_tiles = bwd[1].view(tiles, 256, d).transpose(1, 2), bwd[0].view(tiles, 256, d)
+
+        def k6_library(x_tt=x_tt, g_tiles=g_tiles):
+            dw = torch.zeros(u_pad, d, d, device=dev)
+            return dw.index_add_(0, tile_rel, torch.bmm(x_tt, g_tiles).float())
+
+        scale = max(1.0, plain.abs().max().item())
+        b_ms, b_by = bound(2 * e_rows * d * 2 + tiles * 4 + u_pad * d * d * 4,
+                           2 * e_rows * d * d, rate=BF16_FLOP_PER_S)
+        results[("segment_outer", "bf16", d)] = dict(
+            max_abs_err=(out - plain).abs().max().item(), tol=KERNEL_ATOL * scale,
+            dw_scaled_err=scaled_err(out, plain),
+            ms=cuda_ms(lambda: fn(*outer)), plain_ms=cuda_ms(lambda: plain_fn(*outer)),
+            library_ms=cuda_ms(k6_library), bound_ms=b_ms, bound_by=b_by,
+        )
+        del out, again, plain, x_tt, g_tiles, k6_library, outer, fwd, bwd
         torch.cuda.empty_cache()
 
         # The one-TF32-pass mode of kernels 2 and 3 on the f32 data, by its
@@ -848,6 +964,13 @@ def phase_kernel_forms(dev, g) -> dict:
             return (torch.bmm(g_tiles, w_t),
                     dw.index_add_(0, tile_rel, torch.bmm(tiles_x.transpose(1, 2), g_tiles)))
 
+        xs_t, xd_t = xs.view(tiles, 256, d), xd.view(tiles, 256, d)
+        wm_t, ws_t = wm[tile_rel], ws[tile_rel]
+
+        def k6_tf32_library():
+            dw = torch.zeros(u_pad, d, d, device=dev)
+            return dw.index_add_(0, tile_rel, torch.bmm(xs_t.transpose(1, 2), g_tiles))
+
         for kname, plain_fn, args, nout, nbytes, flops, lib in (
             ("edge_transform_sorted_combined", kernels.edge_transform_sorted_combined_plain,
              f32_fwd, 1, (2 * e_rows * d + tiles + 2 * u_vis * d * d + u_vis * d
@@ -856,6 +979,13 @@ def phase_kernel_forms(dev, g) -> dict:
             ("edge_transform_combined_bwd", kernels.edge_transform_combined_bwd_plain,
              f32_bwd, 4, (5 * e_rows * d + tiles + 2 * u_vis * d * d
                           + 2 * u_pad * d * d) * 4, 8 * e_rows * d * d, k3_tf32_library),
+            ("edge_transform_sorted", kernels.edge_transform_sorted_plain, f32_fwd, 2,
+             (4 * e_rows * d + tiles + 2 * u_vis * d * d + u_vis * d) * 4,
+             4 * e_rows * d * d + e_rows * d,
+             lambda: (torch.baddbmm(b_tile, xs_t, wm_t), torch.bmm(xd_t, ws_t))),
+            ("segment_outer", kernels.segment_outer_plain, (xs, g_out, rel, u_pad), 1,
+             (2 * e_rows * d + tiles + u_pad * d * d) * 4, 2 * e_rows * d * d,
+             k6_tf32_library),
         ):
             fn = getattr(kernels, kname)
 
@@ -863,6 +993,10 @@ def phase_kernel_forms(dev, g) -> dict:
                 return fn(*a, precision="default")
 
             out, plain = one_pass(*args), plain_fn(*args)
+            if kname == "segment_outer":
+                check(torch.equal(out, one_pass(*args)) and not out[unvisited].any(),
+                      f"segment_outer[tf32] d={d}: two runs differ, or the dW of the "
+                      "unvisited relations is not exactly 0")
             out, plain = (out, plain) if nout > 1 else ((out,), (plain,))
             err = max((a - b).abs().max().item() for a, b in zip(out, plain))
             del out, plain
@@ -876,12 +1010,72 @@ def phase_kernel_forms(dev, g) -> dict:
                 library_ms=_tf32_library_ms(lib), bound_ms=b_ms, bound_by=b_by,
             )
         del xs, xd, g_out, wm, ws, bias, f32_fwd, f32_bwd, tiles_x, w_cat, b_tile
-        del g_tiles, w_t, k3_tf32_library
+        del g_tiles, w_t, k3_tf32_library, xs_t, xd_t, wm_t, ws_t, k6_tf32_library
+        torch.cuda.empty_cache()
+
+        # The sums' other forms over the src- and dst-sorted rows of a
+        # layer's gather cotangents (pad rows zero): kernel 7 on bf16 rows,
+        # kernels 1 and 7 in mode="fast" on f32 rows, each within the f32
+        # gate of its plain version and bitwise deterministic; the fast
+        # sums' error against the exact ones is printed. Library:
+        # torch.segment_reduce on the rows upcast from bf16 or rounded to
+        # bf16 (prepared outside the timing), once per stream.
+        xa = torch.randn(e_rows, d, device=dev, generator=gen)
+        xa[pad_src_sorted] = 0.0
+        xb = torch.randn(e_rows, d, device=dev, generator=gen)
+        xb[pad_sorted] = 0.0
+        off_a = plan.src_splits[: n + 1].long()
+        for kname, form in (("dual_sorted_segment_sum", "bf16"), ("csr_segment_sum", "fast"),
+                            ("dual_sorted_segment_sum", "fast")):
+            mode = "fast" if form == "fast" else "exact"
+            streams = (xa.to(bf16), xb.to(bf16)) if form == "bf16" else (xa, xb)
+            wide = [t.to(bf16).float() for t in streams]
+            if kname == "csr_segment_sum":
+                args, exact_args = (streams[1], plan.dst_splits, n), (xb, plan.dst_splits, n)
+                n_rows, row_bytes = rows, 4
+
+                def library(wide=wide):
+                    return torch.segment_reduce(wide[1], "sum", offsets=offsets, unsafe=True)
+            else:
+                args = (*streams, n, plan.src_splits, plan.dst_splits)
+                exact_args = (xa, xb, n, plan.src_splits, plan.dst_splits)
+                n_rows, row_bytes = rows_a + rows, 2 if form == "bf16" else 4
+
+                def library(wide=wide):
+                    return (torch.segment_reduce(wide[0], "sum", offsets=off_a, unsafe=True),
+                            torch.segment_reduce(wide[1], "sum", offsets=offsets, unsafe=True))
+
+            fn = getattr(kernels, kname)
+            plain_fn = getattr(kernels, f"{kname}_plain")
+            out, again = fn(*args, mode=mode), fn(*args, mode=mode)
+            plain, exact = plain_fn(*args, mode=mode), fn(*exact_args)
+            torch.cuda.synchronize()
+            out, again, plain, exact = (t if isinstance(t, tuple) else (t,)
+                                        for t in (out, again, plain, exact))
+            check(all(a.dtype == torch.float32 and torch.equal(a, b)
+                      for a, b in zip(out, again)),
+                  f"{kname}[{form}] d={d}: not f32, or two runs differ")
+            check(not out[-1][7].any(), f"{kname}[{form}] d={d}: empty segment 7 is not 0")
+            streams_n = len(out)
+            b_ms, b_by = bound(n_rows * d * row_bytes + streams_n * ((n + 1) + n * d) * 4,
+                               n_rows * d)
+            results[(kname, form, d)] = dict(
+                max_abs_err=max((a - b).abs().max().item() for a, b in zip(out, plain)),
+                tol=KERNEL_ATOL,
+                err_vs_exact=max((a - b).abs().max().item() for a, b in zip(out, exact)),
+                ms=cuda_ms(lambda: fn(*args, mode=mode)),
+                plain_ms=cuda_ms(lambda: plain_fn(*args, mode=mode)),
+                library_ms=cuda_ms(library), bound_ms=b_ms, bound_by=b_by,
+            )
+            del out, again, plain, exact, streams, wide, args, exact_args, library
+        del xa, xb
         torch.cuda.empty_cache()
 
     for (name, form, d), r in results.items():
         extra = (f" dW scaled err {r['dw_scaled_err']:.3e} (tol {KERNEL_ATOL})"
                  if "dw_scaled_err" in r else "")
+        if "err_vs_exact" in r:
+            extra += f"; vs the exact f32 sums {r['err_vs_exact']:.3e}"
         if form == "tf32":
             gate = (f"vs float64 scaled {r['f64_scaled_err']:.3e} (tol {ONE_PASS_SCALED}), "
                     f"plain f32 {r['plain_f64_scaled_err']:.3e}; vs plain "
@@ -1245,7 +1439,9 @@ def phase_speed_parity(dev) -> dict:
 def phase_two_stream(dev, g, d: int) -> dict:
     """One xl layer at width ``d`` through the two-stream path (kernels 5,
     6 and 1) against the ``cuda`` backend (kernels 2, 3 and 1), forward and
-    backward of ``Σ out · R``."""
+    backward of ``Σ out · R``: in f32, in speed mode (bf16 ``h``, banks and
+    bias, against the ``cuda`` backend in speed mode) and with
+    precision="default" (against the f32 layer). Keyed by form."""
     plan = g.sort_plan.to(dev)
     src, dst, rel, mask = (torch.as_tensor(a, device=dev) for a in g.arrays[:4])
     u_pad = g.char_ids.shape[0]
@@ -1258,15 +1454,24 @@ def phase_two_stream(dev, g, d: int) -> dict:
     ]
     r = torch.randn(XL_N, d, device=dev, generator=gen)
 
-    def two_stream(h, wm, ws, b):
-        msg, selfc = kernels.edge_contributions_cuda_sorted(
-            h, src, dst, rel, wm, ws, b, sort_plan=plan)
-        return two_stream_tail(msg, selfc, dst, XL_N, edge_mask=mask, sort_plan=plan)
+    def two_stream(mode):
+        def layer(h, wm, ws, b):
+            if mode.get("compute_dtype") == "bfloat16":
+                # Speed mode is the caller's on this path, as in JAX: the
+                # cast the cuda backend's compute_dtype does inside.
+                h, wm, ws, b = (t.bfloat16() for t in (h, wm, ws, b))
+            msg, selfc = kernels.edge_contributions_cuda_sorted(
+                h, src, dst, rel, wm, ws, b, sort_plan=plan,
+                precision=mode.get("precision", "highest"))
+            return two_stream_tail(msg, selfc, dst, XL_N, edge_mask=mask, sort_plan=plan)
+        return layer
 
-    def combined(h, wm, ws, b):
-        return relational_message_passing(
-            h, src, dst, rel, wm, ws, b, edge_mask=mask, backend="cuda",
-            rel_sorted=True, group_padded=True, sort_plan=plan)
+    def combined(mode):
+        def layer(h, wm, ws, b):
+            return relational_message_passing(
+                h, src, dst, rel, wm, ws, b, edge_mask=mask, backend="cuda",
+                rel_sorted=True, group_padded=True, sort_plan=plan, **mode)
+        return layer
 
     def fwd_bwd(layer):
         leaves = [t.clone().requires_grad_(True) for t in init]
@@ -1274,28 +1479,58 @@ def phase_two_stream(dev, g, d: int) -> dict:
         (out * r).sum().backward()
         return out.detach(), [t.grad for t in leaves]
 
-    kernels.reset_launch_counts()
-    out, grads = fwd_bwd(two_stream)
-    torch.cuda.synchronize()
-    launches = launch_counts()
-    ref, ref_grads = fwd_bwd(combined)
-    err = (out - ref).abs().max().item()
-    grad_err = max(scaled_err(a, b) for a, b in zip(grads, ref_grads))
-    ms = cuda_ms(lambda: fwd_bwd(two_stream), iters=5, warmup=1)
-    ref_ms = cuda_ms(lambda: fwd_bwd(combined), iters=5, warmup=1)
-    # Both paths sum in 3xTF32 on the tensor cores, kernels 2 and 3 over
-    # K = 2 d_in and runs, kernels 5 and 6 per bank: they agree within the
-    # f32 gate, not bit for bit.
-    log(f"two-stream layer d={d}: vs the cuda backend max_abs_err {err:.3e}, "
-        f"scaled grad err {grad_err:.3e} (tol {SERVING_ATOL} / {GRAD_ATOL}, "
-        f"to rounding: both 3xTF32, summed in other orders) | fwd+bwd "
-        f"{ms:.3f} ms, cuda backend {ref_ms:.3f} ms | launches {launches}")
-    check(err <= SERVING_ATOL and grad_err <= GRAD_ATOL,
-          f"two-stream layer d={d} disagrees with the cuda backend")
-    check(launches == TWO_STREAM_LAUNCHES,
-          f"two-stream layer d={d} launch counts {launches} != {TWO_STREAM_LAUNCHES}")
-    return dict(max_abs_err=err, grad_scaled_err=grad_err, ms=ms,
-                cuda_backend_ms=ref_ms, launches=launches)
+    report, f32_ref = {}, None
+    for form, mode in (("f32", {}), ("bf16", SPEED), ("tf32", ONE_PASS)):
+        kernels.reset_launch_counts()
+        out, grads = fwd_bwd(two_stream(mode))
+        torch.cuda.synchronize()
+        launches, by_form = launch_counts(), launch_counts_by_form()
+        ref, ref_grads = fwd_bwd(combined(mode))
+        if form == "f32":
+            f32_ref = (ref, ref_grads)
+        ms = cuda_ms(lambda: fwd_bwd(two_stream(mode)), iters=5, warmup=1)
+        ref_ms = cuda_ms(lambda: fwd_bwd(combined(mode)), iters=5, warmup=1)
+        if form == "bf16":
+            # Against the cuda backend in speed mode: the oracle gates.
+            err, tol = scaled_err(out, ref), SPEED_ATOL
+            cos = _cosine(dict(enumerate(grads)), dict(enumerate(ref_grads)))
+            ok, gate = err <= tol and cos > SPEED_COS_ORACLE, (
+                f"scaled err {err:.3e} (tol {tol}), gradient cosine {cos:.6f} "
+                f"(min {SPEED_COS_ORACLE}) against the cuda backend in speed mode")
+            numbers = dict(scaled_err=err, grad_cosine=cos)
+        else:
+            # f32: both sum in 3xTF32 on the tensor cores, kernels 2 and 3
+            # over K = 2 d_in and runs, kernels 5 and 6 per bank: they agree
+            # within the f32 gate, not bit for bit. One pass: against the f32
+            # layer, bf16-class.
+            ref, ref_grads = f32_ref
+            err = (out - ref).abs().max().item()
+            grad_err = max(scaled_err(a, b) for a, b in zip(grads, ref_grads))
+            if form == "f32":
+                tol, grad_tol = SERVING_ATOL, GRAD_ATOL
+                ok = err <= tol and grad_err <= grad_tol
+            else:
+                err = scaled_err(out, ref)
+                tol = grad_tol = ONE_PASS_SCALED
+                ok = err <= tol and grad_err <= grad_tol
+            gate = (f"max err {err:.3e}, scaled grad err {grad_err:.3e} (tol {tol} / "
+                    f"{grad_tol}) against the {'f32 ' if form == 'tf32' else ''}cuda backend")
+            numbers = dict(max_abs_err=err, grad_scaled_err=grad_err)
+        log(f"two-stream layer d={d} [{form}]: {gate} | fwd+bwd {ms:.3f} ms, cuda "
+            f"backend {ref_ms:.3f} ms | launches by form {nonzero(by_form)}")
+        profile = profile_device(f"one more xl two-stream layer d={d} [{form}]",
+                                 lambda: fwd_bwd(two_stream(mode)), rows=8)
+        check(ok, f"two-stream layer d={d} [{form}] disagrees with the cuda backend")
+        want = two_stream_launches_by_form(form)
+        check(by_form == want, f"two-stream layer d={d} [{form}] launches by form "
+              f"{nonzero(by_form)} != {nonzero(want)}")
+        if form == "f32":
+            check(launches == TWO_STREAM_LAUNCHES,
+                  f"two-stream layer d={d} launch counts {launches} != {TWO_STREAM_LAUNCHES}")
+        report[form] = dict(numbers, ms=ms, cuda_backend_ms=ref_ms, launches=launches,
+                            launches_by_form=by_form, profile=profile)
+        del out, grads, ref, ref_grads
+    return report
 
 
 def _scale_one(params) -> dict:
@@ -1443,27 +1678,40 @@ def main() -> int:
         return 1
     keys = ("max_abs_err", "dw_scaled_err", "f64_err", "plain_f64_err",
             "f64_scaled_err", "plain_f64_scaled_err", "tol", "ms", "plain_ms",
-            "bound_ms", "bound_by", "cuda_core_bound_ms", "library_ms", "bmm_ms")
+            "bound_ms", "bound_by", "cuda_core_bound_ms", "library_ms", "bmm_ms",
+            "err_vs_exact")
 
     def numbers(r):
         return {key: r[key] for key in keys if key in r}
 
     # launches: kernels 1-3 over the timed training steps, kernels 5 and 6
     # in the d=64 two-stream layer (their path); kernel 7 is on no path, as
-    # in the JAX package. A form's launches: over the timed xl steps of its
-    # mode (bf16: speed mode; tf32: precision="default").
-    path_launches = dict(trained["launches"], edge_transform_sorted=two_stream[64][
-        "launches"]["edge_transform_sorted"], segment_outer=two_stream[64][
-        "launches"]["segment_outer"])
-    mode_runs = {"bf16": speed[f"bf16 d={WIDTH}"],
-                 "tf32": speed[f"precision=default d={WIDTH}"]}
+    # in the JAX package. A form's launches: kernels 5 and 6's in the d=64
+    # two-stream layer in that form; the others' over the timed xl steps of
+    # the mode that runs the form (bf16: speed mode; tf32:
+    # precision="default"; fast: f32, where no caller asks for it, as in the
+    # JAX package).
+    f32_layer = two_stream[64]["f32"]["launches"]
+    path_launches = dict(trained["launches"],
+                         edge_transform_sorted=f32_layer["edge_transform_sorted"],
+                         segment_outer=f32_layer["segment_outer"])
+    step_runs = {"bf16": speed[f"bf16 d={WIDTH}"],
+                 "tf32": speed[f"precision=default d={WIDTH}"], "fast": trained}
+
+    def form_launches(name, form):
+        if name in ("edge_transform_sorted", "segment_outer"):
+            n = two_stream[64][form]["launches_by_form"][name][form]
+            return dict(launches=n, launches_per_two_stream_layer=n)
+        n = step_runs[form]["launches_by_form"][name][form]
+        return dict(launches=n, launches_per_training_step=n // TRAIN_STEPS)
+
     line = {"kernels": [
         dict(
             name=name, route="cuda", source=k["source"], replaces=k["replaces"],
             launches=path_launches[name],
             launches_per_training_step=trained["launches"][name] // TRAIN_STEPS,
             launches_per_forward=served["launches"][name] // REQUESTS,
-            launches_per_two_stream_layer=two_stream[64]["launches"][name],
+            launches_per_two_stream_layer=f32_layer[name],
             launches_per_grouped_step=grouped["launches"][name],
             **numbers(measured[(name, 64)]), d128=numbers(measured[(name, 128)]),
         )
@@ -1471,10 +1719,7 @@ def main() -> int:
     ] + [
         dict(
             name=f"{name}[{form}]", route="cuda", source=KERNELS[name]["source"],
-            replaces=replaces,
-            launches=mode_runs[form]["launches_by_form"][name][form],
-            launches_per_training_step=(
-                mode_runs[form]["launches_by_form"][name][form] // TRAIN_STEPS),
+            replaces=replaces, **form_launches(name, form),
             **numbers(forms[(name, form, 64)]), d128=numbers(forms[(name, form, 128)]),
         )
         for (name, form), replaces in FORM_REPLACES.items()

@@ -58,9 +58,10 @@
 // block an SM, 2 n-tiles per group and unrolled K slices were no faster
 // beyond the 2% spread between calls.
 //
-// precision="default" runs kernel 2's body in one TF32 pass (kPasses = 1:
-// hi products alone, tf32x3::mma_tile<1>), the Hopper form of the TPU
-// kernel's one bf16 pass at default precision (JAX :169).
+// precision="default" runs the body in one TF32 pass (kPasses = 1: hi
+// products alone, tf32x3::mma_tile<1>), the Hopper form of the TPU kernels'
+// one bf16 pass at default precision (JAX :169 for kernel 2, :92 for
+// kernel 5).
 //
 // Kernel 2's bf16 form (speed mode: x, banks and bias in bf16, the TPU
 // kernel's bf16 branch, JAX :166-182) is a body of its own on the m16n8k16
@@ -79,6 +80,16 @@
 // 0.219 / 0.472 ms at xl d=64 / 128 (cuBLAS's bf16 baddbmm of the same
 // products over tile-gathered banks: 0.335 / 0.712); the one-TF32-pass mode
 // 0.315 / 0.679.
+//
+// Kernel 5's bf16 form (the bf16 branch of the TPU kernel of
+// edge_transform_sorted, JAX :90-103) is the kTwo mode of that body, as
+// kernel 5's f32 form is of kernel 2's: grid plane z = 0 takes x_src and
+// W_msg into msg, rounded once after the bias is added in f32, plane 1 x_dst
+// and W_self into selfc, each with K = d_in. Its backward's dx runs it with
+// the banks transposed ([U, d_out, d_in]) and a zero bias, so d_in and d_out
+// are free: K slices and column slabs past an edge are zero-filled, the
+// stores masked. What bounds it: bytes, half of kernel 5's f32 form (~0.53
+// GB at E=1.03M, d=64: 0.16 ms).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -341,7 +352,10 @@ constexpr int smem_bytes_h() {
   return kStages2 * (BM2 * kXStrideH + BKH * w_stride_h<kBN>()) * 2;
 }
 
-template <int kBN, bool kVec>
+// kTwo (kernel 5): blockIdx.z 0 writes msg (x_src, W_msg, the bias) to
+// out, 1 writes selfc (x_dst, W_self) to out_self. Else (kernel 2) the sum
+// of both with the bias to out.
+template <int kBN, bool kVec, bool kTwo>
 __global__ void __launch_bounds__(kThreads2, 2)
 edge_transform_bf16_kernel(const bf16* __restrict__ x_src,
                            const bf16* __restrict__ x_dst,
@@ -349,8 +363,8 @@ edge_transform_bf16_kernel(const bf16* __restrict__ x_src,
                            const bf16* __restrict__ w_msg,
                            const bf16* __restrict__ w_self,
                            const bf16* __restrict__ bias,
-                           bf16* __restrict__ out, int num_edges, int d_in,
-                           int d_out) {
+                           bf16* __restrict__ out, bf16* __restrict__ out_self,
+                           int num_edges, int d_in, int d_out) {
   constexpr int NT = kBN / 16;  // n-tiles of a warp (32 x kBN / 2)
   constexpr int kWS = w_stride_h<kBN>();
   constexpr int kAStage = BM2 * kXStrideH;
@@ -367,13 +381,15 @@ edge_transform_bf16_kernel(const bf16* __restrict__ x_src,
   const int col0 = blockIdx.y * kBN;
   const int rel = rel_sorted[(row0 / kTileRows) * kTileRows];
   const int64_t bank = (int64_t)rel * d_in * d_out;
+  const int plane = kTwo ? (int)blockIdx.z : 0;
   const int kc = (d_in + BKH - 1) / BKH;  // K slices per half
-  const int chunks = 2 * kc;
+  const int chunks = kTwo ? kc : 2 * kc;
 
-  // K slice c of [x_src | x_dst] and [W_msg ; W_self] into ring stage s.
+  // K slice c of [x_src | x_dst] and [W_msg ; W_self] (kTwo: of the
+  // plane's half) into ring stage s.
   auto load = [&](int c, int s) {
-    const int half = c >= kc;
-    const int k0 = (c - half * kc) * BKH;
+    const int half = kTwo ? plane : c >= kc;
+    const int k0 = (kTwo ? c : c - half * kc) * BKH;
     const bf16* __restrict__ x = half ? x_dst : x_src;
     const bf16* __restrict__ w = (half ? w_self : w_msg) + bank;
     bf16* a = As + s * kAStage;
@@ -455,11 +471,14 @@ edge_transform_bf16_kernel(const bf16* __restrict__ x_src,
   }
 
   const bf16* __restrict__ b_rel = bias + (int64_t)rel * d_out;
+  const bool with_bias = plane == 0;
+  bf16* __restrict__ dst0 = plane ? out_self : out;
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
     const int n = col0 + wn * (kBN / 2) + j * 8 + 2 * tig;
-    const float bias0 = n < d_out ? __bfloat162float(b_rel[n]) : 0.f;
-    const float bias1 = n + 1 < d_out ? __bfloat162float(b_rel[n + 1]) : 0.f;
+    const float bias0 = with_bias && n < d_out ? __bfloat162float(b_rel[n]) : 0.f;
+    const float bias1 =
+        with_bias && n + 1 < d_out ? __bfloat162float(b_rel[n + 1]) : 0.f;
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -468,7 +487,7 @@ edge_transform_bf16_kernel(const bf16* __restrict__ x_src,
         if (row >= num_edges) continue;
         const float v0 = acc[i][j][2 * h] + bias0;
         const float v1 = acc[i][j][2 * h + 1] + bias1;
-        bf16* dst = out + row * d_out + n;
+        bf16* dst = dst0 + row * d_out + n;
         if (kVec) {  // d_out % 8 == 0: n and n + 1 both in or both out
           if (n < d_out)
             *reinterpret_cast<__nv_bfloat162*>(dst) = bf16mma::pack(v0, v1);
@@ -480,13 +499,13 @@ edge_transform_bf16_kernel(const bf16* __restrict__ x_src,
   }
 }
 
-template <int kBN, bool kVec>
+template <int kBN, bool kVec, bool kTwo>
 cudaError_t launch_bf16(const bf16* x_src, const bf16* x_dst,
                         const int32_t* rel_sorted, const bf16* w_msg,
                         const bf16* w_self, const bf16* bias, bf16* out,
-                        int num_edges, int d_in, int d_out,
+                        bf16* out_self, int num_edges, int d_in, int d_out,
                         cudaStream_t stream) {
-  auto kernel = edge_transform_bf16_kernel<kBN, kVec>;
+  auto kernel = edge_transform_bf16_kernel<kBN, kVec, kTwo>;
   constexpr int smem = smem_bytes_h<kBN>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -495,11 +514,55 @@ cudaError_t launch_bf16(const bf16* x_src, const bf16* x_dst,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  dim3 grid((num_edges + BM2 - 1) / BM2, (d_out + kBN - 1) / kBN);
+  dim3 grid((num_edges + BM2 - 1) / BM2, (d_out + kBN - 1) / kBN, kTwo ? 2 : 1);
   kernel<<<grid, kThreads2, smem, stream>>>(x_src, x_dst, rel_sorted, w_msg,
-                                            w_self, bias, out, num_edges,
-                                            d_in, d_out);
+                                            w_self, bias, out, out_self,
+                                            num_edges, d_in, d_out);
   return cudaGetLastError();
+}
+
+// The bf16 instance for d_out (a 64- or 128-column slab) and vec.
+template <bool kTwo>
+cudaError_t dispatch_bf16(const void* x_src, const void* x_dst,
+                          const void* rel_sorted, const void* w_msg,
+                          const void* w_self, const void* bias, void* out,
+                          void* out_self, int num_edges, int d_in, int d_out,
+                          int vec, void* stream) {
+  const auto xs = static_cast<const bf16*>(x_src);
+  const auto xd = static_cast<const bf16*>(x_dst);
+  const auto rel = static_cast<const int32_t*>(rel_sorted);
+  const auto wm = static_cast<const bf16*>(w_msg);
+  const auto ws = static_cast<const bf16*>(w_self);
+  const auto b = static_cast<const bf16*>(bias);
+  const auto o = static_cast<bf16*>(out);
+  const auto o2 = static_cast<bf16*>(out_self);
+  const auto s = reinterpret_cast<cudaStream_t>(stream);
+  if (d_out <= 64) {
+    return vec ? launch_bf16<64, true, kTwo>(xs, xd, rel, wm, ws, b, o, o2,
+                                             num_edges, d_in, d_out, s)
+               : launch_bf16<64, false, kTwo>(xs, xd, rel, wm, ws, b, o, o2,
+                                              num_edges, d_in, d_out, s);
+  }
+  return vec ? launch_bf16<128, true, kTwo>(xs, xd, rel, wm, ws, b, o, o2,
+                                            num_edges, d_in, d_out, s)
+             : launch_bf16<128, false, kTwo>(xs, xd, rel, wm, ws, b, o, o2,
+                                             num_edges, d_in, d_out, s);
+}
+
+// Kernels 2 (kTwo false) and 5 in f32 at 3 or 1 TF32 passes.
+template <bool kTwo>
+cudaError_t dispatch_passes(const void* x_src, const void* x_dst,
+                            const void* rel_sorted, const void* w_msg,
+                            const void* w_self, const void* bias, void* out,
+                            void* out_self, int num_edges, int d_in, int d_out,
+                            int passes, int vec, void* stream) {
+  if (passes == 3)
+    return dispatch<kTwo, 3>(x_src, x_dst, rel_sorted, w_msg, w_self, bias, out,
+                             out_self, num_edges, d_in, d_out, vec, stream);
+  if (passes == 1)
+    return dispatch<kTwo, 1>(x_src, x_dst, rel_sorted, w_msg, w_self, bias, out,
+                             out_self, num_edges, d_in, d_out, vec, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -516,15 +579,9 @@ extern "C" int ghf_edge_transform(const void* x_src, const void* x_dst,
                                   int d_out, int passes, int vec,
                                   void* stream) {
   if (num_edges <= 0 || d_out <= 0) return (int)cudaSuccess;
-  if (passes == 3)
-    return (int)dispatch<false, 3>(x_src, x_dst, rel_sorted, w_msg, w_self,
-                                   bias, out, nullptr, num_edges, d_in, d_out,
-                                   vec, stream);
-  if (passes == 1)
-    return (int)dispatch<false, 1>(x_src, x_dst, rel_sorted, w_msg, w_self,
-                                   bias, out, nullptr, num_edges, d_in, d_out,
-                                   vec, stream);
-  return (int)cudaErrorInvalidValue;
+  return (int)dispatch_passes<false>(x_src, x_dst, rel_sorted, w_msg, w_self,
+                                     bias, out, nullptr, num_edges, d_in,
+                                     d_out, passes, vec, stream);
 }
 
 // Kernel 2's bf16 form: x_src, x_dst, w_msg, w_self, bias and out as
@@ -537,24 +594,9 @@ extern "C" int ghf_edge_transform_bf16(const void* x_src, const void* x_dst,
                                        int num_edges, int d_in, int d_out,
                                        int vec, void* stream) {
   if (num_edges <= 0 || d_out <= 0) return (int)cudaSuccess;
-  const auto xs = static_cast<const bf16*>(x_src);
-  const auto xd = static_cast<const bf16*>(x_dst);
-  const auto rel = static_cast<const int32_t*>(rel_sorted);
-  const auto wm = static_cast<const bf16*>(w_msg);
-  const auto ws = static_cast<const bf16*>(w_self);
-  const auto b = static_cast<const bf16*>(bias);
-  const auto o = static_cast<bf16*>(out);
-  const auto s = reinterpret_cast<cudaStream_t>(stream);
-  if (d_out <= 64) {
-    return (int)(vec ? launch_bf16<64, true>(xs, xd, rel, wm, ws, b, o,
-                                             num_edges, d_in, d_out, s)
-                     : launch_bf16<64, false>(xs, xd, rel, wm, ws, b, o,
-                                              num_edges, d_in, d_out, s));
-  }
-  return (int)(vec ? launch_bf16<128, true>(xs, xd, rel, wm, ws, b, o,
-                                            num_edges, d_in, d_out, s)
-                   : launch_bf16<128, false>(xs, xd, rel, wm, ws, b, o,
-                                             num_edges, d_in, d_out, s));
+  return (int)dispatch_bf16<false>(x_src, x_dst, rel_sorted, w_msg, w_self,
+                                   bias, out, nullptr, num_edges, d_in, d_out,
+                                   vec, stream);
 }
 
 // Kernel 5. As kernel 2, with two outputs msg, selfc: [E, d_out] f32.
@@ -563,9 +605,27 @@ extern "C" int ghf_edge_transform_two(const void* x_src, const void* x_dst,
                                       const void* w_msg, const void* w_self,
                                       const void* bias, void* msg,
                                       void* selfc, int num_edges, int d_in,
-                                      int d_out, int vec, void* stream) {
+                                      int d_out, int passes, int vec,
+                                      void* stream) {
   if (num_edges <= 0 || d_out <= 0) return (int)cudaSuccess;
-  return (int)dispatch<true, 3>(x_src, x_dst, rel_sorted, w_msg, w_self, bias,
-                                msg, selfc, num_edges, d_in, d_out, vec,
-                                stream);
+  return (int)dispatch_passes<true>(x_src, x_dst, rel_sorted, w_msg, w_self,
+                                    bias, msg, selfc, num_edges, d_in, d_out,
+                                    passes, vec, stream);
+}
+
+// Kernel 5's bf16 form: as ghf_edge_transform_bf16, with two outputs msg,
+// selfc: [E, d_out] bf16.
+extern "C" int ghf_edge_transform_two_bf16(const void* x_src,
+                                           const void* x_dst,
+                                           const void* rel_sorted,
+                                           const void* w_msg,
+                                           const void* w_self,
+                                           const void* bias, void* msg,
+                                           void* selfc, int num_edges,
+                                           int d_in, int d_out, int vec,
+                                           void* stream) {
+  if (num_edges <= 0 || d_out <= 0) return (int)cudaSuccess;
+  return (int)dispatch_bf16<true>(x_src, x_dst, rel_sorted, w_msg, w_self,
+                                  bias, msg, selfc, num_edges, d_in, d_out,
+                                  vec, stream);
 }

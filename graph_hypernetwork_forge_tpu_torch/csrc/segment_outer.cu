@@ -56,10 +56,33 @@
 // (2 x 4), 128 d_in columns a block, dW in groups of 2 n-tiles, the k loop
 // not unrolled or unrolled by 4. Runs of 2 tiles (ops/cuda/segment_outer.py,
 // RUN_TILES).
+//
+// precision="default" runs the body in one TF32 pass (kPasses = 1:
+// tf32x3::operand<1>, mma_tile<1, ...>), the Hopper form of the TPU
+// kernel's one bf16 pass at default precision (JAX :461).
+//
+// The bf16 form (x and g in bf16, the TPU kernel's bf16 branch, JAX :461:
+// one pass, f32 sums) is a body of its own on the m16n8k16 bf16 mma.sync
+// (bf16_mma.cuh) with the same structure: one run, 64 d_in columns and one
+// d_out slab of up to 128 a block, 64-row chunks through a 2-stage ring of
+// 16-byte cp.async copies of 8 bf16 (2-byte plain copies where a width or
+// pointer is not 16-byte aligned), dW in f32 registers over the run and one
+// f32 partial per run, summed by kernel 1's f32 form as above: bitwise
+// deterministic, exactly zero for unvisited relations (the wrapper's caller
+// casts dW to the bank's dtype once, JAX :596-600). Its product is kernel
+// 3's bf16 dW product (edge_transform_bwd.cu) for one bank: A = X^T, staged
+// as X [rows][d_in] and read with ldmatrix.trans, B = the g chunk [rows =
+// K][d_out] read with ldmatrix.trans, rows padded by 8 bf16. 2 x 2 warps of
+// 32 d_in rows and half the slab's columns. What bounds it: the bytes of x
+// and g, half of the f32 form's (0.26 GB at E=1.03M, d=64: 0.08 ms), plus
+// the f32 run partials.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "bf16_mma.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -86,7 +109,7 @@ struct Shape {
   static constexpr int kSmem = kStages * kStage * 4;
 };
 
-template <int DOUT, bool kVec>
+template <int DOUT, bool kVec, int kPasses>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 segment_outer_kernel(const float* __restrict__ x, const float* __restrict__ g,
                      const int32_t* __restrict__ tile_splits,
@@ -191,10 +214,10 @@ segment_outer_kernel(const float* __restrict__ x, const float* __restrict__ g,
       uint32_t ahi[2][4], alo[2][4];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        tf32x3::split(x0[i * 16], ahi[i][0], alo[i][0]);
-        tf32x3::split(x0[i * 16 + 8], ahi[i][1], alo[i][1]);
-        tf32x3::split(x0[kXS + i * 16], ahi[i][2], alo[i][2]);
-        tf32x3::split(x0[kXS + i * 16 + 8], ahi[i][3], alo[i][3]);
+        tf32x3::operand<kPasses>(x0[i * 16], ahi[i][0], alo[i][0]);
+        tf32x3::operand<kPasses>(x0[i * 16 + 8], ahi[i][1], alo[i][1]);
+        tf32x3::operand<kPasses>(x0[kXS + i * 16], ahi[i][2], alo[i][2]);
+        tf32x3::operand<kPasses>(x0[kXS + i * 16 + 8], ahi[i][3], alo[i][3]);
       }
 #pragma unroll
       for (int q = 0; q < NW / NG; ++q) {
@@ -202,10 +225,10 @@ segment_outer_kernel(const float* __restrict__ x, const float* __restrict__ g,
 #pragma unroll
         for (int j = 0; j < NG; ++j) {
           const int n = (q * NG + j) * 8;
-          tf32x3::split(g0[n], bhi[j][0], blo[j][0]);
-          tf32x3::split(g0[kGS + n], bhi[j][1], blo[j][1]);
+          tf32x3::operand<kPasses>(g0[n], bhi[j][0], blo[j][0]);
+          tf32x3::operand<kPasses>(g0[kGS + n], bhi[j][1], blo[j][1]);
         }
-        tf32x3::mma3_tile<2, NG>(dw[q], ahi, alo, bhi, blo);
+        tf32x3::mma_tile<kPasses, 2, NG>(dw[q], ahi, alo, bhi, blo);
       }
     }
   }
@@ -235,13 +258,171 @@ segment_outer_kernel(const float* __restrict__ x, const float* __restrict__ g,
       }
 }
 
+// ---- The bf16 form: tensor cores, one bf16 pass --------------------------
+
+using bf16mma::bf16;
+
+// d_out slab (64 or 128): n-tiles a warp, shared-memory layout in bf16,
+// rows padded by 8.
+template <int DOUT>
+struct ShapeH {
+  static constexpr int NW = DOUT / (8 * kWarpsN);  // n-tiles a warp
+  static constexpr int kXH = CS + 8;               // x rows, bf16
+  static constexpr int kGH = DOUT + 8;             // g rows, bf16
+  static constexpr int kStage = BM * (kXH + kGH);  // bf16
+  static constexpr int kSmem = kStages * kStage * 2;
+};
+
 template <int DOUT, bool kVec>
-cudaError_t launch(const float* x, const float* g, const int32_t* tile_splits,
-                   const int32_t* run_splits, float* partial, int num_edges,
-                   int d_in, int d_out, int num_rel, int run_tiles,
-                   int max_runs, cudaStream_t stream) {
-  auto kernel = segment_outer_kernel<DOUT, kVec>;
-  constexpr int smem = Shape<DOUT>::kSmem;
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+segment_outer_bf16_kernel(const bf16* __restrict__ x,
+                          const bf16* __restrict__ g,
+                          const int32_t* __restrict__ tile_splits,
+                          const int32_t* __restrict__ run_splits,
+                          float* __restrict__ partial, int num_edges, int d_in,
+                          int d_out, int num_rel, int run_tiles) {
+  using S = ShapeH<DOUT>;
+  constexpr int NW = S::NW, kXH = S::kXH, kGH = S::kGH, kStage = S::kStage;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* const ring = reinterpret_cast<bf16*>(smem_raw);  // [stage][X | G]
+
+  const int cslabs = (d_in + CS - 1) / CS;
+  const int run = blockIdx.x / cslabs;
+  const int c0 = (blockIdx.x % cslabs) * CS;
+  const int n0 = blockIdx.y * DOUT;
+  if (run >= run_splits[num_rel]) return;  // the grid is an upper bound
+  int u = 0;  // the relation: run_splits[u] <= run < run_splits[u + 1]
+  for (int hi = num_rel; hi - u > 1;) {
+    const int mid = (u + hi) / 2;
+    if (run_splits[mid] <= run) u = mid; else hi = mid;
+  }
+  const int t0 = tile_splits[u] + (run - run_splits[u]) * run_tiles;
+  const int t1 = min(t0 + run_tiles, tile_splits[u + 1]);
+  const int64_t row_begin = (int64_t)t0 * kTileRows;
+  const int64_t row_end = min((int64_t)t1 * kTileRows, (int64_t)num_edges);
+  const int chunks = (int)((row_end - row_begin + BM - 1) / BM);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+
+  // Chunk ch's x columns c0.. and g columns n0.. into ring stage s.
+  auto load = [&](int ch, int s) {
+    bf16* X = ring + s * kStage;
+    bf16* G = X + BM * kXH;
+    const int64_t r0 = row_begin + (int64_t)ch * BM;
+    if (kVec) {
+#pragma unroll
+      for (int v = tid; v < BM * CS / 8; v += kThreads) {
+        const int r = v / (CS / 8), c = (v % (CS / 8)) * 8;
+        const int64_t row = r0 + r;
+        const bool ok = row < row_end && c0 + c < d_in;
+        bf16mma::copy8(X + r * kXH + c, ok ? x + row * d_in + c0 + c : x, ok);
+      }
+#pragma unroll
+      for (int v = tid; v < BM * DOUT / 8; v += kThreads) {
+        const int r = v / (DOUT / 8), n = (v % (DOUT / 8)) * 8;
+        const int64_t row = r0 + r;
+        const bool ok = row < row_end && n0 + n < d_out;
+        bf16mma::copy8(G + r * kGH + n, ok ? g + row * d_out + n0 + n : g, ok);
+      }
+    } else {
+#pragma unroll 4
+      for (int v = tid; v < BM * CS; v += kThreads) {
+        const int r = v / CS, c = v % CS;
+        const int64_t row = r0 + r;
+        const bool ok = row < row_end && c0 + c < d_in;
+        bf16mma::copy1(X + r * kXH + c, x + (ok ? row * d_in + c0 + c : 0), ok);
+      }
+#pragma unroll 4
+      for (int v = tid; v < BM * DOUT; v += kThreads) {
+        const int r = v / DOUT, n = v % DOUT;
+        const int64_t row = r0 + r;
+        const bool ok = row < row_end && n0 + n < d_out;
+        bf16mma::copy1(G + r * kGH + n, g + (ok ? row * d_out + n0 + n : 0), ok);
+      }
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < chunks) load(s, s);
+    tf32x3::cp_async_commit();
+  }
+
+  float dw[2][NW][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NW; ++j)
+#pragma unroll
+      for (int l = 0; l < 4; ++l) dw[i][j][l] = 0.f;
+
+  const int wm = warp / kWarpsN, wn = warp % kWarpsN;
+  const int cb = wm * 32, nb = wn * NW * 8;
+  for (int ch = 0; ch < chunks; ++ch) {
+    tf32x3::cp_async_wait<kStages - 2>();
+    __syncthreads();  // chunk ch landed; chunk ch - 1's stage is free
+    if (ch + kStages - 1 < chunks)
+      load(ch + kStages - 1, (ch + kStages - 1) % kStages);
+    tf32x3::cp_async_commit();
+
+    const bf16* X = ring + (ch % kStages) * kStage + cb;
+    const bf16* G = ring + (ch % kStages) * kStage + BM * kXH + nb;
+    // dW += X^T g, K = the chunk's rows.
+#pragma unroll
+    for (int kb = 0; kb < BM; kb += 16) {
+      uint32_t af[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        bf16mma::load_a_trans(af[i], X + kb * kXH + i * 16, kXH, lane);
+#pragma unroll
+      for (int q = 0; q < NW / 2; ++q) {
+        uint32_t bf[2][2];
+        bf16mma::load_b2_trans(bf, G + kb * kGH + q * 16, kGH, lane);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          bf16mma::mma(dw[i][2 * q], af[i], bf[0]);
+          bf16mma::mma(dw[i][2 * q + 1], af[i], bf[1]);
+        }
+      }
+    }
+  }
+
+  // This run's f32 dW rows c0 + cb.., columns n0 + nb..
+  float* __restrict__ p = partial + (int64_t)run * d_in * d_out;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      const int n = n0 + nb + j * 8 + 2 * tig;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = c0 + cb + i * 16 + gid + 8 * h;
+        if (c >= d_in) continue;
+        float* dst = p + (int64_t)c * d_out + n;
+        const float v0 = dw[i][j][2 * h], v1 = dw[i][j][2 * h + 1];
+        if (kVec) {  // d_out % 8 == 0: n and n + 1 both in or both out
+          if (n < d_out) *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+        } else {
+          if (n < d_out) dst[0] = v0;
+          if (n + 1 < d_out) dst[1] = v1;
+        }
+      }
+    }
+}
+
+// `kernel` with `smem` bytes of shared memory, one block per run and
+// 64-column d_in slab and per `dout`-column d_out slab.
+template <typename In>
+cudaError_t start(void (*kernel)(const In*, const In*, const int32_t*,
+                                 const int32_t*, float*, int, int, int, int,
+                                 int),
+                  int smem, int dout, const In* x, const In* g,
+                  const int32_t* tile_splits, const int32_t* run_splits,
+                  float* partial, int num_edges, int d_in, int d_out,
+                  int num_rel, int run_tiles, int max_runs,
+                  cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -250,46 +431,100 @@ cudaError_t launch(const float* x, const float* g, const int32_t* tile_splits,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   const int cslabs = (d_in + CS - 1) / CS;
-  dim3 grid((unsigned)max_runs * cslabs, (d_out + DOUT - 1) / DOUT);
+  dim3 grid((unsigned)max_runs * cslabs, (d_out + dout - 1) / dout);
   kernel<<<grid, kThreads, smem, stream>>>(x, g, tile_splits, run_splits,
                                            partial, num_edges, d_in, d_out,
                                            num_rel, run_tiles);
   return cudaGetLastError();
 }
 
-}  // namespace
+// The f32 body at kPasses TF32 passes (float x and g) or the bf16 body
+// (bf16 x and g), for the d_out slab DOUT and vec.
+template <typename In, int kPasses, int DOUT, bool kVec>
+cudaError_t launch(const In* x, const In* g, const int32_t* tile_splits,
+                   const int32_t* run_splits, float* partial, int num_edges,
+                   int d_in, int d_out, int num_rel, int run_tiles,
+                   int max_runs, cudaStream_t stream) {
+  if constexpr (std::is_same<In, bf16>::value) {
+    return start<In>(segment_outer_bf16_kernel<DOUT, kVec>, ShapeH<DOUT>::kSmem,
+                     DOUT, x, g, tile_splits, run_splits, partial, num_edges,
+                     d_in, d_out, num_rel, run_tiles, max_runs, stream);
+  } else {
+    return start<In>(segment_outer_kernel<DOUT, kVec, kPasses>,
+                     Shape<DOUT>::kSmem, DOUT, x, g, tile_splits, run_splits,
+                     partial, num_edges, d_in, d_out, num_rel, run_tiles,
+                     max_runs, stream);
+  }
+}
 
-// x: [E, d_in] f32; g: [E, d_out] f32; tile_splits, run_splits: [num_rel +
-// 1] int32 (relation u's tiles and runs, as above); partial: [max_runs,
-// d_in, d_out] f32, rows 0 .. run_splits[num_rel] - 1 written, max_runs >=
-// run_splits[num_rel]. All contiguous. vec != 0: d_in and d_out are
-// multiples of 4 and every pointer is 16-byte aligned (16-byte copies).
-// Launches on `stream`; returns the CUDA error of the launch.
-extern "C" int ghf_segment_outer(const void* x, const void* g,
-                                 const void* tile_splits,
-                                 const void* run_splits, void* partial,
-                                 int num_edges, int d_in, int d_out,
-                                 int num_rel, int run_tiles, int max_runs,
-                                 int vec, void* stream) {
+// The instance for the d_out slab (64 or 128 columns) and vec.
+template <typename In, int kPasses>
+int dispatch(const void* x, const void* g, const void* tile_splits,
+             const void* run_splits, void* partial, int num_edges, int d_in,
+             int d_out, int num_rel, int run_tiles, int max_runs, int vec,
+             void* stream) {
   if (num_edges <= 0 || d_in <= 0 || d_out <= 0 || max_runs <= 0)
     return (int)cudaSuccess;
-  const auto xp = static_cast<const float*>(x);
-  const auto gp = static_cast<const float*>(g);
+  const auto xp = static_cast<const In*>(x);
+  const auto gp = static_cast<const In*>(g);
   const auto ts = static_cast<const int32_t*>(tile_splits);
   const auto rs = static_cast<const int32_t*>(run_splits);
   const auto part = static_cast<float*>(partial);
   const auto s = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (d_out <= 64) {
-    err = vec ? launch<64, true>(xp, gp, ts, rs, part, num_edges, d_in, d_out,
-                                 num_rel, run_tiles, max_runs, s)
-              : launch<64, false>(xp, gp, ts, rs, part, num_edges, d_in, d_out,
-                                  num_rel, run_tiles, max_runs, s);
+    err = vec ? launch<In, kPasses, 64, true>(xp, gp, ts, rs, part, num_edges,
+                                              d_in, d_out, num_rel, run_tiles,
+                                              max_runs, s)
+              : launch<In, kPasses, 64, false>(xp, gp, ts, rs, part, num_edges,
+                                               d_in, d_out, num_rel, run_tiles,
+                                               max_runs, s);
   } else {
-    err = vec ? launch<128, true>(xp, gp, ts, rs, part, num_edges, d_in, d_out,
-                                  num_rel, run_tiles, max_runs, s)
-              : launch<128, false>(xp, gp, ts, rs, part, num_edges, d_in,
-                                   d_out, num_rel, run_tiles, max_runs, s);
+    err = vec ? launch<In, kPasses, 128, true>(xp, gp, ts, rs, part, num_edges,
+                                               d_in, d_out, num_rel, run_tiles,
+                                               max_runs, s)
+              : launch<In, kPasses, 128, false>(xp, gp, ts, rs, part,
+                                                num_edges, d_in, d_out, num_rel,
+                                                run_tiles, max_runs, s);
   }
   return (int)err;
+}
+}  // namespace
+
+// x: [E, d_in] f32; g: [E, d_out] f32; tile_splits, run_splits: [num_rel +
+// 1] int32 (relation u's tiles and runs, as above); partial: [max_runs,
+// d_in, d_out] f32, rows 0 .. run_splits[num_rel] - 1 written, max_runs >=
+// run_splits[num_rel]. All contiguous. passes: 3 (3xTF32) or 1 (one TF32
+// pass). vec != 0: d_in and d_out are multiples of 4 and every pointer is
+// 16-byte aligned (16-byte copies). Launches on `stream`; returns the CUDA
+// error of the launch.
+extern "C" int ghf_segment_outer(const void* x, const void* g,
+                                 const void* tile_splits,
+                                 const void* run_splits, void* partial,
+                                 int num_edges, int d_in, int d_out,
+                                 int num_rel, int run_tiles, int max_runs,
+                                 int passes, int vec, void* stream) {
+  if (passes == 3)
+    return dispatch<float, 3>(x, g, tile_splits, run_splits, partial,
+                              num_edges, d_in, d_out, num_rel, run_tiles,
+                              max_runs, vec, stream);
+  if (passes == 1)
+    return dispatch<float, 1>(x, g, tile_splits, run_splits, partial,
+                              num_edges, d_in, d_out, num_rel, run_tiles,
+                              max_runs, vec, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 form: x and g bf16, partial f32, the rest as ghf_segment_outer's.
+// vec != 0: d_in and d_out are multiples of 8 and every pointer is 16-byte
+// aligned.
+extern "C" int ghf_segment_outer_bf16(const void* x, const void* g,
+                                      const void* tile_splits,
+                                      const void* run_splits, void* partial,
+                                      int num_edges, int d_in, int d_out,
+                                      int num_rel, int run_tiles,
+                                      int max_runs, int vec, void* stream) {
+  return dispatch<bf16, 1>(x, g, tile_splits, run_splits, partial, num_edges,
+                           d_in, d_out, num_rel, run_tiles, max_runs, vec,
+                           stream);
 }

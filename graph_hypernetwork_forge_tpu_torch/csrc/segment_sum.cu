@@ -50,7 +50,16 @@
 // the f32 form, so it is bitwise deterministic too. It moves half the
 // input bytes of the f32 form (~0.15 GB at R=1.03M, N=50k, d=64): 0.094 /
 // 0.150 ms at d=64 / 128 on an H100 80GB HBM3 at 700 W, against 0.127 /
-// 0.220 for the f32 form.
+// 0.220 for the f32 form. Kernel 7 takes bf16 rows the same way, over both
+// streams (the TPU kernel's bf16 branch, segment_sum.py:270-271, :327-329).
+//
+// mode="fast" of kernels 1 and 7 (the TPU kernels' fast branch,
+// segment_sum.py:119-120, :330-333: f32 rows rounded to bf16 before the f32
+// fold) is a third loader: f32 rows rounded to nearest even bf16 as they are
+// loaded and widened back, then the same f32 sums. On bf16 rows the mode
+// changes nothing, as on the TPU (:117-118). It reads the bytes of the f32
+// form, so on this card it is the f32 form's time at best: the rounding is
+// the TPU's one-pass fold, which a CUDA-core sum has no use for.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -139,6 +148,25 @@ struct Rows<8, __nv_bfloat16> {
     return Float8{
         make_float4(bf16_lo(v.x), bf16_hi(v.x), bf16_lo(v.y), bf16_hi(v.y)),
         make_float4(bf16_lo(v.z), bf16_hi(v.z), bf16_lo(v.w), bf16_hi(v.w))};
+  }
+};
+
+// mode="fast": f32 rows, each value rounded to nearest even bf16 as loaded.
+struct Fast {};
+__device__ __forceinline__ float to_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+template <>
+struct Rows<1, Fast> {
+  using Raw = float;
+  __device__ static float load(const Raw* p) { return to_bf16(__ldg(p)); }
+};
+template <>
+struct Rows<4, Fast> {
+  using Raw = float4;
+  __device__ static float4 load(const Raw* p) {
+    const float4 v = __ldg(p);
+    return make_float4(to_bf16(v.x), to_bf16(v.y), to_bf16(v.z), to_bf16(v.w));
   }
 };
 
@@ -328,6 +356,31 @@ void launch(Stream<VEC, In> a, Stream<VEC, In> b, int num_streams,
                                                     num_segments, chunks);
 }
 
+// Both passes over one stream (num_streams 1: b is a's pointers again,
+// unused) or two, over rows of In read VEC at a time (vec == VEC) or one at
+// a time (vec == 1).
+template <typename In, int VEC>
+int segment_sums(const void* x_a, const void* splits_a, void* out_a,
+                 void* partial_a, int64_t num_rows_a, const void* x_b,
+                 const void* splits_b, void* out_b, void* partial_b,
+                 int64_t num_rows_b, int num_streams, int num_segments, int d,
+                 int vec, void* stream) {
+  if (num_segments <= 0 || d <= 0) return (int)cudaSuccess;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (vec == VEC) {
+    launch(stream_of<VEC, In>(x_a, splits_a, out_a, partial_a, num_rows_a),
+           stream_of<VEC, In>(x_b, splits_b, out_b, partial_b, num_rows_b),
+           num_streams, num_segments, d, s);
+  } else if (vec == 1) {
+    launch(stream_of<1, In>(x_a, splits_a, out_a, partial_a, num_rows_a),
+           stream_of<1, In>(x_b, splits_b, out_b, partial_b, num_rows_b),
+           num_streams, num_segments, d, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Rows per chunk of pass 1; the wrapper sizes the scratch buffer with it.
@@ -343,18 +396,9 @@ extern "C" int ghf_csr_segment_sum(const void* x, const void* splits,
                                    void* out, void* partial, int64_t num_rows,
                                    int num_segments, int d, int vec,
                                    void* stream) {
-  if (num_segments <= 0 || d <= 0) return (int)cudaSuccess;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (vec == 4) {
-    const Stream<4, float> a = stream_of<4>(x, splits, out, partial, num_rows);
-    launch(a, a, 1, num_segments, d, s);
-  } else if (vec == 1) {
-    const Stream<1, float> a = stream_of<1>(x, splits, out, partial, num_rows);
-    launch(a, a, 1, num_segments, d, s);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return segment_sums<float, 4>(x, splits, out, partial, num_rows, x, splits,
+                                out, partial, num_rows, 1, num_segments, d,
+                                vec, stream);
 }
 
 // Kernel 1's bf16 form: x is [num_rows, d] bf16, everything else as
@@ -364,20 +408,20 @@ extern "C" int ghf_csr_segment_sum_bf16(const void* x, const void* splits,
                                         void* out, void* partial,
                                         int64_t num_rows, int num_segments,
                                         int d, int vec, void* stream) {
-  if (num_segments <= 0 || d <= 0) return (int)cudaSuccess;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (vec == 8) {
-    const Stream<8, __nv_bfloat16> a =
-        stream_of<8, __nv_bfloat16>(x, splits, out, partial, num_rows);
-    launch(a, a, 1, num_segments, d, s);
-  } else if (vec == 1) {
-    const Stream<1, __nv_bfloat16> a =
-        stream_of<1, __nv_bfloat16>(x, splits, out, partial, num_rows);
-    launch(a, a, 1, num_segments, d, s);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return segment_sums<__nv_bfloat16, 8>(x, splits, out, partial, num_rows, x,
+                                        splits, out, partial, num_rows, 1,
+                                        num_segments, d, vec, stream);
+}
+
+// Kernel 1, mode="fast": as ghf_csr_segment_sum, each f32 value rounded to
+// bf16 as it is read.
+extern "C" int ghf_csr_segment_sum_fast(const void* x, const void* splits,
+                                        void* out, void* partial,
+                                        int64_t num_rows, int num_segments,
+                                        int d, int vec, void* stream) {
+  return segment_sums<Fast, 4>(x, splits, out, partial, num_rows, x, splits,
+                               out, partial, num_rows, 1, num_segments, d, vec,
+                               stream);
 }
 
 // Kernel 7: two independent segment-sums, each stream as ghf_csr_segment_sum
@@ -390,18 +434,31 @@ extern "C" int ghf_dual_csr_segment_sum(
     int64_t num_rows_a, const void* x_b, const void* splits_b, void* out_b,
     void* partial_b, int64_t num_rows_b, int num_segments, int d, int vec,
     void* stream) {
-  if (num_segments <= 0 || d <= 0) return (int)cudaSuccess;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (vec == 4) {
-    launch(stream_of<4>(x_a, splits_a, out_a, partial_a, num_rows_a),
-           stream_of<4>(x_b, splits_b, out_b, partial_b, num_rows_b), 2,
-           num_segments, d, s);
-  } else if (vec == 1) {
-    launch(stream_of<1>(x_a, splits_a, out_a, partial_a, num_rows_a),
-           stream_of<1>(x_b, splits_b, out_b, partial_b, num_rows_b), 2,
-           num_segments, d, s);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return segment_sums<float, 4>(x_a, splits_a, out_a, partial_a, num_rows_a,
+                                x_b, splits_b, out_b, partial_b, num_rows_b, 2,
+                                num_segments, d, vec, stream);
+}
+
+// Kernel 7's bf16 form: both x_* bf16, the rest as ghf_dual_csr_segment_sum;
+// vec is 8 when d % 8 == 0 and every pointer is 16-byte aligned, else 1.
+extern "C" int ghf_dual_csr_segment_sum_bf16(
+    const void* x_a, const void* splits_a, void* out_a, void* partial_a,
+    int64_t num_rows_a, const void* x_b, const void* splits_b, void* out_b,
+    void* partial_b, int64_t num_rows_b, int num_segments, int d, int vec,
+    void* stream) {
+  return segment_sums<__nv_bfloat16, 8>(
+      x_a, splits_a, out_a, partial_a, num_rows_a, x_b, splits_b, out_b,
+      partial_b, num_rows_b, 2, num_segments, d, vec, stream);
+}
+
+// Kernel 7, mode="fast": as ghf_dual_csr_segment_sum, each f32 value
+// rounded to bf16 as it is read.
+extern "C" int ghf_dual_csr_segment_sum_fast(
+    const void* x_a, const void* splits_a, void* out_a, void* partial_a,
+    int64_t num_rows_a, const void* x_b, const void* splits_b, void* out_b,
+    void* partial_b, int64_t num_rows_b, int num_segments, int d, int vec,
+    void* stream) {
+  return segment_sums<Fast, 4>(x_a, splits_a, out_a, partial_a, num_rows_a,
+                               x_b, splits_b, out_b, partial_b, num_rows_b, 2,
+                               num_segments, d, vec, stream);
 }

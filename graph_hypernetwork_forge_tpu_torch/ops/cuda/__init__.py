@@ -42,7 +42,7 @@ _COUNTED = (
 
 def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count, and its count per form
-    (``launches_by_form``: "f32", "tf32", "bf16"), to 0."""
+    (``launches_by_form``: "f32", "tf32", "bf16", "fast"), to 0."""
     for fn in _COUNTED:
         _common.reset_counts(fn)
 

@@ -6,14 +6,16 @@ import ctypes
 
 import torch
 
-# The data types the kernels take: float32 (kernels 1-7) and bfloat16, the
-# speed mode's storage type (kernels 1-3).
+# The data types the kernels take: float32 and bfloat16, the speed mode's
+# storage type.
 F32_BF16 = (torch.float32, torch.bfloat16)
 
 # The forms a kernel is launched in: "f32" (f32 data; the matrix kernels in
 # 3xTF32 on the tensor cores), "tf32" (f32 data, the matrix kernels in one
-# TF32 pass, precision="default") and "bf16" (bf16 data, f32 sums).
-FORMS = ("f32", "tf32", "bf16")
+# TF32 pass, precision="default"), "bf16" (bf16 data, f32 sums) and "fast"
+# (the sums of kernels 1 and 7 over f32 rows in mode="fast": each value
+# rounded to bf16 as it is read, then summed in f32).
+FORMS = ("f32", "tf32", "bf16", "fast")
 
 
 def reset_counts(fn) -> None:
@@ -45,6 +47,17 @@ def matrix_form(dtype: torch.dtype, precision) -> str:
     if dtype == torch.bfloat16:
         return "bf16"
     return "f32" if tf32_passes(precision) == 3 else "tf32"
+
+
+def sum_form(dtype: torch.dtype, mode: str) -> str:
+    """The form a segment-sum kernel runs in for rows of ``dtype`` in
+    ``mode`` ("exact" or "fast"); on bf16 rows the mode changes nothing,
+    as in JAX."""
+    if mode not in ("exact", "fast"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if dtype == torch.bfloat16:
+        return "bf16"
+    return "f32" if mode == "exact" else "fast"
 
 
 def require_inference(kernel: str, *tensors: torch.Tensor) -> None:

@@ -26,6 +26,8 @@ cotangents with the banks transposed and a zero bias for ``dx_src`` and
 ``dx_dst``, kernel 6 (``ops/cuda/segment_outer.py``) for each ``dW``, and
 kernel 1 for ``dbias``. :func:`edge_contributions_cuda_sorted` is the entry
 point of the JAX package's ``edge_contributions_pallas_sorted`` (:618).
+Kernel 5 takes the forms of kernel 2, bf16 data and ``precision``, and its
+backward launches kernels 5 and 6 in the forward's form.
 """
 
 from __future__ import annotations
@@ -88,13 +90,20 @@ def edge_transform_sorted_plain(
     bias: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of kernel 5: ``(msg, selfc)``, one ``bmm`` per
-    bank over 256-row tiles, one weight gathered per tile."""
+    bank over 256-row tiles, one weight gathered per tile. bf16 operands are
+    upcast and multiplied in f32, and each output rounded once to bf16
+    (``msg`` after the bias is added), the kernel's bf16 form."""
+    dtype = x_src.dtype
+    if dtype == torch.bfloat16:
+        x_src, x_dst, w_msg, w_self, bias = (
+            t.float() for t in (x_src, x_dst, w_msg, w_self, bias)
+        )
     e = x_src.shape[0]
     d_out = w_msg.shape[-1]
     tile_rel = rel_sorted[::GROUP_PAD].long()
     msg = torch.baddbmm(bias[tile_rel][:, None, :], as_tiles(x_src), w_msg[tile_rel])
     selfc = torch.bmm(as_tiles(x_dst), w_self[tile_rel])
-    return msg.reshape(-1, d_out)[:e], selfc.reshape(-1, d_out)[:e]
+    return msg.reshape(-1, d_out)[:e].to(dtype), selfc.reshape(-1, d_out)[:e].to(dtype)
 
 
 @functools.cache
@@ -107,8 +116,11 @@ def _lib() -> ctypes.CDLL:
     bf16.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     bf16.restype = ctypes.c_int
     two = lib.ghf_edge_transform_two
-    two.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    two.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     two.restype = ctypes.c_int
+    two_bf16 = lib.ghf_edge_transform_two_bf16
+    two_bf16.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    two_bf16.restype = ctypes.c_int
     return lib
 
 
@@ -140,20 +152,18 @@ def _check(name, dtypes, x_src, x_dst, rel_sorted, w_msg, w_self, bias):
 
 def _launch(two: bool, x_src, x_dst, rel_sorted, w_msg, w_self, bias,
             precision="highest"):
-    """Kernel 5 (``two``: ``(msg, selfc)``, f32 in 3xTF32) or kernel 2 (one
-    summed output, in the form of its data and ``precision``) on CUDA
-    tensors, the matching plain version on CPU tensors."""
+    """Kernel 5 (``two``: ``(msg, selfc)``) or kernel 2 (one summed output),
+    in the form of the data and ``precision``, on CUDA tensors; the matching
+    plain version on CPU tensors."""
     name = _NAME_TWO if two else _NAME
     args = (x_src, x_dst, rel_sorted, w_msg, w_self, bias)
-    form = "f32" if two else _common.matrix_form(x_src.dtype, precision)
+    form = _common.matrix_form(x_src.dtype, precision)
     if x_src.device.type == "cpu":
         plain = edge_transform_sorted_plain if two else edge_transform_sorted_combined_plain
         return plain(*args)
     if x_src.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x_src.device}")
-    e, d_in, d_out = _check(
-        name, torch.float32 if two else _common.F32_BF16, *args
-    )
+    e, d_in, d_out = _check(name, _common.F32_BF16, *args)
     dev, dtype = x_src.device, x_src.dtype
     outs = [
         torch.empty((e, d_out), dtype=dtype, device=dev)
@@ -162,13 +172,12 @@ def _launch(two: bool, x_src, x_dst, rel_sorted, w_msg, w_self, bias,
     lib = _lib()
     ptrs = [_common.ptr(t) for t in (*args, *outs)]
     vec = _common.vec16(*args, *outs, widths=(d_in, d_out), dtype=dtype)
-    if two:
-        launch, sizes = lib.ghf_edge_transform_two, (e, d_in, d_out)
-    elif form == "bf16":
-        launch, sizes = lib.ghf_edge_transform_bf16, (e, d_in, d_out)
+    sizes = (e, d_in, d_out)
+    if form == "bf16":
+        launch = lib.ghf_edge_transform_two_bf16 if two else lib.ghf_edge_transform_bf16
     else:
-        launch = lib.ghf_edge_transform
-        sizes = (e, d_in, d_out, _common.tf32_passes(precision))
+        launch = lib.ghf_edge_transform_two if two else lib.ghf_edge_transform
+        sizes += (_common.tf32_passes(precision),)
     with torch.cuda.device(dev):
         code = launch(*ptrs, *sizes, vec, _common.stream_of(dev))
     _common.raise_on_error(name, code)
@@ -254,9 +263,10 @@ class _EdgeTransformSorted(torch.autograd.Function):
     kernel 6 twice and the ``dbias`` segment-sum backward."""
 
     @staticmethod
-    def forward(ctx, x_src, x_dst, rel_sorted, w_msg, w_self, bias):
+    def forward(ctx, x_src, x_dst, rel_sorted, w_msg, w_self, bias, precision):
         ctx.save_for_backward(x_src, x_dst, rel_sorted, w_msg, w_self)
-        return _launch(True, x_src, x_dst, rel_sorted, w_msg, w_self, bias)
+        ctx.precision, ctx.bias_dtype = precision, bias.dtype
+        return _launch(True, x_src, x_dst, rel_sorted, w_msg, w_self, bias, precision)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -269,12 +279,15 @@ class _EdgeTransformSorted(torch.autograd.Function):
         dx_src, dx_dst = _launch(
             True, g_msg, g_selfc, rel_sorted,
             w_msg.transpose(1, 2).contiguous(), w_self.transpose(1, 2).contiguous(),
-            g_msg.new_zeros((u, d_in)),
+            g_msg.new_zeros((u, d_in)), ctx.precision,
         )
-        dw_msg = segment_outer(x_src, g_msg, rel_sorted, u)
-        dw_self = segment_outer(x_dst, g_selfc, rel_sorted, u)
+        # dW and dbias are summed in f32 and cast to their parameters' dtype
+        # (JAX _bwd :593-606).
+        dw_msg = segment_outer(x_src, g_msg, rel_sorted, u, ctx.precision)
+        dw_self = segment_outer(x_dst, g_selfc, rel_sorted, u, ctx.precision)
         dbias = csr_segment_sum(g_msg, rel_bounds(rel_sorted, u), u)
-        return dx_src, dx_dst, None, dw_msg, dw_self, dbias
+        return (dx_src, dx_dst, None, dw_msg.to(w_msg.dtype), dw_self.to(w_self.dtype),
+                dbias.to(ctx.bias_dtype), None)
 
 
 def edge_transform_sorted(
@@ -284,6 +297,7 @@ def edge_transform_sorted(
     w_msg: torch.Tensor,
     w_self: torch.Tensor,
     bias: torch.Tensor,
+    precision="highest",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-edge ``(msg, selfc)`` over single-relation tiles, ``[E, d_out]`` each.
 
@@ -292,13 +306,20 @@ def edge_transform_sorted(
         rel_sorted: ``[E]`` relation ids, non-decreasing, each relation's
             group starting on a 256-row boundary.
         w_msg, w_self: ``[U, d_in, d_out]`` weight banks; bias ``[U, d_out]``.
+        precision: ``"highest"`` (3xTF32, f32-class) or ``"default"`` /
+            ``None`` (one TF32 pass) for the products of f32 data, forward
+            and backward; bf16 data takes one bf16 pass whatever it says.
 
-    Differentiable in every float input. CPU tensors take
-    :func:`edge_transform_sorted_plain` (and the plain versions of kernels
-    6 and 1 in the backward); CUDA tensors launch the kernels (float32
-    data, int32 ids, all contiguous) or raise.
+    Differentiable in every float input. The outputs have the data's dtype;
+    dW and dbias are summed in f32 and cast to their parameters' dtype. CPU
+    tensors take :func:`edge_transform_sorted_plain` (and the plain
+    versions of kernels 6 and 1 in the backward), exact f32 at any
+    precision; CUDA tensors launch the kernels (float32 or bfloat16 data,
+    one dtype for all, int32 ids, all contiguous) or raise.
     """
-    return _EdgeTransformSorted.apply(x_src, x_dst, rel_sorted, w_msg, w_self, bias)
+    return _EdgeTransformSorted.apply(
+        x_src, x_dst, rel_sorted, w_msg, w_self, bias, precision
+    )
 
 
 _common.reset_counts(edge_transform_sorted)
@@ -314,6 +335,7 @@ def edge_contributions_cuda_sorted(
     bias: torch.Tensor,
     *,
     sort_plan=None,
+    precision="highest",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-edge ``(msg, selfc)`` of one layer on the group-padded sorted
     layout (``encode_graph(sort_by_relation=True, group_pad=256)``): the
@@ -324,7 +346,8 @@ def edge_contributions_cuda_sorted(
     (tensors on ``h``'s device) the ``h[src]``, ``h[dst]`` gathers reduce
     their cotangents through the plan's permutations and kernel 1
     (``take_rows_pair``); without one they are plain gathers. Then kernel 5
-    (:func:`edge_transform_sorted`).
+    (:func:`edge_transform_sorted`) at ``precision``. Speed mode is the
+    caller's, as in JAX: bf16 ``h``, banks and bias give bf16 streams.
     """
     # ops.segment imports kernel 1 from this package; imported here so that
     # the two packages do not import each other at load time.
@@ -338,5 +361,5 @@ def edge_contributions_cuda_sorted(
         )
     else:
         x_src, x_dst = h.index_select(0, src), h.index_select(0, dst)
-    return edge_transform_sorted(x_src, x_dst, rel_ids, w_msg, w_self, bias)
+    return edge_transform_sorted(x_src, x_dst, rel_ids, w_msg, w_self, bias, precision)
 

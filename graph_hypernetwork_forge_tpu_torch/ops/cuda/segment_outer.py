@@ -13,7 +13,10 @@ to :data:`RUN_TILES` consecutive tiles of one relation
 (``edge_transform_bwd.run_bounds``), as kernel 3 does for its dW, and
 kernel 1 (``csr_segment_sum``) adds each relation's partials over the run
 bounds: one call of this wrapper launches kernel 6 once and kernel 1 once,
-and the result is bitwise deterministic.
+and the result is bitwise deterministic. Kernel 6 takes bf16 data (one
+pass, the partials and dW summed in f32) and, for f32 data,
+``precision="default"`` (one TF32 pass instead of 3xTF32), as the TPU
+kernel's ``precision`` and bf16 branch.
 """
 
 from __future__ import annotations
@@ -46,9 +49,17 @@ def segment_outer_plain(
     x: torch.Tensor, g: torch.Tensor, rel_sorted: torch.Tensor, num_rel: int
 ) -> torch.Tensor:
     """Plain PyTorch version: per-tile ``bmm`` of ``xᵀ`` against ``g``, then
-    the per-tile products summed into their relations by ``index_add_``."""
+    the per-tile products summed into their relations by ``index_add_``.
+
+    Sums in float32, bf16 data upcast first (its products are exact in
+    f32), as the TPU kernel sums across a relation's tiles; float64 data in
+    float64 (the references of the error checks).
+    """
+    dtype = torch.promote_types(x.dtype, torch.float32)
     tile_rel = rel_sorted[::GROUP_PAD].long()
-    part = torch.bmm(as_tiles(x).transpose(1, 2), as_tiles(g))  # [tiles, d_in, d_out]
+    part = torch.bmm(  # [tiles, d_in, d_out]
+        as_tiles(x.to(dtype)).transpose(1, 2), as_tiles(g.to(dtype))
+    )
     return part.new_zeros((num_rel,) + tuple(part.shape[1:])).index_add_(
         0, tile_rel, part
     )
@@ -58,33 +69,42 @@ def segment_outer_plain(
 def _lib() -> ctypes.CDLL:
     lib = load("segment_outer")
     fn = lib.ghf_segment_outer
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    bf16 = lib.ghf_segment_outer_bf16
+    bf16.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    bf16.restype = ctypes.c_int
     return lib
 
 
 def segment_outer(
-    x: torch.Tensor, g: torch.Tensor, rel_sorted: torch.Tensor, num_rel: int
+    x: torch.Tensor, g: torch.Tensor, rel_sorted: torch.Tensor, num_rel: int,
+    precision="highest",
 ) -> torch.Tensor:
     """``dW [num_rel, d_in, d_out]`` f32 from ``x [E, d_in]`` and ``g [E, d_out]``.
 
     ``rel_sorted`` is ``[E]``, non-decreasing, each relation's group
-    starting on a 256-row boundary. CPU tensors take
-    :func:`segment_outer_plain`; CUDA tensors launch the kernel (float32
-    data, int32 ids, all contiguous) or raise. A forward-only launch:
+    starting on a 256-row boundary. ``precision``: ``"highest"`` (3xTF32)
+    or ``"default"`` / ``None`` (one TF32 pass) for f32 data; bf16 data
+    takes one bf16 pass whatever it says. CPU tensors take
+    :func:`segment_outer_plain`, exact f32 at any precision; CUDA tensors
+    launch the kernel (float32 or bfloat16 data, one dtype for both; int32
+    ids; all contiguous) or raise. A forward-only launch:
     ``edge_transform_sorted``'s autograd Function calls it from its backward.
     """
+    form = _common.matrix_form(x.dtype, precision)
     if x.device.type == "cpu":
         return segment_outer_plain(x, g, rel_sorted, num_rel)
     if x.device.type != "cuda":
         raise ValueError(f"{_NAME}: unsupported device {x.device}")
     _common.require_inference(_NAME, x, g)
     dev = x.device
-    f32 = torch.float32
+    data = _common.F32_BF16
     _common.require_cuda(
-        _NAME, dev, ("x", x, f32), ("g", g, f32),
+        _NAME, dev, ("x", x, data), ("g", g, data),
         ("rel_sorted", rel_sorted, torch.int32),
     )
+    dtype = _common.require_same_dtype(_NAME, x=x, g=g)
     e, d_in = x.shape
     if g.dim() != 2 or g.shape[0] != e or rel_sorted.shape != (e,):
         raise ValueError(
@@ -93,16 +113,22 @@ def segment_outer(
         )
     d_out = g.shape[1]
     t_splits, r_splits, max_runs = run_bounds(rel_sorted, num_rel, RUN_TILES)
-    partial = torch.empty((max_runs, d_in * d_out), dtype=f32, device=dev)
+    partial = torch.empty((max_runs, d_in * d_out), dtype=torch.float32, device=dev)
+    lib = _lib()
+    sizes = (e, d_in, d_out, num_rel, RUN_TILES, max_runs)
+    if form == "bf16":
+        launch = lib.ghf_segment_outer_bf16
+    else:
+        launch = lib.ghf_segment_outer
+        sizes += (_common.tf32_passes(precision),)
     with torch.cuda.device(dev):
-        code = _lib().ghf_segment_outer(
-            _common.ptr(x), _common.ptr(g), _common.ptr(t_splits),
-            _common.ptr(r_splits), _common.ptr(partial), e, d_in, d_out, num_rel,
-            RUN_TILES, max_runs, _common.vec16(x, g, partial, widths=(d_in, d_out)),
+        code = launch(
+            *(_common.ptr(t) for t in (x, g, t_splits, r_splits, partial)), *sizes,
+            _common.vec16(x, g, partial, widths=(d_in, d_out), dtype=dtype),
             _common.stream_of(dev),
         )
     _common.raise_on_error(_NAME, code)
-    _common.count_launch(segment_outer, "f32")
+    _common.count_launch(segment_outer, form)
     dw = csr_segment_sum(partial, r_splits, num_rel)
     return dw.view(num_rel, d_in, d_out)
 

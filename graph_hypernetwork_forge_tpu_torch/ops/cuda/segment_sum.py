@@ -16,8 +16,11 @@ there.
 On the card the kernels split the rows into fixed chunks, one warp each,
 and add the pieces of segments that cross chunks in a second pass, so a
 segment of any length costs no more than its rows; the sums are bitwise
-deterministic. Kernel 1 also takes bf16 rows (the speed mode's, the TPU
-kernel's bf16 branch): read as bf16, summed and written in f32.
+deterministic. Both kernels also take bf16 rows (the speed mode's, the TPU
+kernels' bf16 branch): read as bf16, summed and written in f32. And both
+take the TPU kernels' ``mode``: ``"exact"``, or ``"fast"``, in which f32
+rows are rounded to bf16 (to nearest even) as they are read and then summed
+in f32; on bf16 rows the mode changes nothing.
 """
 
 from __future__ import annotations
@@ -34,13 +37,16 @@ _NAME = "csr_segment_sum"
 
 
 def csr_segment_sum_plain(
-    x_sorted: torch.Tensor, splits: torch.Tensor, num_segments: int
+    x_sorted: torch.Tensor, splits: torch.Tensor, num_segments: int,
+    mode: str = "exact",
 ) -> torch.Tensor:
     """Plain PyTorch version: ``index_add_`` over ids expanded from ``splits``.
 
     Sums in float32 (bf16 rows upcast first), or in float64 for float64
-    rows (the gradient checks).
+    rows (the gradient checks); ``mode="fast"`` rounds the rows to bf16
+    first.
     """
+    fast = _common.sum_form(x_sorted.dtype, mode) == "fast"
     s = splits[: num_segments + 1].long()
     ids = torch.repeat_interleave(
         torch.arange(num_segments, device=x_sorted.device), s[1:] - s[:-1]
@@ -50,34 +56,38 @@ def csr_segment_sum_plain(
         (num_segments,) + tuple(x_sorted.shape[1:]),
         dtype=dtype, device=x_sorted.device,
     )
-    return out.index_add_(0, ids, x_sorted[s[0]: s[-1]].to(dtype))
+    rows = x_sorted[s[0]: s[-1]]
+    if fast:
+        rows = rows.bfloat16()
+    return out.index_add_(0, ids, rows.to(dtype))
+
+
+# The forms of kernels 1 and 7 (``_common.sum_form``): their C entries, and
+# the elements one 16-byte load reads.
+_ENTRY = dict(f32="ghf_csr_segment_sum", bf16="ghf_csr_segment_sum_bf16",
+              fast="ghf_csr_segment_sum_fast")
+_DUAL_ENTRY = dict(f32="ghf_dual_csr_segment_sum", bf16="ghf_dual_csr_segment_sum_bf16",
+                   fast="ghf_dual_csr_segment_sum_fast")
+_VEC = dict(f32=4, bf16=8, fast=4)
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = load("segment_sum")
-    fn = lib.ghf_csr_segment_sum
-    fn.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int64] + [ctypes.c_int] * 3
-        + [ctypes.c_void_p]
-    )
-    fn.restype = ctypes.c_int
-    bf16 = lib.ghf_csr_segment_sum_bf16
-    bf16.argtypes = fn.argtypes
-    bf16.restype = ctypes.c_int
-    dual = lib.ghf_dual_csr_segment_sum
     stream = [ctypes.c_void_p] * 4 + [ctypes.c_int64]
-    dual.argtypes = stream * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    dual.restype = ctypes.c_int
+    for form in _ENTRY:
+        one, dual = getattr(lib, _ENTRY[form]), getattr(lib, _DUAL_ENTRY[form])
+        one.argtypes = stream + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        dual.argtypes = stream * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        one.restype = dual.restype = ctypes.c_int
     lib.ghf_csr_rows_per_chunk.restype = ctypes.c_int
     return lib
 
 
-def _check_stream(name, dev, x_sorted, splits, num_segments,
-                  dtypes=torch.float32) -> None:
+def _check_stream(name, dev, x_sorted, splits, num_segments) -> None:
     """Device, dtype, contiguity and shape checks of one CSR stream."""
     _common.require_cuda(
-        name, dev, ("x_sorted", x_sorted, dtypes),
+        name, dev, ("x_sorted", x_sorted, _common.F32_BF16),
         ("splits", splits, torch.int32),
     )
     if x_sorted.dim() != 2 or splits.dim() != 1:
@@ -96,39 +106,40 @@ def _scratch(lib, rows: int, d: int, dev) -> torch.Tensor:
 
 
 def csr_segment_sum(
-    x_sorted: torch.Tensor, splits: torch.Tensor, num_segments: int
+    x_sorted: torch.Tensor, splits: torch.Tensor, num_segments: int,
+    mode: str = "exact",
 ) -> torch.Tensor:
     """Segment-sum of ``x_sorted [R, d]`` by CSR bounds → ``[num_segments, d]`` f32.
 
     ``splits`` holds at least ``num_segments + 1`` non-decreasing int32
     row bounds with ``splits[num_segments] <= R``; only those are read.
-    CPU tensors take :func:`csr_segment_sum_plain`; CUDA tensors launch the
+    ``mode``: ``"exact"``, or ``"fast"`` (f32 rows rounded to bf16 before
+    the f32 sums; no change for bf16 rows), as the TPU kernel's. CPU
+    tensors take :func:`csr_segment_sum_plain`; CUDA tensors launch the
     kernel (float32 or bfloat16 rows, summed in f32; int32 splits; both
     contiguous) or raise.
     """
+    form = _common.sum_form(x_sorted.dtype, mode)
     if x_sorted.device.type == "cpu":
-        return csr_segment_sum_plain(x_sorted, splits, num_segments)
+        return csr_segment_sum_plain(x_sorted, splits, num_segments, mode)
     if x_sorted.device.type != "cuda":
         raise ValueError(f"{_NAME}: unsupported device {x_sorted.device}")
     _common.require_inference(_NAME, x_sorted)
     dev = x_sorted.device
-    _check_stream(_NAME, dev, x_sorted, splits, num_segments, _common.F32_BF16)
+    _check_stream(_NAME, dev, x_sorted, splits, num_segments)
     rows, d = (int(s) for s in x_sorted.shape)
     lib = _lib()
     out = torch.empty((num_segments, d), dtype=torch.float32, device=dev)
     partial = _scratch(lib, rows, d, dev)
-    bf16 = x_sorted.dtype == torch.bfloat16
-    launch, vec = (lib.ghf_csr_segment_sum_bf16, 8) if bf16 else (lib.ghf_csr_segment_sum, 4)
+    vec = _common.vec16(x_sorted, out, partial, widths=(d,), dtype=x_sorted.dtype)
     with torch.cuda.device(dev):
-        code = launch(
+        code = getattr(lib, _ENTRY[form])(
             _common.ptr(x_sorted), _common.ptr(splits), _common.ptr(out),
-            _common.ptr(partial), rows, num_segments, d,
-            vec if _common.vec16(x_sorted, out, partial, widths=(d,),
-                                 dtype=x_sorted.dtype) else 1,
+            _common.ptr(partial), rows, num_segments, d, _VEC[form] if vec else 1,
             _common.stream_of(dev),
         )
     _common.raise_on_error(_NAME, code)
-    _common.count_launch(csr_segment_sum, "bf16" if bf16 else "f32")
+    _common.count_launch(csr_segment_sum, form)
     return out
 
 
@@ -143,11 +154,12 @@ def dual_sorted_segment_sum_plain(
     num_segments: int,
     splits_a: torch.Tensor,
     splits_b: torch.Tensor,
+    mode: str = "exact",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version: two :func:`csr_segment_sum_plain` calls."""
     return (
-        csr_segment_sum_plain(xa_sorted, splits_a, num_segments),
-        csr_segment_sum_plain(xb_sorted, splits_b, num_segments),
+        csr_segment_sum_plain(xa_sorted, splits_a, num_segments, mode),
+        csr_segment_sum_plain(xb_sorted, splits_b, num_segments, mode),
     )
 
 
@@ -157,6 +169,7 @@ def dual_sorted_segment_sum(
     num_segments: int,
     splits_a: torch.Tensor,
     splits_b: torch.Tensor,
+    mode: str = "exact",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Two independent CSR segment-sums in one pass → ``(sum_a, sum_b)``,
     each ``[num_segments, d]`` f32.
@@ -167,11 +180,13 @@ def dual_sorted_segment_sum(
     ``SortPlan.src_splits`` and ``dst_splits``, the cotangent pair of a
     layer's ``h[src]``, ``h[dst]`` gathers). Forward only, as the JAX
     package's ``dual_sorted_segment_sum_pallas``: inputs that want a
-    gradient are refused. CPU tensors take
-    :func:`dual_sorted_segment_sum_plain`; CUDA tensors launch kernel 7
-    (float32 rows, int32 splits, all contiguous, on one device) or raise.
+    gradient are refused. ``mode`` as :func:`csr_segment_sum`'s. CPU
+    tensors take :func:`dual_sorted_segment_sum_plain`; CUDA tensors launch
+    kernel 7 (float32 or bfloat16 rows, one dtype for both streams; int32
+    splits; all contiguous, on one device) or raise.
     """
     _common.require_inference(_DUAL, xa_sorted, xb_sorted)
+    form = _common.sum_form(xa_sorted.dtype, mode)
     if xa_sorted.shape != xb_sorted.shape:
         raise ValueError(
             f"{_DUAL}: streams {tuple(xa_sorted.shape)} and "
@@ -179,13 +194,14 @@ def dual_sorted_segment_sum(
         )
     if xa_sorted.device.type == "cpu":
         return dual_sorted_segment_sum_plain(
-            xa_sorted, xb_sorted, num_segments, splits_a, splits_b
+            xa_sorted, xb_sorted, num_segments, splits_a, splits_b, mode
         )
     if xa_sorted.device.type != "cuda":
         raise ValueError(f"{_DUAL}: unsupported device {xa_sorted.device}")
     dev = xa_sorted.device
     _check_stream(_DUAL, dev, xa_sorted, splits_a, num_segments)
     _check_stream(_DUAL, dev, xb_sorted, splits_b, num_segments)
+    _common.require_same_dtype(_DUAL, xa_sorted=xa_sorted, xb_sorted=xb_sorted)
     rows, d = (int(s) for s in xa_sorted.shape)
     lib = _lib()
     out_a, out_b = (
@@ -193,17 +209,18 @@ def dual_sorted_segment_sum(
         for _ in range(2)
     )
     part_a, part_b = (_scratch(lib, rows, d, dev) for _ in range(2))
+    vec = _common.vec16(xa_sorted, xb_sorted, out_a, out_b, part_a, part_b,
+                        widths=(d,), dtype=xa_sorted.dtype)
     with torch.cuda.device(dev):
-        code = lib.ghf_dual_csr_segment_sum(
+        code = getattr(lib, _DUAL_ENTRY[form])(
             _common.ptr(xa_sorted), _common.ptr(splits_a), _common.ptr(out_a),
             _common.ptr(part_a), rows,
             _common.ptr(xb_sorted), _common.ptr(splits_b), _common.ptr(out_b),
             _common.ptr(part_b), rows,
-            num_segments, d, 4 if _common.vec16(xa_sorted, xb_sorted, widths=(d,)) else 1,
-            _common.stream_of(dev),
+            num_segments, d, _VEC[form] if vec else 1, _common.stream_of(dev),
         )
     _common.raise_on_error(_DUAL, code)
-    _common.count_launch(dual_sorted_segment_sum, "f32")
+    _common.count_launch(dual_sorted_segment_sum, form)
     return out_a, out_b
 
 

@@ -9,9 +9,11 @@ under ``build/variants/`` with a few lines of a kernel source changed,
 built with the port's nvcc flags; the wrappers then launch it in place of
 the built-in library. ``edge_transform.cu`` holds kernels 2 and 5, so each
 of its variants times both. Variants named "ablation: ..." leave out part
-of the work (the products, the row loads, two of kernel 6's three TF32
-passes) to show where the time goes, so their errors are large; kernels 2
-and 3 are also timed in their one-TF32-pass mode (precision="default").
+of the work (the products, the row loads) to show where the time goes, so
+their errors are large; kernels 2, 3, 5 and 6 are also timed in their
+one-TF32-pass mode (precision="default") and in their bf16 form. The
+ablations and the k-loop variants edit the f32 bodies; the bf16 forms
+keep their source there.
 Kernels 3 and 6 are timed against the library composition that computes
 the same function: ``bmm`` per 256-row tile and ``index_add_`` of the tile
 partials into their relations (and ``bmm`` alone). Each ``CSRC_DIR``
@@ -55,8 +57,9 @@ k6 = importlib.import_module("graph_hypernetwork_forge_tpu_torch.ops.cuda.segmen
 OUT = ROOT / "build" / "variants"
 # The wrapper module of each source; kernels 3 and 6 read RUN_TILES there.
 MODULES = {"edge_transform": k2, "edge_transform_bwd": k3, "segment_outer": k6}
-C_FUNCTIONS = ("ghf_edge_transform", "ghf_edge_transform_two", "ghf_edge_transform_bwd",
-               "ghf_segment_outer")
+C_FUNCTIONS = ("ghf_edge_transform", "ghf_edge_transform_bf16", "ghf_edge_transform_two",
+               "ghf_edge_transform_two_bf16", "ghf_edge_transform_bwd",
+               "ghf_edge_transform_bwd_bf16", "ghf_segment_outer", "ghf_segment_outer_bf16")
 
 K3_UNROLL = ("#pragma unroll 2\n        for (int kb = 0; kb < DOUT",
              "#pragma unroll 2\n        for (int kb = 0; kb < BM")
@@ -131,10 +134,6 @@ VARIANTS = {
         "ablation: products only, no row loads": [
             ("    if (s < chunks) load(s, s);", ""),
             ("      load(ch + kStages - 1, (ch + kStages - 1) % kStages);", "      ;")],
-        "ablation: one TF32 pass": [(
-            "tf32x3::mma3_tile<2, NG>(dw[q], ahi, alo, bhi, blo);",
-            "for (int i = 0; i < 2; ++i) for (int j = 0; j < NG; ++j) "
-            "tf32x3::mma(dw[q][i][j], ahi[i], bhi[j]);")],
     },
 }
 RUN_LENGTHS = (1, 2, 4, 8)
@@ -189,6 +188,13 @@ def best_ms(fn) -> float:
 def abs_err(got, want) -> float:
     got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
     return max((a - b).abs().max().item() for a, b in zip(got, want))
+
+
+def bf16_err(got, want) -> float:
+    """Max error of bf16 outputs in bf16 ulps of the largest value."""
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    return max((a.float() - b.float()).abs().max().item()
+               / (2.0**-7 * b.float().abs().max().item()) for a, b in zip(got, want))
 
 
 def scaled_err(got, want) -> float:
@@ -247,8 +253,12 @@ def main(argv: list[str]) -> int:
         fwd = (xs, xd, rel, wm, ws, bias)
         bwd = (g_out, xs, xd, rel, wm, ws)
         outer = (xs, g_out, rel, u_pad)
+        fwd_h, outer_h = ([t.bfloat16() if torch.is_tensor(t) and t.is_floating_point() else t
+                           for t in a] for a in (fwd, outer))
         plain2 = k2.edge_transform_sorted_combined_plain(*fwd)
         plain3 = k3.edge_transform_combined_bwd_plain(*bwd)
+        plain5 = k2.edge_transform_sorted_plain(*fwd)
+        plain6 = k6.segment_outer_plain(*outer)
         # (label, call, plain result, error) of each source's kernels.
         kernels_of = {
             "edge_transform": [
@@ -257,8 +267,12 @@ def main(argv: list[str]) -> int:
                 ("kernel 2, one TF32 pass",
                  lambda: k2.edge_transform_sorted_combined(*fwd, precision="default"),
                  plain2, abs_err),
-                ("kernel 5", lambda: k2.edge_transform_sorted(*fwd),
-                 k2.edge_transform_sorted_plain(*fwd), abs_err),
+                ("kernel 5", lambda: k2.edge_transform_sorted(*fwd), plain5, abs_err),
+                ("kernel 5, one TF32 pass",
+                 lambda: k2.edge_transform_sorted(*fwd, precision="default"),
+                 plain5, abs_err),
+                ("kernel 5, bf16", lambda: k2.edge_transform_sorted(*fwd_h),
+                 k2.edge_transform_sorted_plain(*fwd_h), bf16_err),
             ],
             "edge_transform_bwd": [
                 ("kernel 3", lambda: k3.edge_transform_combined_bwd(*bwd),
@@ -268,8 +282,11 @@ def main(argv: list[str]) -> int:
                  plain3, scaled_err),
             ],
             "segment_outer": [
-                ("kernel 6", lambda: k6.segment_outer(*outer),
-                 k6.segment_outer_plain(*outer), scaled_err),
+                ("kernel 6", lambda: k6.segment_outer(*outer), plain6, scaled_err),
+                ("kernel 6, one TF32 pass",
+                 lambda: k6.segment_outer(*outer, precision="default"), plain6, scaled_err),
+                ("kernel 6, bf16", lambda: k6.segment_outer(*outer_h),
+                 k6.segment_outer_plain(*outer_h), scaled_err),
             ],
         }
         # The library compositions of kernels 3 and 6: bmm per tile, then
@@ -317,6 +334,7 @@ def main(argv: list[str]) -> int:
             if restore is not None:
                 mod.RUN_TILES = restore
         del xs, xd, g_out, wm, ws, bias, fwd, bwd, outer, kernels_of, plain2, plain3
+        del fwd_h, outer_h, plain5, plain6
         torch.cuda.empty_cache()
     return 0
 

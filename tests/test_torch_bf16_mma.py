@@ -2,8 +2,8 @@
 
 ``csrc/bf16_mma.cuh`` loads the A and B fragments of ``mma.m16n8k16`` from
 row-major shared-memory tiles with ``ldmatrix`` (plain, or ``.trans`` where
-the tile holds the operand's transpose), and kernels 2 and 3's bf16 forms
-walk their tiles with those loads. Without a card they cannot run, so
+the tile holds the operand's transpose), and the bf16 forms of kernels 2
+and 5 (one body), 3 and 6 walk their tiles with those loads. Without a card they cannot run, so
 these tests emulate ``ldmatrix.x4`` and ``mma.m16n8k16`` as the PTX ISA
 defines them, lane by lane, drive them with the kernels' own address
 arithmetic, and hold every warp's accumulators, read back through the
@@ -166,3 +166,34 @@ def test_kernel_3_fragments_give_dx_and_dw(dout):
         dw[b] = np.where(np.isnan(part), dw[b], part)
     for b in range(2):
         np.testing.assert_allclose(dw[b], x[b].T @ g, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("dout", [64, 128])
+def test_kernel_6_fragments_give_dw(dout):
+    # One 64-row chunk, one 64-column d_in slab and one d_out slab of a
+    # ring stage [X | G]: dW = Xᵀ g with A = Xᵀ staged as X [rows][c]
+    # (ldmatrix.trans) and B = g [rows][o] (ldmatrix.trans); 2 x 2 warps of
+    # 32 d_in rows x dout / 2 columns.
+    rng = np.random.default_rng(dout + 1)
+    bm, cs = 64, 64
+    kxh, kgh = cs + 8, dout + 8
+    x, g = rng.standard_normal((bm, cs)), rng.standard_normal((bm, dout))
+    stage = np.concatenate([_tile(x, kxh), _tile(g, kgh)])
+    g0 = bm * kxh  # G follows X in the stage
+    nw = dout // 16
+    got = np.full((cs, dout), np.nan)
+    for warp in range(4):
+        wm, wn = warp // 2, warp % 2
+        cb, nb = wm * 32, wn * nw * 8
+        acc = np.zeros((2, nw, 32, 4))
+        for kb in range(0, bm, 16):
+            af = [_load_a_trans(stage, kb * kxh + cb + i * 16, kxh) for i in range(2)]
+            for q in range(nw // 2):
+                bf = _load_b2_trans(stage, g0 + kb * kgh + nb + q * 16, kgh)
+                for i in range(2):
+                    _mma(acc[i, 2 * q], af[i], bf[0])
+                    _mma(acc[i, 2 * q + 1], af[i], bf[1])
+        part = _stored(acc, lambda i, r: cb + i * 16 + r, lambda j, c: nb + j * 8 + c,
+                       (cs, dout))
+        got = np.where(np.isnan(part), got, part)
+    np.testing.assert_allclose(got, x.T @ g, rtol=0, atol=1e-12)

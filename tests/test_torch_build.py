@@ -1,10 +1,13 @@
 """The kernel builder names each library by its source and the shared headers.
 
 No nvcc and no card: these check the names and the command line only, on a
-copy of ``csrc/``.
+copy of ``csrc/``, and that every C entry a wrapper binds is one its source
+defines.
 """
 
+import re
 import shutil
+from pathlib import Path
 
 import pytest
 
@@ -59,3 +62,31 @@ def test_nvcc_gets_the_source_directory_for_its_includes(sources, monkeypatch):
     assert cmd[cmd.index("-I") + 1] == str(sources)
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert lib == build._library_path("edge_transform_bwd") and tmp.parent == lib.parent
+
+
+def _entries(cu: Path) -> set:
+    return set(re.findall(r'extern "C" int (ghf_\w+)\(', cu.read_text()))
+
+
+def test_every_entry_a_wrapper_binds_is_defined_in_its_source():
+    # Each wrapper module loads one source (load("<name>")); the names it
+    # reads off the library (lib.ghf_..., or the entry tables of kernels 1
+    # and 7) must be that source's extern "C" functions, and each of those
+    # is bound. The tune script binds a subset of the same names.
+    wrappers = Path(build.__file__).parent
+    defined = set()
+    for name in kernels.KERNEL_SOURCES:
+        entries = _entries(build.SOURCE_DIR / f"{name}.cu")
+        defined |= entries
+        bound = set()
+        for py in wrappers.glob("*.py"):
+            text = py.read_text()
+            if f'load("{name}")' in text:
+                bound |= set(re.findall(r"(?:lib\.|\")(ghf_\w+)", text))
+        assert bound == entries, (name, sorted(bound ^ entries))
+    assert "ghf_edge_transform_two_bf16" in defined and "ghf_segment_outer_bf16" in defined
+    assert "ghf_dual_csr_segment_sum_bf16" in defined
+    assert {"ghf_csr_segment_sum_fast", "ghf_dual_csr_segment_sum_fast"} <= defined
+    tune = (Path(build.__file__).parents[3] / "scripts" / "tune_edge_kernels.py").read_text()
+    listed = re.search(r"C_FUNCTIONS = \(([^)]*)\)", tune).group(1)
+    assert set(re.findall(r"ghf_\w+", listed)) <= defined

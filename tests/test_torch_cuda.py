@@ -492,7 +492,7 @@ def test_csr_kernel_bf16_form_matches_plain_and_is_deterministic(dev, d, skew):
     kernels.reset_launch_counts()
     a, b = csr_segment_sum(xt, st, 300), csr_segment_sum(xt, st, 300)
     torch.cuda.synchronize()
-    assert csr_segment_sum.launches_by_form == {"f32": 0, "tf32": 0, "bf16": 2}
+    assert csr_segment_sum.launches_by_form == {"f32": 0, "tf32": 0, "bf16": 2, "fast": 0}
     assert a.dtype == torch.float32 and torch.equal(a, b), "two runs differ"
     _check_sums(a, xt.float().cpu().numpy(), splits, 300)
     assert not a[-3:].any()
@@ -541,13 +541,24 @@ def test_edge_transform_bwd_kernel_bf16_form_matches_plain(dev, d_in, d_out, tai
 
 
 def test_bf16_forms_refuse_mixed_dtypes_and_kernel_5(dev):
+    # Kernels 2 and 5 (which takes bf16 since kernel 5's bf16 form), 6 and 7
+    # take one dtype across their data operands and refuse a mix.
     args = [torch.from_numpy(a).to(dev) for a in edge_case(26, 16, 0)]
     mixed = [a.bfloat16() if i in (0, 1) else a for i, a in enumerate(args)]
+    for fn in (edge_transform_sorted_combined, kernels.edge_transform_sorted):
+        with pytest.raises(TypeError, match="dtype"):
+            fn(*mixed)
     with pytest.raises(TypeError, match="dtype"):
-        edge_transform_sorted_combined(*mixed)
+        segment_outer(args[0].bfloat16(), args[1], args[2], 8)
+    splits = torch.tensor([0, 2, 4], dtype=torch.int32, device=dev)
+    x = torch.zeros(4, 8, device=dev)
+    with pytest.raises(TypeError, match="dtype"):
+        dual_sorted_segment_sum(x.bfloat16(), x, 2, splits, splits)
     bf16 = [a.bfloat16() if a.is_floating_point() else a for a in args]
-    with pytest.raises(TypeError, match="float32"):
-        kernels.edge_transform_sorted(*bf16)
+    kernels.reset_launch_counts()
+    msg, selfc = kernels.edge_transform_sorted(*bf16)
+    assert msg.dtype == selfc.dtype == torch.bfloat16
+    assert kernels.edge_transform_sorted.launches_by_form["bf16"] == 1
 
 
 @pytest.mark.parametrize("d_in,d_out", [(64, 64), (128, 128), (40, 72)])
@@ -595,9 +606,9 @@ def test_speed_mode_training_step_on_the_card_matches_the_cpu(dev, mode):
             # Per layer kernel 1 in the tail, the two gather cotangents and
             # dbias (bf16 rows in speed mode) and kernel 3's f32 partials;
             # 2 in the f32 loss backward.
-            k1 = {"f32": 12, "tf32": 0, "bf16": 0}
+            k1 = {"f32": 12, "tf32": 0, "bf16": 0, "fast": 0}
             if form == "bf16":
-                k1 = {"f32": 4, "tf32": 0, "bf16": 8}
+                k1 = {"f32": 4, "tf32": 0, "bf16": 8, "fast": 0}
             assert csr_segment_sum.launches_by_form == k1
             for fn in (edge_transform_sorted_combined, edge_transform_combined_bwd):
                 assert fn.launches_by_form[form] == fn.launches == 2
@@ -609,3 +620,146 @@ def test_speed_mode_training_step_on_the_card_matches_the_cpu(dev, mode):
     a = torch.cat([card[p] for p in sorted(cpu)])
     b = torch.cat([cpu[p] for p in sorted(cpu)])
     assert torch.nn.functional.cosine_similarity(a, b, dim=0).item() > 0.999
+
+
+# ---------------------------------------------------------------------------
+# The last forms: kernels 5 and 6 in bf16 and in one TF32 pass (the
+# two-stream path in speed mode), kernel 7 on bf16 rows, mode="fast" of
+# kernels 1 and 7.
+# ---------------------------------------------------------------------------
+
+_TWO_WIDTHS = [(64, 64), (128, 128), (40, 72), (72, 40), (128, 64), (36, 30)]
+
+
+@pytest.mark.parametrize("d_in,d_out", _TWO_WIDTHS)
+@pytest.mark.parametrize("tail_cut", [0, 100])
+def test_edge_transform_sorted_kernel_bf16_form_matches_plain(dev, d_in, d_out, tail_cut):
+    # Kernel 5's bf16 form, both outputs; d_in and d_out free both ways (its
+    # backward's dx runs it transposed); 36 -> 30 takes the 2-byte copies.
+    args = [torch.from_numpy(a).to(dev) for a in run_case(28, d_in, d_out, tail_cut)]
+    args = [a.bfloat16() if a.is_floating_point() else a for a in args]
+    kernels.reset_launch_counts()
+    got = kernels.edge_transform_sorted(*args)
+    torch.cuda.synchronize()
+    assert kernels.edge_transform_sorted.launches_by_form["bf16"] == 1
+    for name, a, w in zip(("msg", "selfc"), got, kernels.edge_transform_sorted_plain(*args)):
+        assert a.dtype == torch.bfloat16, name
+        _within_ulp(a.cpu(), w.cpu(), name)
+
+
+@pytest.mark.parametrize("d_in,d_out", [(64, 64), (128, 128), (40, 72), (36, 30), (32, 200)])
+@pytest.mark.parametrize("tail_cut", [0, 100])
+def test_segment_outer_kernel_bf16_form_matches_plain(dev, d_in, d_out, tail_cut):
+    # Kernel 6's bf16 form over runs of tiles: f32 dW within the f32 gate,
+    # bitwise deterministic, exactly 0 for relations without rows; 36 -> 30
+    # takes the 2-byte copies, d_out = 200 two column slabs.
+    xs, _, rel, *_ = (torch.from_numpy(a).to(dev) for a in run_case(29, d_in, d_out, tail_cut))
+    g = torch.randn((xs.shape[0], d_out), generator=torch.Generator().manual_seed(9))
+    xs, g = xs.bfloat16(), g.to(dev).bfloat16()
+    kernels.reset_launch_counts()
+    got, again = segment_outer(xs, g, rel, 8), segment_outer(xs, g, rel, 8)
+    torch.cuda.synchronize()
+    assert segment_outer.launches_by_form["bf16"] == 2
+    assert csr_segment_sum.launches_by_form["f32"] == 2  # the f32 run partials
+    assert got.dtype == torch.float32 and torch.equal(got, again), "two runs differ"
+    assert not got[[4, 6, 7]].any(), "relations without rows must be exactly zero"
+    _close_scaled(got.cpu(), segment_outer_plain(xs, g, rel, 8).cpu(), "dW")
+
+
+@pytest.mark.parametrize("d_in,d_out", [(64, 64), (128, 128), (40, 72)])
+def test_two_stream_one_tf32_pass_modes_are_bf16_class(dev, d_in, d_out):
+    # precision="default": kernels 5 and 6 in one TF32 pass, held against a
+    # float64 reference after dividing by max(1, max|reference|).
+    xs, xd, rel, wm, ws, b = (torch.from_numpy(a).to(dev)
+                              for a in run_case(30, d_in, d_out, 100))
+    g = torch.randn((xs.shape[0], d_out), generator=torch.Generator().manual_seed(10)).to(dev)
+    kernels.reset_launch_counts()
+    errs5 = _errors_against_float64(
+        lambda *a: kernels.edge_transform_sorted(*a, precision="default"),
+        kernels.edge_transform_sorted_plain, (xs, xd, rel, wm, ws, b), scaled=(0, 1))
+    [(err6, _)] = _errors_against_float64(
+        lambda *a: segment_outer(*a, precision="default"),
+        segment_outer_plain, (xs, g, rel, 8), scaled=(0,))
+    assert kernels.edge_transform_sorted.launches_by_form["tf32"] == 1
+    assert segment_outer.launches_by_form["tf32"] == 1
+    for name, err in (("msg", errs5[0][0]), ("selfc", errs5[1][0]), ("dW", err6)):
+        assert 1e-6 < err < ONE_PASS_SCALED, (name, err)  # one pass, bf16-class
+
+
+@pytest.mark.parametrize("kernel,form", [("K1", "fast"), ("K7", "bf16"), ("K7", "fast")])
+@pytest.mark.parametrize("d", [3, 64, 128])
+def test_segment_sum_kernel_forms_match_plain_and_are_deterministic(dev, kernel, form, d):
+    # The rows each form sums: bf16 rows, or f32 rows rounded to bf16 as
+    # they are read (mode="fast"), summed in f32; d=3 takes the one-element
+    # loads.
+    xa, _, sa = segment_case(32, 5000, 300, d, True)
+    xb, _, sb = segment_case(33, 5000, 300, d, False)
+    mode = "fast" if form == "fast" else "exact"
+    t = [torch.from_numpy(a).to(dev) for a in (xa, xb, sa, sb)]
+    if form == "bf16":
+        t[:2] = [a.bfloat16() for a in t[:2]]
+    kernels.reset_launch_counts()
+    if kernel == "K1":
+        got, again = [csr_segment_sum(t[0], t[2], 300, mode=mode) for _ in range(2)]
+        got, again = [got], [again]
+    else:
+        got = dual_sorted_segment_sum(*t[:2], 300, *t[2:], mode=mode)
+        again = dual_sorted_segment_sum(*t[:2], 300, *t[2:], mode=mode)
+    torch.cuda.synchronize()
+    fn = csr_segment_sum if kernel == "K1" else dual_sorted_segment_sum
+    assert fn.launches_by_form[form] == fn.launches == 2
+    for a, b, x, splits in zip(got, again, (xa, xb), (sa, sb)):
+        assert a.dtype == torch.float32 and torch.equal(a, b), "two runs differ"
+        _check_sums(a, torch.from_numpy(x).bfloat16().float().numpy(), splits, 300)
+        assert not a[-3:].any()
+
+
+@pytest.mark.parametrize("mode", ["bf16", "default"])
+def test_two_stream_layer_forms_on_the_card_match_the_cuda_backend(dev, mode):
+    # The two-stream path in speed mode (bf16 h, banks and bias, cast from
+    # the f32 leaves as the cuda backend's compute_dtype casts them) or in
+    # one TF32 pass, against the cuda backend's layer: in speed mode in the
+    # same form (the oracle gates: 1e-2 scaled, gradient cosine > 0.999),
+    # in one pass against its f32 layer (4e-3 scaled).
+    speed = mode == "bf16"
+    runs = []
+    for two_stream in (True, False):
+        leaves, (src, dst, rel, mask), plan, r = _toy_layer_inputs(dev, _PADDED)
+        kernels.reset_launch_counts()
+        if two_stream:
+            h, wm, ws, b = (t.bfloat16() for t in leaves) if speed else leaves
+            msg, selfc = kernels.edge_contributions_cuda_sorted(
+                h, src, dst, rel, wm, ws, b, sort_plan=plan,
+                precision="highest" if speed else "default")
+            out = two_stream_tail(msg, selfc, dst, h.shape[0], edge_mask=mask,
+                                  sort_plan=plan)
+        else:
+            out = relational_message_passing(
+                *leaves[:1], src, dst, rel, *leaves[1:], edge_mask=mask, backend="cuda",
+                rel_sorted=True, group_padded=True, sort_plan=plan,
+                compute_dtype="bfloat16" if speed else None)
+        (out * r).sum().backward()
+        torch.cuda.synchronize()
+        if two_stream:
+            form = "bf16" if speed else "tf32"
+            assert kernels.edge_transform_sorted.launches_by_form[form] == 2
+            assert segment_outer.launches_by_form[form] == 2
+            # Kernel 1: the tail, dbias and the two gather cotangents over
+            # the streams' rows, kernel 6's two f32 run reductions.
+            k1 = {"f32": 2, "tf32": 0, "bf16": 4, "fast": 0} if speed else \
+                {"f32": 6, "tf32": 0, "bf16": 0, "fast": 0}
+            assert csr_segment_sum.launches_by_form == k1
+            assert out.dtype == torch.float32
+        runs.append((out.detach().cpu(), [t.grad.cpu() for t in leaves]))
+    (out, grads), (ref, ref_grads) = runs
+    atol = 1e-2 if speed else ONE_PASS_SCALED
+    scale = max(1.0, ref.abs().max().item())
+    assert (out - ref).abs().max().item() <= atol * scale
+    if speed:
+        a = torch.cat([t.double().flatten() for t in grads])
+        b = torch.cat([t.double().flatten() for t in ref_grads])
+        assert torch.nn.functional.cosine_similarity(a, b, dim=0).item() > 0.999
+    else:
+        for name, a, w in zip(("h", "w_msg", "w_self", "bias"), grads, ref_grads):
+            scale = max(1.0, w.abs().max().item())
+            assert (a - w).abs().max().item() <= ONE_PASS_SCALED * scale, name
