@@ -129,6 +129,10 @@ from graph_hypernetwork_forge_tpu_torch.models.hypergnn import (  # noqa: E402
 from graph_hypernetwork_forge_tpu_torch.ops import cuda as kernels  # noqa: E402
 from graph_hypernetwork_forge_tpu_torch.ops.cuda import build  # noqa: E402
 from graph_hypernetwork_forge_tpu_torch.ops.cuda._common import FORMS  # noqa: E402
+from graph_hypernetwork_forge_tpu_torch.ops.cuda.edge_transform_bwd import (  # noqa: E402
+    plan_runs,
+    run_bounds,
+)
 from graph_hypernetwork_forge_tpu_torch.ops.message_passing import (  # noqa: E402
     relational_message_passing,
     resolve_backend,
@@ -244,12 +248,13 @@ KERNELS = {
 }
 
 # Launches of each kernel per training step, counted from the code: kernel
-# 2 once per layer; kernel 3 once per layer (edge transform backward);
-# kernel 1 per layer once in the forward's aggregation tail and four times
-# in the backward (the h[src] and h[dst] cotangents, dbias, kernel 3's dW
-# partials), plus twice in the loss backward (src- and dst-sorted streams).
+# 2 once per layer; kernel 3 once per layer (edge transform backward, its
+# dW reduced inside the kernel over the SortPlan's run table); kernel 1 per
+# layer once in the forward's aggregation tail and three times in the
+# backward (the h[src] and h[dst] cotangents, dbias), plus twice in the
+# loss backward (src- and dst-sorted streams).
 STEP_LAUNCHES = {
-    "csr_segment_sum": LAYERS * 5 + 2,
+    "csr_segment_sum": LAYERS * 4 + 2,
     "edge_transform_sorted_combined": LAYERS,
     "edge_transform_combined_bwd": LAYERS,
     "edge_transform_sorted": 0,
@@ -262,11 +267,12 @@ FORWARD_LAUNCHES = {
     for name in STEP_LAUNCHES
 }
 # One two-stream layer, forward and backward: kernel 5 in the forward and
-# once more for dx; kernel 6 for dW_msg and dW_self; kernel 1 in the tail,
-# in each kernel 6 call, for dbias and for the h[src] and h[dst] cotangents.
+# once more for dx; kernel 6 for dW_msg and dW_self (each reducing its own
+# dW); kernel 1 in the tail, for dbias and for the h[src] and h[dst]
+# cotangents.
 TWO_STREAM_LAUNCHES = dict(
     {name: 0 for name in STEP_LAUNCHES},
-    csr_segment_sum=6, edge_transform_sorted=2, segment_outer=2,
+    csr_segment_sum=4, edge_transform_sorted=2, segment_outer=2,
 )
 # One forward and backward of the model on the grouped backend with a sort
 # plan: per layer kernel 1 in the tail and for the h[src], h[dst] and bias
@@ -278,13 +284,12 @@ GROUPED_TIMED = 3
 def two_stream_launches_by_form(form: str) -> dict:
     """Launches by form of one two-stream layer, forward and backward,
     counted from the code: kernels 5 and 6 twice each in the layer's form
-    (as TWO_STREAM_LAUNCHES); kernel 1 six times, in speed mode over bf16
-    rows for the tail, dbias and the two gather cotangents (4) and over f32
-    rows for kernel 6's two run reductions (2)."""
+    (as TWO_STREAM_LAUNCHES); kernel 1 four times, for the tail, dbias and
+    the two gather cotangents, in speed mode over bf16 rows."""
     out = {name: dict.fromkeys(FORMS, 0) for name in KERNELS}
     out["edge_transform_sorted"][form] = out["segment_outer"][form] = 2
     if form == "bf16":
-        out["csr_segment_sum"].update(bf16=4, f32=2)
+        out["csr_segment_sum"]["bf16"] = TWO_STREAM_LAUNCHES["csr_segment_sum"]
     else:
         out["csr_segment_sum"]["f32"] = TWO_STREAM_LAUNCHES["csr_segment_sum"]
     return out
@@ -301,12 +306,11 @@ def step_launches_by_form(mode: dict) -> dict:
     """Launches per training step by form, counted from the code: kernels
     2 and 3 once a layer in the mode's form. Kernel 1 as in STEP_LAUNCHES;
     in speed mode its rows are bf16 in the forward tail, the h[src] and
-    h[dst] cotangents and dbias (4 a layer), and f32 for kernel 3's run
-    partials (1 a layer) and in the f32 loss (2)."""
+    h[dst] cotangents and dbias (4 a layer), and f32 in the f32 loss (2)."""
     out = {name: dict.fromkeys(FORMS, 0) for name in KERNELS}
     form = mode_form(mode)
     if form == "bf16":
-        out["csr_segment_sum"].update(bf16=4 * LAYERS, f32=LAYERS + 2)
+        out["csr_segment_sum"].update(bf16=4 * LAYERS, f32=2)
     else:
         out["csr_segment_sum"]["f32"] = STEP_LAUNCHES["csr_segment_sum"]
     out["edge_transform_sorted_combined"][form] = LAYERS
@@ -421,6 +425,25 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def kernel_ms(fn, kernel: str, calls: int = 5) -> float:
+    """Device milliseconds per call of the kernel named ``kernel`` (its
+    template instance, any arguments) over ``calls`` warm calls of ``fn``,
+    by torch.profiler: the kernel's own time, without the wrapper's host
+    work and allocations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if f"{kernel}<" in e.key and e.device_type != torch.autograd.DeviceType.CPU)
+    check(us > 0, f"torch.profiler recorded no time of {kernel}")
+    return us / 1e3 / calls
 
 
 def scaled_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -541,6 +564,19 @@ def phase_kernels(dev, g) -> dict:
     # The bounds count what the kernels need of this data: one relation id
     # per 256-row tile and the banks of the visited relations only.
     u_vis = len(visited)
+    # The run table of kernels 3 and 6: the SortPlan's, built on the host
+    # once per layout (what the main path hands down), and the run-table
+    # kernel's, which the wrappers launch where no plan is given, both
+    # equal to run_bounds. The wrappers are timed both ways below.
+    k3_runs = k6_runs = plan_runs(plan)
+    want = run_bounds(rel, u_pad, k3_runs.run_tiles)[:2]
+    built = kernels.run_table(rel, u_pad, k3_runs.run_tiles)
+    check(all(torch.equal(a, b) for a, b in zip(
+              (k3_runs.tile_splits, k3_runs.run_splits, built.tile_splits,
+               built.run_splits), want + want)),
+          "the run tables differ from run_bounds")
+    log(f"run table of {k3_runs.run_tiles}-tile runs: {int(want[1][-1])} runs, "
+        f"the longest relation {int(want[1].diff().max())} runs")
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
     for d in (64, 128):
@@ -605,8 +641,10 @@ def phase_kernels(dev, g) -> dict:
         del args, out, plain, w_cat, b_tile
 
         # Kernel 3, the backward of kernel 2, on the same rows and banks with
-        # a random cotangent. Its wrapper launches kernel 3 and then kernel
-        # 1 over the run dW partials; its time is the whole wrapper's.
+        # a random cotangent; it reduces its dW itself. ms: the wrapper as
+        # called without a run table (one launch of the run-table kernel
+        # first); ms_plan_table: with the SortPlan's, as the main path calls
+        # it; kernel_ms: kernel 3 alone, profiled.
         g_out = torch.randn(e_rows, d, device=dev, generator=gen)
         args = (g_out, xs, xd, rel, wm, ws)
         fn = kernels.edge_transform_combined_bwd
@@ -643,6 +681,9 @@ def phase_kernels(dev, g) -> dict:
             f64_err=max(k for k, _ in f64), plain_f64_err=max(p for _, p in f64),
             checked_f64=f64,
             ms=cuda_ms(lambda: fn(*args)),
+            ms_plan_table=cuda_ms(lambda: fn(*args, runs=k3_runs)),
+            kernel_ms=kernel_ms(lambda: fn(*args, runs=k3_runs),
+                                "edge_transform_bwd_kernel"),
             plain_ms=cuda_ms(
                 lambda: kernels.edge_transform_combined_bwd_plain(*args)
             ),
@@ -680,10 +721,9 @@ def phase_kernels(dev, g) -> dict:
         del args, out, plain, wm_t, ws_t, b_tile
 
         # Kernel 6, the segment outer product, of x_src against kernel 3's
-        # cotangent. Its wrapper launches kernel 6 and then kernel 1 over
-        # the run partials; its time is the whole wrapper's. Library: one
-        # bmm of the xᵀ tiles against the g tiles and index_add_ of the tile
-        # partials into their relations; bmm_ms the bmm alone.
+        # cotangent; it reduces its dW itself (times as kernel 3's). Library:
+        # one bmm of the xᵀ tiles against the g tiles and index_add_ of the
+        # tile partials into their relations; bmm_ms the bmm alone.
         args = (xs, g_out, rel, u_pad)
         fn = kernels.segment_outer
         out = fn(*args)
@@ -705,6 +745,8 @@ def phase_kernels(dev, g) -> dict:
             max_abs_err=(out - plain).abs().max().item(), dw_scaled_err=err,
             checked=[err], f64_err=f64[0], plain_f64_err=f64[1], checked_f64=[f64],
             ms=cuda_ms(lambda: fn(*args)),
+            ms_plan_table=cuda_ms(lambda: fn(*args, runs=k6_runs)),
+            kernel_ms=kernel_ms(lambda: fn(*args, runs=k6_runs), "segment_outer_kernel"),
             plain_ms=cuda_ms(lambda: kernels.segment_outer_plain(*args)),
             library_ms=cuda_ms(k6_library),
             bmm_ms=cuda_ms(lambda: torch.bmm(xs_tt, g_tiles)),
@@ -758,7 +800,8 @@ def phase_kernels(dev, g) -> dict:
                 if "cuda_core_bound_ms" in r else "")
         bmm = f" (bmm alone {r['bmm_ms']:.4f})" if "bmm_ms" in r else ""
         log(f"kernel {name} d={d}: max_abs_err {r['max_abs_err']:.3e}{dw} "
-            f"(tol {KERNEL_ATOL}){f64} | ms {r['ms']:.4f} bound {r['bound_ms']:.4f} "
+            f"(tol {KERNEL_ATOL}){f64} | ms {r['ms']:.4f}{own_times(r)} "
+            f"bound {r['bound_ms']:.4f} "
             f"({r['bound_by']}){core} plain {r['plain_ms']:.4f} "
             f"library {r['library_ms']:.4f}{bmm}")
         # A dW sums thousands of products: it is held after scaling.
@@ -769,6 +812,15 @@ def phase_kernels(dev, g) -> dict:
               f"{name} d={d}: float64 error over twice the plain version's "
               f"{r.get('checked_f64')}")
     return results
+
+
+def own_times(r: dict) -> str:
+    """The wrapper's time with the SortPlan's run table and the kernel's
+    own, for the log, where they were taken."""
+    if "kernel_ms" not in r:
+        return ""
+    return (f" (with the plan's run table {r['ms_plan_table']:.4f}, kernel alone "
+            f"{r['kernel_ms']:.4f})")
 
 
 def _tf32_library_ms(fn) -> float:
@@ -799,6 +851,7 @@ def phase_kernel_forms(dev, g) -> dict:
     rows_a = int(g.sort_plan.src_splits[n] - g.sort_plan.src_splits[0])
     pad_src_sorted = torch.as_tensor(g.edge_mask[g.sort_plan.src_perm] == 0, device=dev)
     bf16 = torch.bfloat16
+    k3_runs = k6_runs = plan_runs(plan)
     gen = torch.Generator(device=dev).manual_seed(1)
     results = {}
     for d in (64, 128):
@@ -858,10 +911,10 @@ def phase_kernel_forms(dev, g) -> dict:
         )
         del out, plain, w_cat, b_tile
 
-        # Kernel 3's bf16 form: dx in bf16 within one ulp, dW f32 (kernel
-        # 1's f32 form over the run partials) within the f32 gate.
-        # Library: bmm in bf16 per tile and index_add_ of the tile partials
-        # (rounded to bf16 per tile) into their relations.
+        # Kernel 3's bf16 form: dx in bf16 within one ulp, dW f32 (summed
+        # over the runs inside the kernel) within the f32 gate. Library: bmm
+        # in bf16 per tile and index_add_ of the tile partials (rounded to
+        # bf16 per tile) into their relations.
         fn, plain_fn = (kernels.edge_transform_combined_bwd,
                         kernels.edge_transform_combined_bwd_plain)
         out, again, plain = fn(*bwd), fn(*bwd), plain_fn(*bwd)
@@ -890,7 +943,11 @@ def phase_kernel_forms(dev, g) -> dict:
                             for a, b in zip(out[:2], plain[:2])),
             tol=BF16_ULP * max(b.float().abs().max().item() for b in plain[:2]),
             dw_scaled_err=max(scaled_err(a, b) for a, b in zip(out[2:], plain[2:])),
-            ms=cuda_ms(lambda: fn(*bwd)), plain_ms=cuda_ms(lambda: plain_fn(*bwd)),
+            ms=cuda_ms(lambda: fn(*bwd)),
+            ms_plan_table=cuda_ms(lambda: fn(*bwd, runs=k3_runs)),
+            kernel_ms=kernel_ms(lambda: fn(*bwd, runs=k3_runs),
+                                "edge_transform_bwd_bf16_kernel"),
+            plain_ms=cuda_ms(lambda: plain_fn(*bwd)),
             library_ms=cuda_ms(k3_library), bound_ms=b_ms, bound_by=b_by,
         )
         del out, again, plain, w_t, x_t, x_cat, k3_library
@@ -920,7 +977,7 @@ def phase_kernel_forms(dev, g) -> dict:
         del out, plain, xs_t, xd_t, wm_t, ws_t, b_tile
 
         # Kernel 6's bf16 form of x_src against the bf16 cotangent: f32 dW
-        # (kernel 1's f32 form over the run partials) within the f32 gate,
+        # (summed over the runs inside the kernel) within the f32 gate,
         # deterministic, 0 for unvisited relations. Library: bmm in bf16 per
         # tile and index_add_ of the tile partials into their relations.
         outer = (bwd[1], bwd[0], rel, u_pad)
@@ -944,7 +1001,11 @@ def phase_kernel_forms(dev, g) -> dict:
         results[("segment_outer", "bf16", d)] = dict(
             max_abs_err=(out - plain).abs().max().item(), tol=KERNEL_ATOL * scale,
             dw_scaled_err=scaled_err(out, plain),
-            ms=cuda_ms(lambda: fn(*outer)), plain_ms=cuda_ms(lambda: plain_fn(*outer)),
+            ms=cuda_ms(lambda: fn(*outer)),
+            ms_plan_table=cuda_ms(lambda: fn(*outer, runs=k6_runs)),
+            kernel_ms=kernel_ms(lambda: fn(*outer, runs=k6_runs),
+                                "segment_outer_bf16_kernel"),
+            plain_ms=cuda_ms(lambda: plain_fn(*outer)),
             library_ms=cuda_ms(k6_library), bound_ms=b_ms, bound_by=b_by,
         )
         del out, again, plain, x_tt, g_tiles, k6_library, outer, fwd, bwd
@@ -989,8 +1050,8 @@ def phase_kernel_forms(dev, g) -> dict:
         ):
             fn = getattr(kernels, kname)
 
-            def one_pass(*a, fn=fn):
-                return fn(*a, precision="default")
+            def one_pass(*a, fn=fn, **kw):
+                return fn(*a, precision="default", **kw)
 
             out, plain = one_pass(*args), plain_fn(*args)
             if kname == "segment_outer":
@@ -1002,9 +1063,17 @@ def phase_kernel_forms(dev, g) -> dict:
             del out, plain
             f64 = float64_errors(one_pass, plain_fn, args, scaled=tuple(range(nout)))
             b_ms, b_by = bound(nbytes, flops, rate=TF32_FLOP_PER_S)
+            own = {}
+            if kname in ("edge_transform_combined_bwd", "segment_outer"):
+                table, kernel = ((k3_runs, "edge_transform_bwd_kernel")
+                                 if kname == "edge_transform_combined_bwd"
+                                 else (k6_runs, "segment_outer_kernel"))
+                own = dict(
+                    ms_plan_table=cuda_ms(lambda: one_pass(*args, runs=table)),
+                    kernel_ms=kernel_ms(lambda: one_pass(*args, runs=table), kernel))
             results[(kname, "tf32", d)] = dict(
                 max_abs_err=err, f64_scaled_err=max(k for k, _ in f64),
-                plain_f64_scaled_err=max(p for _, p in f64),
+                plain_f64_scaled_err=max(p for _, p in f64), **own,
                 ms=cuda_ms(lambda: one_pass(*args)),
                 plain_ms=cuda_ms(lambda: plain_fn(*args)),
                 library_ms=_tf32_library_ms(lib), bound_ms=b_ms, bound_by=b_by,
@@ -1071,6 +1140,52 @@ def phase_kernel_forms(dev, g) -> dict:
         del xa, xb
         torch.cuda.empty_cache()
 
+    # Kernel 3's bf16 form at d_in = 64, d_out = 192: two 128-column slabs,
+    # dx's f32 sums kept across them and rounded once; against its plain
+    # version as at d=64 and 128.
+    d_in, d_out = 64, 192
+    g_out = torch.randn(e_rows, d_out, device=dev, generator=gen).to(bf16)
+    xs, xd = (torch.randn(e_rows, d_in, device=dev, generator=gen).to(bf16)
+              for _ in range(2))
+    wm, ws = ((torch.randn(u_pad, d_in, d_out, device=dev, generator=gen) / d_in**0.5)
+              .to(bf16) for _ in range(2))
+    bwd = (g_out, xs, xd, rel, wm, ws)
+    fn, plain_fn = (kernels.edge_transform_combined_bwd,
+                    kernels.edge_transform_combined_bwd_plain)
+    out, again, plain = fn(*bwd), fn(*bwd), plain_fn(*bwd)
+    torch.cuda.synchronize()
+    name = "edge_transform_combined_bwd[bf16]"
+    check(all(torch.equal(a, b) for a, b in zip(out, again)),
+          f"{name} d_out={d_out}: two runs differ")
+    check(not any(dw[unvisited].any() for dw in out[2:]),
+          f"{name} d_out={d_out}: dW of the unvisited relations is not exactly 0")
+    g_tiles = g_out.view(tiles, 256, d_out)
+    w_t = torch.cat([wm, ws], dim=1)[tile_rel].transpose(1, 2).contiguous()
+    x_t = torch.cat([xs, xd], dim=1).view(tiles, 256, 2 * d_in).transpose(1, 2)
+
+    def k3_library_192():
+        dw = torch.zeros(u_pad, 2 * d_in, d_out, device=dev)
+        return (torch.bmm(g_tiles, w_t),
+                dw.index_add_(0, tile_rel, torch.bmm(x_t, g_tiles).float()))
+
+    b_ms, b_by = bound((e_rows * d_out + 4 * e_rows * d_in + 2 * u_vis * d_in * d_out) * 2
+                       + tiles * 4 + 2 * u_pad * d_in * d_out * 4,
+                       8 * e_rows * d_in * d_out, rate=BF16_FLOP_PER_S)
+    results[("edge_transform_combined_bwd", "bf16", d_out)] = dict(
+        max_abs_err=max((a.float() - b.float()).abs().max().item()
+                        for a, b in zip(out[:2], plain[:2])),
+        tol=BF16_ULP * max(b.float().abs().max().item() for b in plain[:2]),
+        dw_scaled_err=max(scaled_err(a, b) for a, b in zip(out[2:], plain[2:])),
+        ms=cuda_ms(lambda: fn(*bwd)),
+        ms_plan_table=cuda_ms(lambda: fn(*bwd, runs=k3_runs)),
+        kernel_ms=kernel_ms(lambda: fn(*bwd, runs=k3_runs),
+                            "edge_transform_bwd_bf16_kernel"),
+        plain_ms=cuda_ms(lambda: plain_fn(*bwd)),
+        library_ms=cuda_ms(k3_library_192), bound_ms=b_ms, bound_by=b_by,
+    )
+    del out, again, plain, bwd, g_out, xs, xd, wm, ws, g_tiles, w_t, x_t, k3_library_192
+    torch.cuda.empty_cache()
+
     for (name, form, d), r in results.items():
         extra = (f" dW scaled err {r['dw_scaled_err']:.3e} (tol {KERNEL_ATOL})"
                  if "dw_scaled_err" in r else "")
@@ -1082,9 +1197,10 @@ def phase_kernel_forms(dev, g) -> dict:
                     f"{r['max_abs_err']:.3e}")
         else:
             gate = f"max_abs_err {r['max_abs_err']:.3e} (tol {r['tol']:.3e})"
-        log(f"kernel {name}[{form}] d={d}: {gate}{extra} | ms {r['ms']:.4f} bound "
-            f"{r['bound_ms']:.4f} ({r['bound_by']}) plain {r['plain_ms']:.4f} "
-            f"library {r['library_ms']:.4f}")
+        width = f"d_in=64 d_out={d}" if d not in (64, 128) else f"d={d}"
+        log(f"kernel {name}[{form}] {width}: {gate}{extra} | ms {r['ms']:.4f}"
+            f"{own_times(r)} bound {r['bound_ms']:.4f} ({r['bound_by']}) plain "
+            f"{r['plain_ms']:.4f} library {r.get('library_ms', float('nan')):.4f}")
         ok = (r["f64_scaled_err"] <= ONE_PASS_SCALED if form == "tf32"
               else r["max_abs_err"] <= r["tol"])
         check(ok and r.get("dw_scaled_err", 0.0) <= KERNEL_ATOL,
@@ -1253,6 +1369,7 @@ def phase_training(dev, width: int = WIDTH, mode: dict | None = None) -> dict:
     log(f"training {name}: {ms_step:.3f} ms/step, {edges_s:,.0f} edges/s "
         f"({TRAIN_STEPS} steps, {XL_E:,} real edges of {graph.src.shape[0]:,} rows), "
         f"peak memory {peak_gb:.2f} GB")
+    tables = kernels.run_table.launches
     log(f"training {name} launches over {TRAIN_STEPS} steps: {launches}")
     log(f"training {name} launches by form: {by_form}")
     check(all(np.isfinite(losses)), f"training {name}: a loss is not finite")
@@ -1261,6 +1378,8 @@ def phase_training(dev, width: int = WIDTH, mode: dict | None = None) -> dict:
     want = {k: {f: v * TRAIN_STEPS for f, v in forms.items()}
             for k, forms in step_launches_by_form(mode).items()}
     check(by_form == want, f"training {name} launches by form {by_form} != {want}")
+    check(tables == 0, f"training {name}: {tables} run-table launches; the "
+          "SortPlan's run tables were not handed down to kernel 3")
     # Master parameters, their gradients and the loss stay f32 in every mode.
     check(warm.dtype == torch.float32
           and all(t.dtype == torch.float32 and t.grad.dtype == torch.float32
@@ -1485,6 +1604,9 @@ def phase_two_stream(dev, g, d: int) -> dict:
         out, grads = fwd_bwd(two_stream(mode))
         torch.cuda.synchronize()
         launches, by_form = launch_counts(), launch_counts_by_form()
+        check(kernels.run_table.launches == 0,
+              f"two-stream layer d={d} [{form}]: the SortPlan's run tables were not "
+              "handed down to kernel 6")
         ref, ref_grads = fwd_bwd(combined(mode))
         if form == "f32":
             f32_ref = (ref, ref_grads)
@@ -1677,9 +1799,9 @@ def main() -> int:
         log(f"chip_smoke.py: {len(FAILURES)} check(s) failed: {FAILURES}")
         return 1
     keys = ("max_abs_err", "dw_scaled_err", "f64_err", "plain_f64_err",
-            "f64_scaled_err", "plain_f64_scaled_err", "tol", "ms", "plain_ms",
-            "bound_ms", "bound_by", "cuda_core_bound_ms", "library_ms", "bmm_ms",
-            "err_vs_exact")
+            "f64_scaled_err", "plain_f64_scaled_err", "tol", "ms", "ms_plan_table",
+            "kernel_ms", "plain_ms", "bound_ms", "bound_by", "cuda_core_bound_ms",
+            "library_ms", "bmm_ms", "err_vs_exact")
 
     def numbers(r):
         return {key: r[key] for key in keys if key in r}
@@ -1721,6 +1843,8 @@ def main() -> int:
             name=f"{name}[{form}]", route="cuda", source=KERNELS[name]["source"],
             replaces=replaces, **form_launches(name, form),
             **numbers(forms[(name, form, 64)]), d128=numbers(forms[(name, form, 128)]),
+            **({"d_in64_d_out192": numbers(forms[(name, form, 192)])}
+               if (name, form, 192) in forms else {}),
         )
         for (name, form), replaces in FORM_REPLACES.items()
     ]}

@@ -1,8 +1,7 @@
 // Segment outer product, the weight gradient of the two-output transform
 // (sm_90a).
 //
-//   partial[q] = x[run q]^T g[run q]                ([d_in, d_out], f32)
-//   dW[u]      = sum of partial[q] over the runs q of relation u
+//   dW[u] = sum over e with r(e) = u of x[e]^T g[e]        ([d_in, d_out], f32)
 //   r(e) = rel_sorted[(e / 256) * 256]
 //
 // The edge rows come relation-sorted and group-padded, so every 256-row
@@ -11,20 +10,22 @@
 // `run_tiles` consecutive tiles of one relation: relation u's tiles
 // [tile_splits[u], tile_splits[u + 1]) in groups of run_tiles from the
 // first, the last group ragged, and its runs are run_splits[u] ..
-// run_splits[u + 1] - 1 (ops/cuda/edge_transform_bwd.py, run_bounds). The
-// wrapper sums each relation's run partials with the CSR segment-sum kernel
-// (segment_sum.cu) over run_splits, so a relation that no tile visits comes
-// out exactly zero, the result is bitwise the same from run to run, and
-// there are no float atomics.
+// run_splits[u + 1] - 1 (the run table of kernel 3, edge_transform_bwd.cu,
+// with its own run length). A relation's runs add their dW inside this
+// kernel: each run writes an f32 partial x[run]^T g[run] and the block that
+// finishes the relation's last run sums its partials in run order
+// (run_reduce.cuh): bitwise the same from launch to launch, no float
+// atomics, no second launch; a relation with one run writes dW directly,
+// and one that no tile visits comes out exactly zero.
 //
 // Replaces the TPU kernel _segment_outer_impl
 // (graph_hypernetwork_forge_tpu/ops/pallas/edge_transform.py:473, kernel
 // body :447-470), the dW half of edge_transform_sorted's backward. On the
 // TPU a relation's dW block stays in VMEM while the sequential grid walks
 // the relation's consecutive tiles. Here one block walks one run and keeps
-// its dW in registers; Hopper's blocks run in no order, so each run writes
-// its own partial and the second pass adds them. This is kernel 3's dW
-// half (edge_transform_bwd.cu) for one bank.
+// its dW in registers; Hopper's blocks run in no order, so the last of a
+// relation's runs to finish adds the partials, in run order. This is kernel
+// 3's dW half (edge_transform_bwd.cu) for one bank.
 //
 // The products run on the tensor cores in 3xTF32 (tf32x3.cuh), f32-class at
 // three TF32 passes. What bounds it on the H100, at E=1.03M: the bytes of x
@@ -33,7 +34,7 @@
 // passes of which at 495 TFLOP/s take 0.05 / 0.21 ms; at the ~154 TFLOP/s
 // that kernel 3's products reach on mma.sync, 0.16 / 0.66 ms. The run
 // partials add 2,131 x d_in x d_out x 4 bytes (runs of 2 tiles: 35 MB at
-// d=64, 140 MB at d=128) written here and read by the reduction.
+// d=64, 140 MB at d=128) written and read back, mostly through L2.
 //
 // What the design does about it: a block owns one run, one slab of 64 d_in
 // columns and one slab of up to 128 d_out columns (d=128: two blocks per
@@ -46,16 +47,19 @@
 // as its fragment is read. Fragment k = tig and tig + 4 come from chunk
 // rows 2 tig and 2 tig + 1, and rows are padded to = 4 (mod 32) floats, so
 // both fragment loads are free of bank conflicts.
-// Measured on the H100 (scripts/tune_edge_kernels.py, xl): this kernel
-// alone takes 0.23-0.24 ms at d=64 and 0.74-0.75 ms at d=128, as long as
-// cuBLAS's bmm of the per-tile products; the reduction of the partials by
-// kernel 1 adds 0.07 / 0.14 ms. 64-row chunks, 2 stages, two blocks of 4
-// warps an SM: 153 registers at d_out <= 64, 254 at d_out <= 128, no
-// spills. No faster, within the 3% spread between calls: 3 stages, 32-row
-// chunks with 3 stages, 128-row chunks, one or three blocks an SM, 8 warps
-// (2 x 4), 128 d_in columns a block, dW in groups of 2 n-tiles, the k loop
-// not unrolled or unrolled by 4. Runs of 2 tiles (ops/cuda/segment_outer.py,
-// RUN_TILES).
+// Measured on the H100 (scripts/tune_edge_kernels.py, xl), before the
+// reduction moved inside: the kernel took 0.23-0.24 ms at d=64 and
+// 0.74-0.75 ms at d=128, as long as cuBLAS's bmm of the per-tile
+// products, and kernel 1's reduction of the partials 0.07 / 0.14 ms. With
+// the reduction inside, the wrapper takes 0.242 / 0.778 ms (runs of 2
+// tiles) and 0.249 / 0.765 (runs of 4); one TF32 pass 0.220 / 0.536 and
+// 0.217 / 0.490; bf16 0.131 / 0.325 and 0.120 / 0.281. 64-row chunks, 2
+// stages, two blocks of 4 warps an SM. No faster, within the 3% spread
+// between calls: 3 stages, 32-row chunks with 3 stages, 128-row chunks,
+// one or three blocks an SM, 8 warps (2 x 4), 128 d_in columns a block, dW
+// in groups of 2 n-tiles, the k loop not unrolled or unrolled by 4. Runs
+// of 4 tiles (data/encoding.py, RUN_TILES), as kernel 3's, so that one run
+// table serves both.
 //
 // precision="default" runs the body in one TF32 pass (kPasses = 1:
 // tf32x3::operand<1>, mma_tile<1, ...>), the Hopper form of the TPU
@@ -67,9 +71,9 @@
 // d_out slab of up to 128 a block, 64-row chunks through a 2-stage ring of
 // 16-byte cp.async copies of 8 bf16 (2-byte plain copies where a width or
 // pointer is not 16-byte aligned), dW in f32 registers over the run and one
-// f32 partial per run, summed by kernel 1's f32 form as above: bitwise
-// deterministic, exactly zero for unvisited relations (the wrapper's caller
-// casts dW to the bank's dtype once, JAX :596-600). Its product is kernel
+// f32 partial per run, summed in run order as above: bitwise deterministic,
+// exactly zero for unvisited relations (the wrapper's caller casts dW to
+// the bank's dtype once, JAX :596-600). Its product is kernel
 // 3's bf16 dW product (edge_transform_bwd.cu) for one bank: A = X^T, staged
 // as X [rows][d_in] and read with ldmatrix.trans, B = the g chunk [rows =
 // K][d_out] read with ldmatrix.trans, rows padded by 8 bf16. 2 x 2 warps of
@@ -83,6 +87,7 @@
 #include <type_traits>
 
 #include "bf16_mma.cuh"
+#include "run_reduce.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -99,6 +104,12 @@ constexpr int kMinBlocks = 2;   // blocks an SM (__launch_bounds__)
 
 static_assert(kWarpsM * 32 == CS, "the warps cover the d_in slab");
 
+// The counter of relation u's slab (d_in columns c0.., d_out slab blockIdx.y)
+// among num_rel * cslabs * gridDim.y.
+__device__ __forceinline__ int slot(int u, int c0, int cslabs) {
+  return (u * cslabs + c0 / CS) * gridDim.y + blockIdx.y;
+}
+
 // d_out slab (64 or 128): n-tiles a warp, shared-memory layout.
 template <int DOUT>
 struct Shape {
@@ -114,7 +125,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 segment_outer_kernel(const float* __restrict__ x, const float* __restrict__ g,
                      const int32_t* __restrict__ tile_splits,
                      const int32_t* __restrict__ run_splits,
-                     float* __restrict__ partial, int num_edges, int d_in,
+                     float* __restrict__ dw_out, float* __restrict__ partial,
+                     int* __restrict__ counters, int num_edges, int d_in,
                      int d_out, int num_rel, int run_tiles) {
   using S = Shape<DOUT>;
   constexpr int NW = S::NW, NG = S::NG, kGS = S::kGS, kStage = S::kStage;
@@ -124,13 +136,18 @@ segment_outer_kernel(const float* __restrict__ x, const float* __restrict__ g,
   const int run = blockIdx.x / cslabs;
   const int c0 = (blockIdx.x % cslabs) * CS;
   const int n0 = blockIdx.y * DOUT;
+  const int64_t plane = (int64_t)d_in * d_out;
+  if (run < num_rel && tile_splits[run] == tile_splits[run + 1])
+    runred::zero_slab<1, kThreads>(dw_out, dw_out, run * plane, c0, n0,
+                                   n0 + DOUT, d_in, d_out);  // no tile
   if (run >= run_splits[num_rel]) return;  // the grid is an upper bound
   int u = 0;  // the relation: run_splits[u] <= run < run_splits[u + 1]
   for (int hi = num_rel; hi - u > 1;) {
     const int mid = (u + hi) / 2;
     if (run_splits[mid] <= run) u = mid; else hi = mid;
   }
-  const int t0 = tile_splits[u] + (run - run_splits[u]) * run_tiles;
+  const int q0 = run_splits[u], runs = run_splits[u + 1] - q0;
+  const int t0 = tile_splits[u] + (run - q0) * run_tiles;
   const int t1 = min(t0 + run_tiles, tile_splits[u + 1]);
   const int64_t row_begin = (int64_t)t0 * kTileRows;
   const int64_t row_end = min((int64_t)t1 * kTileRows, (int64_t)num_edges);
@@ -233,8 +250,10 @@ segment_outer_kernel(const float* __restrict__ x, const float* __restrict__ g,
     }
   }
 
-  // This run's dW rows c0 + cb.., columns n0 + nb..
-  float* __restrict__ p = partial + (int64_t)run * d_in * d_out;
+  // This run's dW rows c0 + cb.., columns n0 + nb..: dW[u] itself when it
+  // is u's only run, else its partial.
+  const int64_t bank = (int64_t)u * plane;
+  float* __restrict__ p = runs == 1 ? dw_out + bank : partial + run * plane;
 #pragma unroll
   for (int q = 0; q < NW / NG; ++q)
 #pragma unroll
@@ -256,6 +275,10 @@ segment_outer_kernel(const float* __restrict__ x, const float* __restrict__ g,
           }
         }
       }
+  if (runs > 1 && runred::last_arriver(counters + slot(u, c0, cslabs), runs))
+    runred::sum_runs<1, DOUT, kThreads, kVec>(partial, q0, runs, dw_out,
+                                              dw_out, bank, c0, n0, d_in,
+                                              d_out);
 }
 
 // ---- The bf16 form: tensor cores, one bf16 pass --------------------------
@@ -279,7 +302,9 @@ segment_outer_bf16_kernel(const bf16* __restrict__ x,
                           const bf16* __restrict__ g,
                           const int32_t* __restrict__ tile_splits,
                           const int32_t* __restrict__ run_splits,
-                          float* __restrict__ partial, int num_edges, int d_in,
+                          float* __restrict__ dw_out,
+                          float* __restrict__ partial,
+                          int* __restrict__ counters, int num_edges, int d_in,
                           int d_out, int num_rel, int run_tiles) {
   using S = ShapeH<DOUT>;
   constexpr int NW = S::NW, kXH = S::kXH, kGH = S::kGH, kStage = S::kStage;
@@ -290,13 +315,18 @@ segment_outer_bf16_kernel(const bf16* __restrict__ x,
   const int run = blockIdx.x / cslabs;
   const int c0 = (blockIdx.x % cslabs) * CS;
   const int n0 = blockIdx.y * DOUT;
+  const int64_t plane = (int64_t)d_in * d_out;
+  if (run < num_rel && tile_splits[run] == tile_splits[run + 1])
+    runred::zero_slab<1, kThreads>(dw_out, dw_out, run * plane, c0, n0,
+                                   n0 + DOUT, d_in, d_out);  // no tile
   if (run >= run_splits[num_rel]) return;  // the grid is an upper bound
   int u = 0;  // the relation: run_splits[u] <= run < run_splits[u + 1]
   for (int hi = num_rel; hi - u > 1;) {
     const int mid = (u + hi) / 2;
     if (run_splits[mid] <= run) u = mid; else hi = mid;
   }
-  const int t0 = tile_splits[u] + (run - run_splits[u]) * run_tiles;
+  const int q0 = run_splits[u], runs = run_splits[u + 1] - q0;
+  const int t0 = tile_splits[u] + (run - q0) * run_tiles;
   const int t1 = min(t0 + run_tiles, tile_splits[u + 1]);
   const int64_t row_begin = (int64_t)t0 * kTileRows;
   const int64_t row_end = min((int64_t)t1 * kTileRows, (int64_t)num_edges);
@@ -389,8 +419,10 @@ segment_outer_bf16_kernel(const bf16* __restrict__ x,
     }
   }
 
-  // This run's f32 dW rows c0 + cb.., columns n0 + nb..
-  float* __restrict__ p = partial + (int64_t)run * d_in * d_out;
+  // This run's f32 dW rows c0 + cb.., columns n0 + nb..: dW[u] itself when
+  // it is u's only run, else its partial.
+  const int64_t bank = (int64_t)u * plane;
+  float* __restrict__ p = runs == 1 ? dw_out + bank : partial + run * plane;
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -410,19 +442,25 @@ segment_outer_bf16_kernel(const bf16* __restrict__ x,
         }
       }
     }
+  if (runs > 1 && runred::last_arriver(counters + slot(u, c0, cslabs), runs))
+    runred::sum_runs<1, DOUT, kThreads, kVec>(partial, q0, runs, dw_out,
+                                              dw_out, bank, c0, n0, d_in,
+                                              d_out);
 }
 
-// `kernel` with `smem` bytes of shared memory, one block per run and
-// 64-column d_in slab and per `dout`-column d_out slab.
+// `kernel` with `smem` bytes of shared memory, one block per run index and
+// 64-column d_in slab and per `dout`-column d_out slab: max(max_runs,
+// num_rel) run indices, so that every relation's index reaches its blocks
+// (zero_slab).
 template <typename In>
 cudaError_t start(void (*kernel)(const In*, const In*, const int32_t*,
-                                 const int32_t*, float*, int, int, int, int,
-                                 int),
+                                 const int32_t*, float*, float*, int*, int, int,
+                                 int, int, int),
                   int smem, int dout, const In* x, const In* g,
                   const int32_t* tile_splits, const int32_t* run_splits,
-                  float* partial, int num_edges, int d_in, int d_out,
-                  int num_rel, int run_tiles, int max_runs,
-                  cudaStream_t stream) {
+                  float* dw, float* partial, int* counters, int num_edges,
+                  int d_in, int d_out, int num_rel, int run_tiles,
+                  int max_runs, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -431,10 +469,11 @@ cudaError_t start(void (*kernel)(const In*, const In*, const int32_t*,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   const int cslabs = (d_in + CS - 1) / CS;
-  dim3 grid((unsigned)max_runs * cslabs, (d_out + dout - 1) / dout);
-  kernel<<<grid, kThreads, smem, stream>>>(x, g, tile_splits, run_splits,
-                                           partial, num_edges, d_in, d_out,
-                                           num_rel, run_tiles);
+  dim3 grid((unsigned)max(max_runs, num_rel) * cslabs,
+            (d_out + dout - 1) / dout);
+  kernel<<<grid, kThreads, smem, stream>>>(x, g, tile_splits, run_splits, dw,
+                                           partial, counters, num_edges, d_in,
+                                           d_out, num_rel, run_tiles);
   return cudaGetLastError();
 }
 
@@ -442,89 +481,90 @@ cudaError_t start(void (*kernel)(const In*, const In*, const int32_t*,
 // (bf16 x and g), for the d_out slab DOUT and vec.
 template <typename In, int kPasses, int DOUT, bool kVec>
 cudaError_t launch(const In* x, const In* g, const int32_t* tile_splits,
-                   const int32_t* run_splits, float* partial, int num_edges,
-                   int d_in, int d_out, int num_rel, int run_tiles,
-                   int max_runs, cudaStream_t stream) {
+                   const int32_t* run_splits, float* dw, float* partial,
+                   int* counters, int num_edges, int d_in, int d_out,
+                   int num_rel, int run_tiles, int max_runs,
+                   cudaStream_t stream) {
   if constexpr (std::is_same<In, bf16>::value) {
     return start<In>(segment_outer_bf16_kernel<DOUT, kVec>, ShapeH<DOUT>::kSmem,
-                     DOUT, x, g, tile_splits, run_splits, partial, num_edges,
-                     d_in, d_out, num_rel, run_tiles, max_runs, stream);
+                     DOUT, x, g, tile_splits, run_splits, dw, partial, counters,
+                     num_edges, d_in, d_out, num_rel, run_tiles, max_runs,
+                     stream);
   } else {
     return start<In>(segment_outer_kernel<DOUT, kVec, kPasses>,
                      Shape<DOUT>::kSmem, DOUT, x, g, tile_splits, run_splits,
-                     partial, num_edges, d_in, d_out, num_rel, run_tiles,
-                     max_runs, stream);
+                     dw, partial, counters, num_edges, d_in, d_out, num_rel,
+                     run_tiles, max_runs, stream);
   }
 }
 
 // The instance for the d_out slab (64 or 128 columns) and vec.
 template <typename In, int kPasses>
 int dispatch(const void* x, const void* g, const void* tile_splits,
-             const void* run_splits, void* partial, int num_edges, int d_in,
-             int d_out, int num_rel, int run_tiles, int max_runs, int vec,
-             void* stream) {
-  if (num_edges <= 0 || d_in <= 0 || d_out <= 0 || max_runs <= 0)
-    return (int)cudaSuccess;
+             const void* run_splits, void* dw, void* partial, void* counters,
+             int num_edges, int d_in, int d_out, int num_rel, int run_tiles,
+             int max_runs, int vec, void* stream) {
+  if (d_in <= 0 || d_out <= 0 || num_rel <= 0) return (int)cudaSuccess;
   const auto xp = static_cast<const In*>(x);
   const auto gp = static_cast<const In*>(g);
   const auto ts = static_cast<const int32_t*>(tile_splits);
   const auto rs = static_cast<const int32_t*>(run_splits);
+  const auto dwp = static_cast<float*>(dw);
   const auto part = static_cast<float*>(partial);
+  const auto cnt = static_cast<int*>(counters);
   const auto s = reinterpret_cast<cudaStream_t>(stream);
+#define GHF_K6_LAUNCH(DOUT, VEC)                                           \
+  launch<In, kPasses, DOUT, VEC>(xp, gp, ts, rs, dwp, part, cnt, num_edges, \
+                                 d_in, d_out, num_rel, run_tiles, max_runs, s)
   cudaError_t err;
-  if (d_out <= 64) {
-    err = vec ? launch<In, kPasses, 64, true>(xp, gp, ts, rs, part, num_edges,
-                                              d_in, d_out, num_rel, run_tiles,
-                                              max_runs, s)
-              : launch<In, kPasses, 64, false>(xp, gp, ts, rs, part, num_edges,
-                                               d_in, d_out, num_rel, run_tiles,
-                                               max_runs, s);
-  } else {
-    err = vec ? launch<In, kPasses, 128, true>(xp, gp, ts, rs, part, num_edges,
-                                               d_in, d_out, num_rel, run_tiles,
-                                               max_runs, s)
-              : launch<In, kPasses, 128, false>(xp, gp, ts, rs, part,
-                                                num_edges, d_in, d_out, num_rel,
-                                                run_tiles, max_runs, s);
-  }
+  if (d_out <= 64)
+    err = vec ? GHF_K6_LAUNCH(64, true) : GHF_K6_LAUNCH(64, false);
+  else
+    err = vec ? GHF_K6_LAUNCH(128, true) : GHF_K6_LAUNCH(128, false);
+#undef GHF_K6_LAUNCH
   return (int)err;
 }
 }  // namespace
 
 // x: [E, d_in] f32; g: [E, d_out] f32; tile_splits, run_splits: [num_rel +
-// 1] int32 (relation u's tiles and runs, as above); partial: [max_runs,
-// d_in, d_out] f32, rows 0 .. run_splits[num_rel] - 1 written, max_runs >=
-// run_splits[num_rel]. All contiguous. passes: 3 (3xTF32) or 1 (one TF32
+// 1] int32 (relation u's tiles and runs, as above); dw: [num_rel, d_in,
+// d_out] f32, every element written; partial: [max_runs, d_in, d_out] f32
+// scratch, max_runs >= run_splits[num_rel]; counters: [num_rel *
+// ceil(d_in / 64) * ceil(d_out / slab)] int32 (slab 64 for d_out <= 64,
+// else 128), zero before the launch and zero again after it
+// (run_reduce.cuh). All contiguous. passes: 3 (3xTF32) or 1 (one TF32
 // pass). vec != 0: d_in and d_out are multiples of 4 and every pointer is
 // 16-byte aligned (16-byte copies). Launches on `stream`; returns the CUDA
 // error of the launch.
 extern "C" int ghf_segment_outer(const void* x, const void* g,
                                  const void* tile_splits,
-                                 const void* run_splits, void* partial,
-                                 int num_edges, int d_in, int d_out,
-                                 int num_rel, int run_tiles, int max_runs,
-                                 int passes, int vec, void* stream) {
+                                 const void* run_splits, void* dw,
+                                 void* partial, void* counters, int num_edges,
+                                 int d_in, int d_out, int num_rel,
+                                 int run_tiles, int max_runs, int passes,
+                                 int vec, void* stream) {
   if (passes == 3)
-    return dispatch<float, 3>(x, g, tile_splits, run_splits, partial,
-                              num_edges, d_in, d_out, num_rel, run_tiles,
-                              max_runs, vec, stream);
+    return dispatch<float, 3>(x, g, tile_splits, run_splits, dw, partial,
+                              counters, num_edges, d_in, d_out, num_rel,
+                              run_tiles, max_runs, vec, stream);
   if (passes == 1)
-    return dispatch<float, 1>(x, g, tile_splits, run_splits, partial,
-                              num_edges, d_in, d_out, num_rel, run_tiles,
-                              max_runs, vec, stream);
+    return dispatch<float, 1>(x, g, tile_splits, run_splits, dw, partial,
+                              counters, num_edges, d_in, d_out, num_rel,
+                              run_tiles, max_runs, vec, stream);
   return (int)cudaErrorInvalidValue;
 }
 
-// The bf16 form: x and g bf16, partial f32, the rest as ghf_segment_outer's.
-// vec != 0: d_in and d_out are multiples of 8 and every pointer is 16-byte
-// aligned.
+// The bf16 form: x and g bf16, dw and partial f32, the rest as
+// ghf_segment_outer's. vec != 0: d_in and d_out are multiples of 8 and
+// every pointer is 16-byte aligned.
 extern "C" int ghf_segment_outer_bf16(const void* x, const void* g,
                                       const void* tile_splits,
-                                      const void* run_splits, void* partial,
+                                      const void* run_splits, void* dw,
+                                      void* partial, void* counters,
                                       int num_edges, int d_in, int d_out,
                                       int num_rel, int run_tiles,
                                       int max_runs, int vec, void* stream) {
-  return dispatch<bf16, 1>(x, g, tile_splits, run_splits, partial, num_edges,
-                           d_in, d_out, num_rel, run_tiles, max_runs, vec,
-                           stream);
+  return dispatch<bf16, 1>(x, g, tile_splits, run_splits, dw, partial,
+                           counters, num_edges, d_in, d_out, num_rel,
+                           run_tiles, max_runs, vec, stream);
 }

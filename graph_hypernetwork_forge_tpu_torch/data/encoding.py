@@ -28,6 +28,13 @@ from graph_hypernetwork_forge_tpu_torch.utils.text import tokenize_texts
 # Rows per single-relation tile of the group-padded layout; the edge
 # transform kernel's tile (``ops/cuda/edge_transform.py``).
 GROUP_PAD = 256
+# Tiles of one relation that one block walks in kernel 3 (the combined
+# transform's backward, ``ops/cuda/edge_transform_bwd.py``) and in kernel 6
+# (``ops/cuda/segment_outer.py``): the run length of the run table that a
+# SortPlan carries for both. Runs of 4 were the fastest of 1, 2, 4 and 8
+# tiles for kernel 3 in every form and for kernel 6 in 5 of its 6 forms and
+# widths on the H100 (scripts/tune_edge_kernels.py).
+RUN_TILES = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,7 +46,12 @@ class SortPlan:
     masked padding edges included) and the ``*_splits`` CSR row bounds
     (``splits[i]`` = first row whose sorted id is ``>= i``; ``[N + 1]`` or
     ``[U_pad + 1]``). ``rel_splits`` describes the stored layout only when
-    that layout is relation-sorted.
+    that layout is relation-sorted, and so does the run table of kernels 3
+    and 6 built from it once per layout: ``tile_splits`` (``[U_pad + 1]``,
+    relation u's 256-row tiles, ``ceil(rel_splits / 256)``) and
+    ``run_splits`` (:func:`split_runs` of them into runs of ``RUN_TILES``
+    tiles). It goes to the kernels as it is, with no launch to build it per
+    call.
 
     Built with numpy arrays; :meth:`to` returns a copy holding torch tensors.
     """
@@ -55,6 +67,8 @@ class SortPlan:
     dst_splits: np.ndarray | None = None
     src_splits: np.ndarray | None = None
     rel_splits: np.ndarray | None = None
+    tile_splits: np.ndarray | None = None
+    run_splits: np.ndarray | None = None
 
     def to(self, device) -> "SortPlan":
         """The same plan with every array a torch tensor on ``device``
@@ -64,6 +78,16 @@ class SortPlan:
             else torch.as_tensor(a, device=device)
             for f in dataclasses.fields(self)
         })
+
+
+def split_runs(tile_splits: np.ndarray, run_tiles: int) -> np.ndarray:
+    """``[U + 1]`` int32 run bounds: relation u's tiles ``[tile_splits[u],
+    tile_splits[u + 1])`` go in runs of ``run_tiles`` from the first, the
+    last one ragged, numbered ``run_splits[u] .. run_splits[u + 1] - 1``."""
+    runs = -(-np.diff(tile_splits) // run_tiles)
+    out = np.zeros(tile_splits.shape[0], dtype=np.int32)
+    np.cumsum(runs, out=out[1:])
+    return out
 
 
 def build_sort_plan(
@@ -96,6 +120,9 @@ def build_sort_plan(
     node_bounds = np.arange(num_nodes + 1, dtype=np.int32)
     rel_splits = np.zeros(num_rel_pad + 1, dtype=np.int32)
     np.cumsum(rel_counts, out=rel_splits[1:])
+    # Tile t takes the relation of its first row 256 t, so the tiles below
+    # relation u are those with 256 t < rel_splits[u].
+    tile_splits = (-(-rel_splits // GROUP_PAD)).astype(np.int32)
 
     return SortPlan(
         dst_perm=dst_perm,
@@ -109,6 +136,8 @@ def build_sort_plan(
         dst_splits=np.searchsorted(dst_sorted, node_bounds, side="left").astype(np.int32),
         src_splits=np.searchsorted(src_sorted, node_bounds, side="left").astype(np.int32),
         rel_splits=rel_splits,
+        tile_splits=tile_splits,
+        run_splits=split_runs(tile_splits, RUN_TILES),
     )
 
 

@@ -15,6 +15,7 @@ from graph_hypernetwork_forge_tpu_torch.ops.cuda.edge_transform import (
 from graph_hypernetwork_forge_tpu_torch.ops.cuda.edge_transform_bwd import (
     edge_transform_combined_bwd,
     edge_transform_combined_bwd_plain,
+    run_table,
 )
 from graph_hypernetwork_forge_tpu_torch.ops.cuda.segment_outer import (
     segment_outer,
@@ -42,8 +43,10 @@ _COUNTED = (
 
 def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count, and its count per form
-    (``launches_by_form``: "f32", "tf32", "bf16", "fast"), to 0."""
-    for fn in _COUNTED:
+    (``launches_by_form``: "f32", "tf32", "bf16", "fast"), to 0, and the
+    launches of the run-table kernel that kernels 3 and 6 use where no
+    SortPlan hands them its table (``run_table.launches``)."""
+    for fn in (*_COUNTED, run_table):
         _common.reset_counts(fn)
 
 
@@ -61,6 +64,7 @@ __all__ = [
     "edge_transform_sorted_combined_plain",
     "edge_transform_sorted_plain",
     "reset_launch_counts",
+    "run_table",
     "segment_outer",
     "segment_outer_plain",
 ]

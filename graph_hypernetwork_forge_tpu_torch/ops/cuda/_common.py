@@ -96,12 +96,39 @@ def require_same_dtype(kernel: str, **data: torch.Tensor) -> torch.dtype:
     return next(iter(dtypes.values()))
 
 
+# Ticket counters of kernels 3 and 6's in-kernel dW reduction, one buffer
+# per (device, stream); see run_counters.
+_COUNTERS: dict = {}
+
+
+def run_counters(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` int32 ticket counters for kernels 3 and 6's ordered
+    last-arriver dW reduction (``csrc/run_reduce.cuh``) on the current
+    stream of ``device``.
+
+    One buffer is kept per device and stream, zeroed once when it is made,
+    and each launch leaves every counter it used at zero again, so the
+    launches that follow on the stream find it ready. A fresh zeroed buffer
+    per call would cost a fill launch on every call; one per stream keeps
+    launches on two streams, which may run at once, apart.
+    """
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        # Stream-ordered: a larger buffer is zeroed after the launches that
+        # still use the old one.
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf
+
+
 def stream_of(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    """The tensor's data pointer; null for None."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def raise_on_error(kernel: str, code: int) -> None:

@@ -43,6 +43,7 @@ from graph_hypernetwork_forge_tpu_torch.ops.cuda.build import load
 from graph_hypernetwork_forge_tpu_torch.ops.cuda.edge_transform_bwd import (
     as_tiles,
     edge_transform_combined_bwd,
+    plan_runs,
     rel_bounds,
 )
 from graph_hypernetwork_forge_tpu_torch.ops.cuda.segment_outer import segment_outer
@@ -193,10 +194,10 @@ class _EdgeTransformSortedCombined(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x_src, x_dst, rel_sorted, w_msg, w_self, bias, rel_splits,
-                precision):
+                precision, runs):
         # The residuals of the JAX VJP: both gathered streams and the banks.
         ctx.save_for_backward(x_src, x_dst, rel_sorted, w_msg, w_self, rel_splits)
-        ctx.precision, ctx.bias_dtype = precision, bias.dtype
+        ctx.precision, ctx.bias_dtype, ctx.runs = precision, bias.dtype, runs
         return _launch(False, x_src, x_dst, rel_sorted, w_msg, w_self, bias,
                        precision)
 
@@ -206,7 +207,8 @@ class _EdgeTransformSortedCombined(torch.autograd.Function):
         x_src, x_dst, rel_sorted, w_msg, w_self, rel_splits = ctx.saved_tensors
         g = g.contiguous()
         dx_src, dx_dst, dw_msg, dw_self = edge_transform_combined_bwd(
-            g, x_src, x_dst, rel_sorted, w_msg, w_self, precision=ctx.precision
+            g, x_src, x_dst, rel_sorted, w_msg, w_self, precision=ctx.precision,
+            runs=ctx.runs,
         )
         u = w_msg.shape[0]
         if rel_splits is None:
@@ -215,7 +217,7 @@ class _EdgeTransformSortedCombined(torch.autograd.Function):
         # (JAX _combined_bwd :293-294, :308).
         dbias = csr_segment_sum(g, rel_splits, u).to(ctx.bias_dtype)
         return (dx_src, dx_dst, None, dw_msg.to(w_msg.dtype),
-                dw_self.to(w_self.dtype), dbias, None, None)
+                dw_self.to(w_self.dtype), dbias, None, None, None)
 
 
 def edge_transform_sorted_combined(
@@ -227,6 +229,7 @@ def edge_transform_sorted_combined(
     bias: torch.Tensor,
     rel_splits: torch.Tensor | None = None,
     precision="highest",
+    runs=None,
 ) -> torch.Tensor:
     """Per-edge ``msg + self`` contribution over single-relation tiles → ``[E, d_out]``.
 
@@ -242,6 +245,9 @@ def edge_transform_sorted_combined(
         precision: ``"highest"`` (3xTF32, f32-class) or ``"default"`` /
             ``None`` (one TF32 pass) for the products of f32 data, forward
             and backward; bf16 data takes one bf16 pass whatever it says.
+        runs: optional ``RunTable`` of the layout for kernel 3
+            (``edge_transform_bwd.plan_runs(sort_plan)``), built on the host
+            with the SortPlan; without it the backward builds one per call.
 
     Differentiable in every float input. The output has the data's dtype;
     dW and dbias are summed in f32 and cast to their parameters' dtype. CPU
@@ -251,7 +257,7 @@ def edge_transform_sorted_combined(
     all, int32 ids, all contiguous) or raise.
     """
     return _EdgeTransformSortedCombined.apply(
-        x_src, x_dst, rel_sorted, w_msg, w_self, bias, rel_splits, precision
+        x_src, x_dst, rel_sorted, w_msg, w_self, bias, rel_splits, precision, runs
     )
 
 
@@ -263,15 +269,16 @@ class _EdgeTransformSorted(torch.autograd.Function):
     kernel 6 twice and the ``dbias`` segment-sum backward."""
 
     @staticmethod
-    def forward(ctx, x_src, x_dst, rel_sorted, w_msg, w_self, bias, precision):
-        ctx.save_for_backward(x_src, x_dst, rel_sorted, w_msg, w_self)
-        ctx.precision, ctx.bias_dtype = precision, bias.dtype
+    def forward(ctx, x_src, x_dst, rel_sorted, w_msg, w_self, bias, precision,
+                rel_splits, runs):
+        ctx.save_for_backward(x_src, x_dst, rel_sorted, w_msg, w_self, rel_splits)
+        ctx.precision, ctx.bias_dtype, ctx.runs = precision, bias.dtype, runs
         return _launch(True, x_src, x_dst, rel_sorted, w_msg, w_self, bias, precision)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g_msg, g_selfc):
-        x_src, x_dst, rel_sorted, w_msg, w_self = ctx.saved_tensors
+        x_src, x_dst, rel_sorted, w_msg, w_self, rel_splits = ctx.saved_tensors
         g_msg, g_selfc = g_msg.contiguous(), g_selfc.contiguous()
         u, d_in = w_msg.shape[:2]
         # dx through the forward kernel: the banks transposed to
@@ -283,11 +290,13 @@ class _EdgeTransformSorted(torch.autograd.Function):
         )
         # dW and dbias are summed in f32 and cast to their parameters' dtype
         # (JAX _bwd :593-606).
-        dw_msg = segment_outer(x_src, g_msg, rel_sorted, u, ctx.precision)
-        dw_self = segment_outer(x_dst, g_selfc, rel_sorted, u, ctx.precision)
-        dbias = csr_segment_sum(g_msg, rel_bounds(rel_sorted, u), u)
+        dw_msg = segment_outer(x_src, g_msg, rel_sorted, u, ctx.precision, ctx.runs)
+        dw_self = segment_outer(x_dst, g_selfc, rel_sorted, u, ctx.precision, ctx.runs)
+        if rel_splits is None:
+            rel_splits = rel_bounds(rel_sorted, u)
+        dbias = csr_segment_sum(g_msg, rel_splits, u)
         return (dx_src, dx_dst, None, dw_msg.to(w_msg.dtype), dw_self.to(w_self.dtype),
-                dbias.to(ctx.bias_dtype), None)
+                dbias.to(ctx.bias_dtype), None, None, None)
 
 
 def edge_transform_sorted(
@@ -298,6 +307,8 @@ def edge_transform_sorted(
     w_self: torch.Tensor,
     bias: torch.Tensor,
     precision="highest",
+    rel_splits: torch.Tensor | None = None,
+    runs=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-edge ``(msg, selfc)`` over single-relation tiles, ``[E, d_out]`` each.
 
@@ -309,6 +320,12 @@ def edge_transform_sorted(
         precision: ``"highest"`` (3xTF32, f32-class) or ``"default"`` /
             ``None`` (one TF32 pass) for the products of f32 data, forward
             and backward; bf16 data takes one bf16 pass whatever it says.
+        rel_splits: optional ``[U + 1]`` int32 CSR bounds of the relation
+            groups (``SortPlan.rel_splits``) for the backward's ``dbias``;
+            without them it searches ``rel_sorted``.
+        runs: optional ``RunTable`` of the layout
+            (``edge_transform_bwd.plan_runs(sort_plan)``), handed to both
+            kernel 6 calls of the backward; without it each builds one.
 
     Differentiable in every float input. The outputs have the data's dtype;
     dW and dbias are summed in f32 and cast to their parameters' dtype. CPU
@@ -318,7 +335,7 @@ def edge_transform_sorted(
     one dtype for all, int32 ids, all contiguous) or raise.
     """
     return _EdgeTransformSorted.apply(
-        x_src, x_dst, rel_sorted, w_msg, w_self, bias, precision
+        x_src, x_dst, rel_sorted, w_msg, w_self, bias, precision, rel_splits, runs
     )
 
 
@@ -345,9 +362,10 @@ def edge_contributions_cuda_sorted(
     With a :class:`~graph_hypernetwork_forge_tpu_torch.data.encoding.SortPlan`
     (tensors on ``h``'s device) the ``h[src]``, ``h[dst]`` gathers reduce
     their cotangents through the plan's permutations and kernel 1
-    (``take_rows_pair``); without one they are plain gathers. Then kernel 5
-    (:func:`edge_transform_sorted`) at ``precision``. Speed mode is the
-    caller's, as in JAX: bf16 ``h``, banks and bias give bf16 streams.
+    (``take_rows_pair``) and the backward takes the plan's relation bounds
+    and kernel 6's run table; without one they are plain gathers. Then
+    kernel 5 (:func:`edge_transform_sorted`) at ``precision``. Speed mode is
+    the caller's, as in JAX: bf16 ``h``, banks and bias give bf16 streams.
     """
     # ops.segment imports kernel 1 from this package; imported here so that
     # the two packages do not import each other at load time.
@@ -359,7 +377,10 @@ def edge_contributions_cuda_sorted(
             h, src, dst, p.src_perm, p.src_sorted, p.src_splits,
             p.dst_perm, p.dst_sorted, p.dst_splits,
         )
+        rel_splits = p.rel_splits
     else:
         x_src, x_dst = h.index_select(0, src), h.index_select(0, dst)
-    return edge_transform_sorted(x_src, x_dst, rel_ids, w_msg, w_self, bias, precision)
+        rel_splits = None
+    return edge_transform_sorted(x_src, x_dst, rel_ids, w_msg, w_self, bias, precision,
+                                 rel_splits, plan_runs(sort_plan))
 

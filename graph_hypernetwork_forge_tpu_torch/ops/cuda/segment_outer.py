@@ -8,15 +8,17 @@ function of the TPU kernel ``_segment_outer_impl``
 (``graph_hypernetwork_forge_tpu/ops/pallas/edge_transform.py:473``), the
 weight gradient of ``edge_transform_sorted``.
 
-On the card the kernel writes one ``[d_in, d_out]`` partial per run of up
-to :data:`RUN_TILES` consecutive tiles of one relation
-(``edge_transform_bwd.run_bounds``), as kernel 3 does for its dW, and
-kernel 1 (``csr_segment_sum``) adds each relation's partials over the run
-bounds: one call of this wrapper launches kernel 6 once and kernel 1 once,
-and the result is bitwise deterministic. Kernel 6 takes bf16 data (one
-pass, the partials and dW summed in f32) and, for f32 data,
-``precision="default"`` (one TF32 pass instead of 3xTF32), as the TPU
-kernel's ``precision`` and bf16 branch.
+On the card one launch of kernel 6 computes dW: each block walks a run of
+up to ``run_tiles`` consecutive tiles of one relation (a ``RunTable``, as
+kernel 3's), and the relation's runs add their f32 partials inside the
+kernel, in run order, in the block that finishes last
+(``csrc/run_reduce.cuh``): bitwise deterministic, no float atomics, no
+second launch. The run table comes from the caller's SortPlan
+(``edge_transform_bwd.plan_runs``), or, without one, from one launch of
+the run-table kernel per call. Kernel 6 takes bf16 data (one pass, the
+partials and dW summed in f32) and, for f32 data, ``precision="default"``
+(one TF32 pass instead of 3xTF32), as the TPU kernel's ``precision`` and
+bf16 branch.
 """
 
 from __future__ import annotations
@@ -26,23 +28,18 @@ import functools
 
 import torch
 
-from graph_hypernetwork_forge_tpu_torch.data.encoding import GROUP_PAD
+from graph_hypernetwork_forge_tpu_torch.data.encoding import GROUP_PAD, RUN_TILES
 from graph_hypernetwork_forge_tpu_torch.ops.cuda import _common
 from graph_hypernetwork_forge_tpu_torch.ops.cuda.build import load
 from graph_hypernetwork_forge_tpu_torch.ops.cuda.edge_transform_bwd import (
+    RunTable,
     as_tiles,
-    run_bounds,
+    max_runs,
+    require_runs,
+    run_table,
 )
-from graph_hypernetwork_forge_tpu_torch.ops.cuda.segment_sum import csr_segment_sum
 
 _NAME = "segment_outer"
-
-# Tiles of one relation that one kernel-6 block walks: 2 gives 2,131 runs
-# at the xl layout (E_pad = 1,031,680, U = 237), partials of 35 MB at d=64
-# and 140 MB at d=128. On the H100 runs of 2 were the fastest of 1, 2, 4
-# and 8 tiles at both widths (scripts/tune_edge_kernels.py); kernel 3 keeps
-# runs of 4, its own fastest.
-RUN_TILES = 2
 
 
 def segment_outer_plain(
@@ -69,24 +66,26 @@ def segment_outer_plain(
 def _lib() -> ctypes.CDLL:
     lib = load("segment_outer")
     fn = lib.ghf_segment_outer
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     bf16 = lib.ghf_segment_outer_bf16
-    bf16.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    bf16.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     bf16.restype = ctypes.c_int
     return lib
 
 
 def segment_outer(
     x: torch.Tensor, g: torch.Tensor, rel_sorted: torch.Tensor, num_rel: int,
-    precision="highest",
+    precision="highest", runs: RunTable | None = None,
 ) -> torch.Tensor:
     """``dW [num_rel, d_in, d_out]`` f32 from ``x [E, d_in]`` and ``g [E, d_out]``.
 
     ``rel_sorted`` is ``[E]``, non-decreasing, each relation's group
     starting on a 256-row boundary. ``precision``: ``"highest"`` (3xTF32)
     or ``"default"`` / ``None`` (one TF32 pass) for f32 data; bf16 data
-    takes one bf16 pass whatever it says. CPU tensors take
+    takes one bf16 pass whatever it says. ``runs``: the run table of
+    ``rel_sorted``'s layout (``plan_runs`` of its SortPlan), trusted as
+    it is; without it one launch of ``run_table`` builds it. CPU tensors take
     :func:`segment_outer_plain`, exact f32 at any precision; CUDA tensors
     launch the kernel (float32 or bfloat16 data, one dtype for both; int32
     ids; all contiguous) or raise. A forward-only launch:
@@ -112,25 +111,34 @@ def segment_outer(
             f"rel_sorted {tuple(rel_sorted.shape)} do not fit together"
         )
     d_out = g.shape[1]
-    t_splits, r_splits, max_runs = run_bounds(rel_sorted, num_rel, RUN_TILES)
-    partial = torch.empty((max_runs, d_in * d_out), dtype=torch.float32, device=dev)
+    if runs is None:
+        runs = run_table(rel_sorted, num_rel, RUN_TILES)
+    else:
+        require_runs(_NAME, runs, dev, num_rel)
+    n_runs = max_runs(e, num_rel, runs.run_tiles)
+    dw = torch.empty((num_rel, d_in, d_out), dtype=torch.float32, device=dev)
+    partial = torch.empty((n_runs, d_in * d_out), dtype=torch.float32, device=dev)
+    # One counter per relation, 64-column d_in slab and d_out slab (64
+    # columns for d_out <= 64, else 128), as the kernel's grid has them.
+    slabs = -(-d_in // 64) * (1 if d_out <= 64 else -(-d_out // 128))
+    counters = _common.run_counters(dev, num_rel * slabs)
     lib = _lib()
-    sizes = (e, d_in, d_out, num_rel, RUN_TILES, max_runs)
+    sizes = (e, d_in, d_out, num_rel, runs.run_tiles, n_runs)
     if form == "bf16":
         launch = lib.ghf_segment_outer_bf16
     else:
         launch = lib.ghf_segment_outer
         sizes += (_common.tf32_passes(precision),)
+    ptrs = (x, g, runs.tile_splits, runs.run_splits, dw, partial, counters)
     with torch.cuda.device(dev):
         code = launch(
-            *(_common.ptr(t) for t in (x, g, t_splits, r_splits, partial)), *sizes,
-            _common.vec16(x, g, partial, widths=(d_in, d_out), dtype=dtype),
+            *(_common.ptr(t) for t in ptrs), *sizes,
+            _common.vec16(x, g, dw, partial, widths=(d_in, d_out), dtype=dtype),
             _common.stream_of(dev),
         )
     _common.raise_on_error(_NAME, code)
     _common.count_launch(segment_outer, form)
-    dw = csr_segment_sum(partial, r_splits, num_rel)
-    return dw.view(num_rel, d_in, d_out)
+    return dw
 
 
 _common.reset_counts(segment_outer)

@@ -80,6 +80,7 @@ from torch.autograd.function import once_differentiable
 
 from graph_hypernetwork_forge_tpu_torch.data.encoding import GROUP_PAD
 from graph_hypernetwork_forge_tpu_torch.ops.cuda._common import tf32_passes
+from graph_hypernetwork_forge_tpu_torch.ops.cuda.edge_transform_bwd import plan_runs
 from graph_hypernetwork_forge_tpu_torch.ops.cuda.edge_transform import (
     edge_transform_sorted_combined,
 )
@@ -489,7 +490,8 @@ def relational_message_passing(
             rel_splits = None
             cnt = segment_count(dst, n, edge_mask).clamp(min=1.0)[:, None]
         contrib = edge_transform_sorted_combined(
-            x_src, x_dst, rel_ids, w_msg, w_self, bias, rel_splits, precision
+            x_src, x_dst, rel_ids, w_msg, w_self, bias, rel_splits, precision,
+            plan_runs(plan),
         )
         if edge_mask is not None:
             contrib = contrib * edge_mask.to(contrib.dtype)[:, None]

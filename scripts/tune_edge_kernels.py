@@ -5,15 +5,18 @@
 
 Run from the root of a checkout on a machine with one CUDA card and nvcc.
 Each variant is a copy of ``graph_hypernetwork_forge_tpu_torch/csrc/``
-under ``build/variants/`` with a few lines of a kernel source changed,
-built with the port's nvcc flags; the wrappers then launch it in place of
-the built-in library. ``edge_transform.cu`` holds kernels 2 and 5, so each
-of its variants times both. Variants named "ablation: ..." leave out part
-of the work (the products, the row loads) to show where the time goes, so
-their errors are large; kernels 2, 3, 5 and 6 are also timed in their
-one-TF32-pass mode (precision="default") and in their bf16 form. The
-ablations and the k-loop variants edit the f32 bodies; the bf16 forms
-keep their source there.
+under ``build/variants/`` with a few lines of a kernel source changed (the
+first place each line occurs), built with the port's nvcc flags; the
+wrappers then launch it in place of the built-in library.
+``edge_transform.cu`` holds kernels 2 and 5, so each of its variants
+times both. Variants named "ablation: ..." leave out part of the work (the
+products, the row loads) to show where the time goes, so their errors are
+large; kernels 2, 3, 5 and 6 are also timed in their one-TF32-pass mode
+(precision="default") and in their bf16 form. The ablations and the
+k-loop variants edit the f32 bodies, which come first in each source;
+the variants named "bf16: ..." edit kernel 3's bf16 body. Kernels 3 and 6
+are called with a run table built before the timing, as a SortPlan hands
+it down on the main path.
 Kernels 3 and 6 are timed against the library composition that computes
 the same function: ``bmm`` per 256-row tile and ``index_add_`` of the tile
 partials into their relations (and ``bmm`` alone). Each ``CSRC_DIR``
@@ -21,7 +24,7 @@ given (another tree's ``csrc/``, for example the parent commit's) is built
 and timed as one more variant, source by source where its C interface is
 the same as this tree's (else that source is skipped), so that two
 versions compare within one call. Kernels 3 and 6 are also timed at other
-run lengths (``RUN_TILES``). ``--only`` keeps the named sources
+run lengths than the SortPlan's (``RUN_TILES``, ``data/encoding.py``). ``--only`` keeps the named sources
 (``edge_transform``, ``edge_transform_bwd``, ``segment_outer``). Every
 line gives the best of three CUDA-event means of the wrapper (20 launches
 each) and the max error against the plain version (kernels 3 and 6: scaled
@@ -47,6 +50,7 @@ sys.path.insert(0, str(ROOT))
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+from graph_hypernetwork_forge_tpu_torch.data.encoding import RUN_TILES  # noqa: E402
 from graph_hypernetwork_forge_tpu_torch.ops.cuda import build  # noqa: E402
 from graph_hypernetwork_forge_tpu_torch.ops.cuda import edge_transform as k2  # noqa: E402
 from graph_hypernetwork_forge_tpu_torch.ops.cuda import edge_transform_bwd as k3  # noqa: E402
@@ -55,16 +59,19 @@ from graph_hypernetwork_forge_tpu_torch.ops.cuda import edge_transform_bwd as k3
 k6 = importlib.import_module("graph_hypernetwork_forge_tpu_torch.ops.cuda.segment_outer")
 
 OUT = ROOT / "build" / "variants"
-# The wrapper module of each source; kernels 3 and 6 read RUN_TILES there.
+# The wrapper module of each source.
 MODULES = {"edge_transform": k2, "edge_transform_bwd": k3, "segment_outer": k6}
 C_FUNCTIONS = ("ghf_edge_transform", "ghf_edge_transform_bf16", "ghf_edge_transform_two",
                "ghf_edge_transform_two_bf16", "ghf_edge_transform_bwd",
-               "ghf_edge_transform_bwd_bf16", "ghf_segment_outer", "ghf_segment_outer_bf16")
+               "ghf_edge_transform_bwd_bf16", "ghf_segment_outer", "ghf_segment_outer_bf16",
+               "ghf_run_table")
 
 K3_UNROLL = ("#pragma unroll 2\n        for (int kb = 0; kb < DOUT",
              "#pragma unroll 2\n        for (int kb = 0; kb < BM")
 DX = "      // ---- 1. dx = g W^T: warps 2 (rows) x 4 (bank, 32 columns) ----------\n      {"
 DW = "      // ---- 2. dW += X^T g: warps 4 (x_src^T, x_dst^T rows) x 2 (d_out) ---\n      {"
+K3H_STAGES = "  static constexpr int kStages = 4;"
+K3H_BLOCKS = "kMinBlocks = 1;"
 K2_KSTEPS = "#pragma unroll 1\n    for (int ks = 0; ks < BK2 / 8; ++ks) {"
 K6_KSTEPS = "#pragma unroll 2\n    for (int kb = 0; kb < BM; kb += 8) {"
 VARIANTS = {
@@ -82,11 +89,17 @@ VARIANTS = {
         "32-row chunks, two blocks an SM at d_out <= 64": [
             ("static constexpr int BM = 64;",
              "static constexpr int BM = DOUT <= 64 ? 32 : 64;"),
-            ("__launch_bounds__(kThreads, 1)", "__launch_bounds__(kThreads, DOUT <= 64 ? 2 : 1)"),
-            ("      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);",
-             "      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);\n"
-             "  cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,"
-             " cudaSharedmemCarveoutMaxShared);")],
+            ("__launch_bounds__(kThreads, 1)", "__launch_bounds__(kThreads, DOUT <= 64 ? 2 : 1)")],
+        "bf16: 2 ring stages": [(K3H_STAGES, K3H_STAGES.replace("4;", "2;"))],
+        "bf16: 3 ring stages": [(K3H_STAGES, K3H_STAGES.replace("4;", "3;"))],
+        "bf16: 3 ring stages, two blocks an SM at d_out <= 64": [
+            (K3H_STAGES, K3H_STAGES.replace("4;", "3;")),
+            (K3H_BLOCKS, "kMinBlocks = DOUT == 64 ? 2 : 1;")],
+        "bf16: dx stored from the accumulators": [(
+            "  static constexpr bool kStageDx = true;",
+            "  static constexpr bool kStageDx = false;")],
+        "bf16: 2 ring stages, two blocks an SM at both widths": [
+            (K3H_STAGES, K3H_STAGES.replace("4;", "2;")), (K3H_BLOCKS, "kMinBlocks = 2;")],
     },
     "edge_transform": {
         "source": [],
@@ -173,7 +186,7 @@ def start(source: str, name: str, subs, src_dir: Path = build.SOURCE_DIR
     for old, new in subs:
         if old not in text:
             raise SystemExit(f"{source} / {name}: {old!r} is not in the source")
-        text = text.replace(old, new)
+        text = text.replace(old, new, 1)
     f.write_text(text)
     lib = d / f"lib{source}.so"
     cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(d), "-o", str(lib), str(f)]
@@ -195,6 +208,12 @@ def bf16_err(got, want) -> float:
     got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
     return max((a.float() - b.float()).abs().max().item()
                / (2.0**-7 * b.float().abs().max().item()) for a, b in zip(got, want))
+
+
+def bf16_dx_err(got, want) -> float:
+    """Kernel 3's bf16 form: the larger of dx's error in bf16 ulps of the
+    largest value and dW's scaled f32 error."""
+    return max(bf16_err(got[:2], want[:2]), scaled_err(got[2:], want[2:]))
 
 
 def scaled_err(got, want) -> float:
@@ -244,7 +263,7 @@ def main(argv: list[str]) -> int:
     rel = torch.as_tensor(g.rel_ids, device=dev)
     e_rows, u_pad = g.rel_ids.shape[0], g.char_ids.shape[0]
     gen = torch.Generator(device=dev).manual_seed(0)
-    own = {src: (mod._lib, getattr(mod, "RUN_TILES", None)) for src, mod in MODULES.items()}
+    own = {src: mod._lib for src, mod in MODULES.items()}
     for d in (64, 128):
         xs, xd, g_out = (torch.randn(e_rows, d, device=dev, generator=gen) for _ in range(3))
         wm, ws = (torch.randn(u_pad, d, d, device=dev, generator=gen) / d**0.5
@@ -253,8 +272,12 @@ def main(argv: list[str]) -> int:
         fwd = (xs, xd, rel, wm, ws, bias)
         bwd = (g_out, xs, xd, rel, wm, ws)
         outer = (xs, g_out, rel, u_pad)
-        fwd_h, outer_h = ([t.bfloat16() if torch.is_tensor(t) and t.is_floating_point() else t
-                           for t in a] for a in (fwd, outer))
+        fwd_h, bwd_h, outer_h = (
+            [t.bfloat16() if torch.is_tensor(t) and t.is_floating_point() else t for t in a]
+            for a in (fwd, bwd, outer))
+        # The run tables of the run length being timed, built before the
+        # timing as a SortPlan's are.
+        runs = {}
         plain2 = k2.edge_transform_sorted_combined_plain(*fwd)
         plain3 = k3.edge_transform_combined_bwd_plain(*bwd)
         plain5 = k2.edge_transform_sorted_plain(*fwd)
@@ -275,17 +298,23 @@ def main(argv: list[str]) -> int:
                  k2.edge_transform_sorted_plain(*fwd_h), bf16_err),
             ],
             "edge_transform_bwd": [
-                ("kernel 3", lambda: k3.edge_transform_combined_bwd(*bwd),
+                ("kernel 3", lambda: k3.edge_transform_combined_bwd(*bwd, runs=runs["k3"]),
                  plain3, scaled_err),
                 ("kernel 3, one TF32 pass",
-                 lambda: k3.edge_transform_combined_bwd(*bwd, precision="default"),
+                 lambda: k3.edge_transform_combined_bwd(*bwd, precision="default",
+                                                        runs=runs["k3"]),
                  plain3, scaled_err),
+                ("kernel 3, bf16",
+                 lambda: k3.edge_transform_combined_bwd(*bwd_h, runs=runs["k3"]),
+                 k3.edge_transform_combined_bwd_plain(*bwd_h), bf16_dx_err),
             ],
             "segment_outer": [
-                ("kernel 6", lambda: k6.segment_outer(*outer), plain6, scaled_err),
+                ("kernel 6", lambda: k6.segment_outer(*outer, runs=runs["k6"]), plain6,
+                 scaled_err),
                 ("kernel 6, one TF32 pass",
-                 lambda: k6.segment_outer(*outer, precision="default"), plain6, scaled_err),
-                ("kernel 6, bf16", lambda: k6.segment_outer(*outer_h),
+                 lambda: k6.segment_outer(*outer, precision="default", runs=runs["k6"]),
+                 plain6, scaled_err),
+                ("kernel 6, bf16", lambda: k6.segment_outer(*outer_h, runs=runs["k6"]),
                  k6.segment_outer_plain(*outer_h), scaled_err),
             ],
         }
@@ -316,25 +345,26 @@ def main(argv: list[str]) -> int:
         for (src, name), lib in libs.items():
             mod = MODULES[src]
             mod._lib = lambda lib=lib: lib
-            chosen = own[src][1]
-            runs = RUN_LENGTHS if name == "source" and chosen is not None else (chosen,)
-            for run_tiles in runs:
-                if chosen is not None:
-                    mod.RUN_TILES = run_tiles
+            # Kernels 3 and 6 walk runs of tiles: the source at every run
+            # length, each variant at the SortPlan's.
+            with_runs = src in ("edge_transform_bwd", "segment_outer")
+            lengths = ((RUN_LENGTHS if name == "source" else (RUN_TILES,)) if with_runs
+                       else (None,))
+            for run_tiles in lengths:
+                if with_runs:
+                    runs["k3" if src == "edge_transform_bwd" else "k6"] = k3.run_table(
+                        rel, u_pad, run_tiles)
                 for label, call, want, err_of in kernels_of[src]:
                     err = err_of(call(), want)
                     ms = best_ms(call)
-                    at = f", runs of {run_tiles} tiles" if chosen is not None else ""
+                    at = f", runs of {run_tiles} tiles" if with_runs else ""
                     print(f"{label} d={d} {name}{at}: {ms:.4f} ms, err {err:.2e}", flush=True)
-                    if name == "source" and run_tiles == chosen:
-                        # Device time of one call by kernel: the kernel, the
-                        # reduction over its partials, the small index ops.
+                    if name == "source" and run_tiles in (None, RUN_TILES):
+                        # Device time of one call by kernel.
                         cs.profile_device(f"{label} d={d} {name}", call, rows=8)
-            mod._lib, restore = own[src][0], own[src][1]
-            if restore is not None:
-                mod.RUN_TILES = restore
+            mod._lib = own[src]
         del xs, xd, g_out, wm, ws, bias, fwd, bwd, outer, kernels_of, plain2, plain3
-        del fwd_h, outer_h, plain5, plain6
+        del fwd_h, bwd_h, outer_h, plain5, plain6, runs
         torch.cuda.empty_cache()
     return 0
 

@@ -23,9 +23,13 @@ from graph_hypernetwork_forge_tpu_torch.ops.cuda.edge_transform import (
     edge_transform_sorted_combined,
     edge_transform_sorted_combined_plain,
 )
+from graph_hypernetwork_forge_tpu_torch.data.encoding import GROUP_PAD, RUN_TILES
 from graph_hypernetwork_forge_tpu_torch.ops.cuda.edge_transform_bwd import (
     edge_transform_combined_bwd,
     edge_transform_combined_bwd_plain,
+    run_bounds,
+    plan_runs,
+    run_table,
 )
 from graph_hypernetwork_forge_tpu_torch.ops.cuda.segment_outer import (
     segment_outer,
@@ -160,7 +164,9 @@ def test_edge_transform_bwd_kernel_matches_plain(dev, d, tail_cut):
     again = edge_transform_combined_bwd(g, xs, xd, rel, wm, ws)
     torch.cuda.synchronize()
     assert edge_transform_combined_bwd.launches == 2
-    assert csr_segment_sum.launches == 2  # one dW reduction per call
+    # dW is reduced inside kernel 3; without a plan each call builds its
+    # run table in one launch.
+    assert csr_segment_sum.launches == 0 and kernels.run_table.launches == 2
     want = edge_transform_combined_bwd_plain(g, xs, xd, rel, wm, ws)
     for name, a, b, w in zip(("dx_src", "dx_dst", "dW_msg", "dW_self"), got, again, want):
         assert torch.equal(a, b), f"{name}: two runs differ"
@@ -247,7 +253,7 @@ def test_two_output_kernels_over_runs_of_tiles(dev, d_in, d_out, tail_cut):
     got, again = segment_outer(xs, g, rel, 8), segment_outer(xs, g, rel, 8)
     torch.cuda.synchronize()
     assert kernels.edge_transform_sorted.launches == 1
-    assert segment_outer.launches == 2 and csr_segment_sum.launches == 2
+    assert segment_outer.launches == 2 and csr_segment_sum.launches == 0
     for name, a, w in zip(("msg", "selfc"), outs,
                           kernels.edge_transform_sorted_plain(xs, xd, rel, wm, ws, b)):
         torch.testing.assert_close(a.cpu(), w.cpu(), rtol=0, atol=ATOL, msg=name)
@@ -272,7 +278,7 @@ def test_edge_transform_kernels_over_runs_of_tiles(dev, d_in, d_out, tail_cut):
     again = edge_transform_combined_bwd(g, xs, xd, rel, wm, ws)
     torch.cuda.synchronize()
     assert edge_transform_sorted_combined.launches == 1
-    assert edge_transform_combined_bwd.launches == 2 and csr_segment_sum.launches == 2
+    assert edge_transform_combined_bwd.launches == 2 and csr_segment_sum.launches == 0
     torch.testing.assert_close(
         out.cpu(), edge_transform_sorted_combined_plain(xs, xd, rel, wm, ws, b).cpu(),
         rtol=0, atol=ATOL)
@@ -302,11 +308,13 @@ def test_training_step_on_the_card_matches_the_cpu(dev):
             sort_plan=graph.sort_plan.to(device))
         if device.type == "cuda":
             # One step at 2 layers: kernel 1 in 2 forward tails, per layer 2
-            # gather cotangents + dbias + kernel 3's dW, and 2 in the loss.
+            # gather cotangents + dbias, and 2 in the loss; kernel 3 reduces
+            # its dW itself, over the plan's run table.
             launches = (csr_segment_sum.launches,
                         edge_transform_sorted_combined.launches,
-                        edge_transform_combined_bwd.launches)
-            assert launches == (12, 2, 2)
+                        edge_transform_combined_bwd.launches,
+                        kernels.run_table.launches)
+            assert launches == (10, 2, 2, 0)
         runs.append((loss.item(), {p: (t.detach().cpu(), t.grad.cpu())
                                    for p, t in named_leaves(params)}))
     (l_card, card), (l_cpu, cpu) = runs
@@ -335,8 +343,8 @@ def test_hypergnn_on_the_card_matches_the_cpu(dev):
 @pytest.mark.parametrize("tail_cut", [0, 100])
 def test_edge_transform_sorted_kernel_and_its_backward_match_plain(dev, d_in, d_out, tail_cut):
     # Kernel 5 forward, then its backward: kernel 5 on the cotangents with
-    # the banks transposed (d_in and d_out swap), kernel 6 twice, kernel 1
-    # for dbias and kernel 6's two reductions.
+    # the banks transposed (d_in and d_out swap), kernel 6 twice (each
+    # reducing its own dW), kernel 1 for dbias.
     arrays = edge_case(11, d_in, tail_cut, d_out)
     g = torch.randn((2, arrays[0].shape[0], d_out), generator=torch.Generator().manual_seed(1))
     runs = []
@@ -350,7 +358,7 @@ def test_edge_transform_sorted_kernel_and_its_backward_match_plain(dev, d_in, d_
             torch.cuda.synchronize()
             assert kernels.edge_transform_sorted.launches == 2
             assert segment_outer.launches == 2
-            assert csr_segment_sum.launches == 3
+            assert csr_segment_sum.launches == 1
         runs.append(([o.detach().cpu() for o in outs], [t.grad.cpu() for t in leaves]))
     (outs, grads), (outs_cpu, grads_cpu) = runs
     for name, a, w in zip(("msg", "selfc"), outs, outs_cpu):
@@ -367,7 +375,7 @@ def test_segment_outer_kernel_matches_plain(dev, d_in, d_out, tail_cut):
     kernels.reset_launch_counts()
     got, again = segment_outer(xs, g, rel, 8), segment_outer(xs, g, rel, 8)
     torch.cuda.synchronize()
-    assert segment_outer.launches == 2 and csr_segment_sum.launches == 2
+    assert segment_outer.launches == 2 and csr_segment_sum.launches == 0
     assert torch.equal(got, again), "two runs differ"
     assert not got[6:].any(), "relations without rows must be exactly zero"
     _close_scaled(got.cpu(), segment_outer_plain(xs, g, rel, 8).cpu(), "dW")
@@ -528,7 +536,7 @@ def test_edge_transform_bwd_kernel_bf16_form_matches_plain(dev, d_in, d_out, tai
     again = edge_transform_combined_bwd(*args)
     torch.cuda.synchronize()
     assert edge_transform_combined_bwd.launches_by_form["bf16"] == 2
-    assert csr_segment_sum.launches_by_form["f32"] == 2  # the f32 run partials
+    assert csr_segment_sum.launches == 0  # dW is reduced inside kernel 3
     want = edge_transform_combined_bwd_plain(*args)
     for name, a, b, w in zip(("dx_src", "dx_dst", "dW_msg", "dW_self"), got, again, want):
         assert torch.equal(a, b), f"{name}: two runs differ"
@@ -604,11 +612,10 @@ def test_speed_mode_training_step_on_the_card_matches_the_cpu(dev, mode):
         if device.type == "cuda":
             form = "bf16" if "compute_dtype" in mode else "tf32"
             # Per layer kernel 1 in the tail, the two gather cotangents and
-            # dbias (bf16 rows in speed mode) and kernel 3's f32 partials;
-            # 2 in the f32 loss backward.
-            k1 = {"f32": 12, "tf32": 0, "bf16": 0, "fast": 0}
+            # dbias (bf16 rows in speed mode); 2 in the f32 loss backward.
+            k1 = {"f32": 10, "tf32": 0, "bf16": 0, "fast": 0}
             if form == "bf16":
-                k1 = {"f32": 4, "tf32": 0, "bf16": 8, "fast": 0}
+                k1 = {"f32": 2, "tf32": 0, "bf16": 8, "fast": 0}
             assert csr_segment_sum.launches_by_form == k1
             for fn in (edge_transform_sorted_combined, edge_transform_combined_bwd):
                 assert fn.launches_by_form[form] == fn.launches == 2
@@ -660,7 +667,7 @@ def test_segment_outer_kernel_bf16_form_matches_plain(dev, d_in, d_out, tail_cut
     got, again = segment_outer(xs, g, rel, 8), segment_outer(xs, g, rel, 8)
     torch.cuda.synchronize()
     assert segment_outer.launches_by_form["bf16"] == 2
-    assert csr_segment_sum.launches_by_form["f32"] == 2  # the f32 run partials
+    assert csr_segment_sum.launches == 0  # dW is reduced inside kernel 6
     assert got.dtype == torch.float32 and torch.equal(got, again), "two runs differ"
     assert not got[[4, 6, 7]].any(), "relations without rows must be exactly zero"
     _close_scaled(got.cpu(), segment_outer_plain(xs, g, rel, 8).cpu(), "dW")
@@ -745,9 +752,9 @@ def test_two_stream_layer_forms_on_the_card_match_the_cuda_backend(dev, mode):
             assert kernels.edge_transform_sorted.launches_by_form[form] == 2
             assert segment_outer.launches_by_form[form] == 2
             # Kernel 1: the tail, dbias and the two gather cotangents over
-            # the streams' rows, kernel 6's two f32 run reductions.
-            k1 = {"f32": 2, "tf32": 0, "bf16": 4, "fast": 0} if speed else \
-                {"f32": 6, "tf32": 0, "bf16": 0, "fast": 0}
+            # the streams' rows; kernel 6 reduces its dW itself.
+            k1 = {"f32": 0, "tf32": 0, "bf16": 4, "fast": 0} if speed else \
+                {"f32": 4, "tf32": 0, "bf16": 0, "fast": 0}
             assert csr_segment_sum.launches_by_form == k1
             assert out.dtype == torch.float32
         runs.append((out.detach().cpu(), [t.grad.cpu() for t in leaves]))
@@ -763,3 +770,190 @@ def test_two_stream_layer_forms_on_the_card_match_the_cuda_backend(dev, mode):
         for name, a, w in zip(("h", "w_msg", "w_self", "bias"), grads, ref_grads):
             scale = max(1.0, w.abs().max().item())
             assert (a - w).abs().max().item() <= ONE_PASS_SCALED * scale, name
+
+
+# ---------------------------------------------------------------------------
+# Kernels 3 and 6 reduce their dW inside the kernel (an ordered
+# last-arriver reduction over the run table), and kernel 3's bf16 form
+# takes any d_out.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("d_in,d_out", [(64, 136), (64, 192), (64, 256), (36, 200)])
+@pytest.mark.parametrize("tail_cut", [0, 100])
+def test_edge_transform_bwd_kernel_bf16_form_at_any_d_out(dev, d_in, d_out, tail_cut):
+    # Above 128 columns the bf16 body walks d_out in 128-column slabs, keeps
+    # dx's f32 sums across them and rounds dx once; 36 -> 200 takes the
+    # 2-byte copies.
+    xs, xd, rel, wm, ws, _ = (torch.from_numpy(a).to(dev)
+                              for a in run_case(31, d_in, d_out, tail_cut))
+    g = torch.randn((xs.shape[0], d_out), generator=torch.Generator().manual_seed(11))
+    args = [t.to(dev).bfloat16() if t.is_floating_point() else t
+            for t in (g, xs, xd, rel, wm, ws)]
+    kernels.reset_launch_counts()
+    got = edge_transform_combined_bwd(*args)
+    again = edge_transform_combined_bwd(*args)
+    torch.cuda.synchronize()
+    assert edge_transform_combined_bwd.launches_by_form["bf16"] == 2
+    want = edge_transform_combined_bwd_plain(*args)
+    for name, a, b, w in zip(("dx_src", "dx_dst", "dW_msg", "dW_self"), got, again, want):
+        assert torch.equal(a, b), f"{name}: two runs differ"
+        assert a.dtype == w.dtype, name
+    for name, a, w in zip(("dx_src", "dx_dst"), got[:2], want[:2]):
+        _within_ulp(a.cpu(), w.cpu(), name)
+    for name, a, w in zip(("dW_msg", "dW_self"), got[2:], want[2:]):
+        _close_scaled(a.cpu(), w.cpu(), name)
+        assert not a[[4, 6, 7]].any(), "relations without rows must be exactly zero"
+
+
+def _long_run_case(seed, d_in, d_out):
+    """Relation 0 of 150 tiles (38 runs of 4 tiles), then
+    relations of 3, 1, 0 and 37 tiles, the last one cut by 100 rows, in a
+    bank of 7 (3, 5 and 6 without rows): ``(x_src, x_dst, rel, w_msg,
+    w_self, g)``."""
+    rng = np.random.default_rng(seed)
+    tiles = [150, 3, 1, 0, 37]
+    rel = np.concatenate([np.full(t * GROUP_PAD, u, dtype=np.int32)
+                          for u, t in enumerate(tiles)])[:-100]
+    e, u = rel.shape[0], 7
+    xs, xd = (rng.standard_normal((e, d_in)).astype(np.float32) for _ in range(2))
+    wm, ws = ((rng.standard_normal((u, d_in, d_out)) / np.sqrt(d_in)).astype(np.float32)
+              for _ in range(2))
+    g = rng.standard_normal((e, d_out)).astype(np.float32)
+    return xs, xd, rel, wm, ws, g
+
+
+def _form_args(arrays, form, dev):
+    """The arrays on the card in the form's dtype, and the precision."""
+    dtype = torch.bfloat16 if form == "bf16" else torch.float32
+    out = [torch.from_numpy(a).to(dev) for a in arrays]
+    out = [t.to(dtype) if t.is_floating_point() else t for t in out]
+    return out, "default" if form == "tf32" else "highest"
+
+
+def _check_form(form, got, want, msg):
+    """A kernel output against its plain version in the form's gate: f32
+    after scaling; one TF32 pass bf16-class after scaling; bf16 outputs
+    within one bf16 ulp of the largest value."""
+    if got.dtype == torch.bfloat16:
+        _within_ulp(got.cpu(), want.cpu(), msg)
+    elif form == "tf32":
+        scale = max(1.0, want.abs().max().item())
+        assert (got - want).abs().max().item() <= ONE_PASS_SCALED * scale, msg
+    else:
+        _close_scaled(got.cpu(), want.cpu(), msg)
+
+
+@pytest.mark.parametrize("form", ["f32", "tf32", "bf16"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_kernels_3_and_6_over_more_than_32_runs_in_every_form(dev, form, d):
+    # One relation of 150 tiles: 38 runs reduced by kernels 3 and 6, in
+    # run order by the last arriver; 3 calls bitwise equal; relations
+    # without rows exactly 0; single-run relations written directly.
+    (xs, xd, rel, wm, ws, g), precision = _form_args(_long_run_case(32, d, d), form, dev)
+    kernels.reset_launch_counts()
+    k3 = [edge_transform_combined_bwd(g, xs, xd, rel, wm, ws, precision=precision)
+          for _ in range(3)]
+    k6 = [segment_outer(xs, g, rel, 7, precision=precision) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert edge_transform_combined_bwd.launches_by_form[form] == 3
+    assert segment_outer.launches_by_form[form] == 3
+    assert csr_segment_sum.launches == 0
+    for outs in k3[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(k3[0], outs)), "calls differ"
+    for out in k6[1:]:
+        assert torch.equal(k6[0], out), "calls differ"
+    want3 = edge_transform_combined_bwd_plain(g, xs, xd, rel, wm, ws)
+    for name, a, w in zip(("dx_src", "dx_dst", "dW_msg", "dW_self"), k3[0], want3):
+        _check_form(form, a, w, name)
+    _check_form(form, k6[0], segment_outer_plain(xs, g, rel, 7), "dW")
+    for dw in (*k3[0][2:], k6[0]):
+        assert dw.dtype == torch.float32
+        assert not dw[[3, 5, 6]].any(), "relations without rows must be exactly zero"
+
+
+def test_layouts_called_in_turn_leave_no_counter_behind(dev):
+    # Two layouts in turn, A, B, A, through kernels 3 and 6 in every form
+    # on one stream (they share the counters): an unreset counter would
+    # make a later call's last arriver fire early or never.
+    layouts = []
+    for seed, case in ((33, _long_run_case(33, 64, 64)), (34, None)):
+        if case is None:
+            xs, xd, rel, wm, ws, _ = run_case(seed, 64, 64, 100)
+            g = np.random.default_rng(seed).standard_normal((rel.shape[0], 64))
+            case = (xs, xd, rel, wm, ws, g.astype(np.float32))
+        layouts.append(case)
+    for form in ("f32", "tf32", "bf16"):
+        outs = []
+        for arrays in (layouts[0], layouts[1], layouts[0]):
+            (xs, xd, rel, wm, ws, g), precision = _form_args(arrays, form, dev)
+            u = wm.shape[0]
+            k3 = edge_transform_combined_bwd(g, xs, xd, rel, wm, ws, precision=precision)
+            k6 = segment_outer(xd, g, rel, u, precision=precision)
+            outs.append((k3, k6, (g, xs, xd, rel, wm, ws)))
+        torch.cuda.synchronize()
+        (a3, a6, _), (b3, b6, b_args), (c3, c6, _) = outs
+        assert all(torch.equal(x, y) for x, y in zip(a3, c3)), form
+        assert torch.equal(a6, c6), form
+        want = edge_transform_combined_bwd_plain(*b_args)
+        for name, a, w in zip(("dx_src", "dx_dst", "dW_msg", "dW_self"), b3, want):
+            _check_form(form, a, w, f"{form} {name}")
+        g, _, xd, rel, wm, _ = b_args
+        _check_form(form, b6, segment_outer_plain(xd, g, rel, wm.shape[0]), f"{form} dW")
+
+
+def test_run_tables_on_the_card_equal_run_bounds(dev):
+    # The SortPlan's tables (built on the host) and the run-table kernel's
+    # (built on the card where no plan is given) against run_bounds, on an
+    # encoded graph, the run cases and a layout of 3,000 relations (more
+    # than the kernel's 1,024 threads; every fourth one without rows).
+    rng = np.random.default_rng(35)
+    n, e, u = 400, 20000, 29
+    ei = np.stack([rng.integers(0, n, e), rng.integers(0, n, e)])
+    texts = [f"relation kind {i}" for i in range(u)]
+    graph = encode_graph(ei, [texts[i] for i in rng.integers(0, u, e)], n,
+                         sort_by_relation=True, with_sort_plan=True, group_pad=GROUP_PAD)
+    plan = graph.sort_plan.to(dev)
+    rel = torch.as_tensor(graph.rel_ids, device=dev)
+    u_pad = graph.char_ids.shape[0]
+    want = run_bounds(rel, u_pad, RUN_TILES)[:2]
+    table = plan_runs(plan)
+    assert table.run_tiles == RUN_TILES
+    assert torch.equal(table.tile_splits, want[0]) and torch.equal(table.run_splits, want[1])
+    many = np.repeat(np.arange(3000, dtype=np.int32), [0 if i % 4 == 3 else 1 + i % 3
+                                                       for i in range(3000)])
+    many = np.repeat(many, GROUP_PAD)
+    layouts = [(graph.rel_ids, u_pad), (run_case(0, 4, 4, 0)[2], 8),
+               (run_case(0, 4, 4, 100)[2], 8), (many[:-37], 3001)]
+    kernels.reset_launch_counts()
+    for rel_np, u in layouts:
+        rel = torch.as_tensor(rel_np, device=dev)
+        for run_tiles in (1, 2, 4, 7):
+            got = run_table(rel, u, run_tiles)
+            want = run_bounds(rel, u, run_tiles)[:2]
+            torch.cuda.synchronize()
+            assert torch.equal(got.tile_splits, want[0]), (u, run_tiles)
+            assert torch.equal(got.run_splits, want[1]), (u, run_tiles)
+    assert kernels.run_table.launches == 4 * len(layouts)
+
+
+def test_no_run_table_launch_where_a_sort_plan_is_given(dev):
+    # The cuda backend and the two-stream path with a SortPlan hand its run
+    # tables to kernels 3 and 6: no per-call launch builds one.
+    leaves, (src, dst, rel, mask), plan, r = _toy_layer_inputs(dev, _PADDED)
+    for two_stream in (False, True):
+        kernels.reset_launch_counts()
+        if two_stream:
+            msg, selfc = kernels.edge_contributions_cuda_sorted(
+                leaves[0], src, dst, rel, *leaves[1:], sort_plan=plan)
+            out = two_stream_tail(msg, selfc, dst, leaves[0].shape[0], edge_mask=mask,
+                                  sort_plan=plan)
+        else:
+            out = relational_message_passing(
+                leaves[0], src, dst, rel, *leaves[1:], edge_mask=mask, backend="cuda",
+                rel_sorted=True, group_padded=True, sort_plan=plan)
+        (out * r).sum().backward()
+        torch.cuda.synchronize()
+        assert kernels.run_table.launches == 0
+        assert (segment_outer.launches == 2 if two_stream
+                else edge_transform_combined_bwd.launches == 1)
