@@ -604,7 +604,8 @@ def phase_kernels(dev, g) -> dict:
             library_ms=cuda_ms(
                 lambda: torch.segment_reduce(x, "sum", offsets=offsets, unsafe=True)
             ),
-            bound_ms=b_ms, bound_by=b_by,
+            bound_ms=b_ms, bound_by=b_by, **csr_own(lambda: fn(x, splits, n)),
+            dbias=dbias_sums(dev, plan.rel_splits, e_rows, u_pad, d, torch.float32, gen),
         )
         del x, out, again, plain
 
@@ -786,7 +787,7 @@ def phase_kernels(dev, g) -> dict:
                 torch.segment_reduce(xa, "sum", offsets=off_a, unsafe=True),
                 torch.segment_reduce(xb, "sum", offsets=offsets, unsafe=True),
             )),
-            bound_ms=b_ms, bound_by=b_by,
+            bound_ms=b_ms, bound_by=b_by, **csr_own(lambda: fn(*args)),
         )
         del xa, xb, args, out, again, plain
         torch.cuda.empty_cache()
@@ -815,12 +816,86 @@ def phase_kernels(dev, g) -> dict:
 
 
 def own_times(r: dict) -> str:
-    """The wrapper's time with the SortPlan's run table and the kernel's
-    own, for the log, where they were taken."""
-    if "kernel_ms" not in r:
-        return ""
-    return (f" (with the plan's run table {r['ms_plan_table']:.4f}, kernel alone "
-            f"{r['kernel_ms']:.4f})")
+    """The wrapper's time with the SortPlan's run table, the kernel's own
+    and its device launches a call, for the log, where they were taken."""
+    parts = []
+    if "ms_plan_table" in r:
+        parts.append(f"with the plan's run table {r['ms_plan_table']:.4f}")
+    if "kernel_ms" in r:
+        parts.append(f"kernel alone {r['kernel_ms']:.4f}")
+    if "host_ms" in r:
+        parts.append(f"host {r['host_ms']:.4f} a call")
+    if "device_launches_per_call" in r:
+        parts.append(f"{r['device_launches_per_call']} device launch(es) a call")
+    return f" ({', '.join(parts)})" if parts else ""
+
+
+def device_launches(fn) -> int:
+    """Kernels that one warm call of ``fn`` launches on the device, by
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type != torch.autograd.DeviceType.CPU)
+
+
+def host_ms(fn, calls: int = 50) -> float:
+    """Host milliseconds a call of ``fn`` takes to enqueue its work, over
+    ``calls`` calls issued without a synchronise in between."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / calls
+
+
+def csr_own(fn) -> dict:
+    """Kernel 1's or 7's profiled time alone, its device launches a call and
+    the wrapper's host time a call (back to back, the events time the
+    larger of the host's and the device's)."""
+    return dict(kernel_ms=kernel_ms(fn, "csr_segment_sum_kernel"),
+                device_launches_per_call=device_launches(fn), host_ms=host_ms(fn))
+
+
+def dbias_sums(dev, rel_splits, e_rows: int, u_pad: int, d: int, dtype, gen) -> dict:
+    """Kernel 1 at the dbias shape of kernel 2's backward
+    (ops/cuda/edge_transform.py): the cotangent rows [E_pad, d] summed over
+    the relation-sorted layout's rel_splits, 240 segments of ~4,300 rows,
+    the padding relations empty. Twice the same bits, the empty segments
+    exactly 0, within the f32 gate of the plain version; times and bound.
+    Library: torch.segment_reduce on the rows (upcast from bf16 outside the
+    timing)."""
+    x = torch.randn(e_rows, d, device=dev, generator=gen).to(dtype)
+    fn = kernels.csr_segment_sum
+    out, again = fn(x, rel_splits, u_pad), fn(x, rel_splits, u_pad)
+    plain = kernels.csr_segment_sum_plain(x, rel_splits, u_pad)
+    torch.cuda.synchronize()
+    empty = (rel_splits[1: u_pad + 1] == rel_splits[:u_pad]).nonzero().flatten()
+    check(torch.equal(out, again) and len(empty) > 0 and not out[empty].any(),
+          f"csr_segment_sum dbias d={d} {dtype}: two runs differ, or an empty "
+          "relation is not 0")
+    rows = int(rel_splits[u_pad] - rel_splits[0])
+    wide, offsets = x.float(), rel_splits[: u_pad + 1].long()
+    b_ms, b_by = bound(rows * d * x.element_size() + ((u_pad + 1) + u_pad * d) * 4, rows * d)
+    r = dict(max_abs_err=scaled_err(out, plain), ms=cuda_ms(lambda: fn(x, rel_splits, u_pad)),
+             plain_ms=cuda_ms(lambda: kernels.csr_segment_sum_plain(x, rel_splits, u_pad)),
+             library_ms=cuda_ms(lambda: torch.segment_reduce(wide, "sum", offsets=offsets,
+                                                             unsafe=True)),
+             bound_ms=b_ms, bound_by=b_by, **csr_own(lambda: fn(x, rel_splits, u_pad)))
+    check(r["max_abs_err"] <= KERNEL_ATOL,
+          f"csr_segment_sum dbias d={d} {dtype} disagrees with its plain version")
+    log(f"kernel csr_segment_sum dbias ({u_pad} relations) d={d} {dtype}: scaled err "
+        f"{r['max_abs_err']:.3e} | ms {r['ms']:.4f}{own_times(r)} bound "
+        f"{r['bound_ms']:.4f} ({r['bound_by']}) plain {r['plain_ms']:.4f} library "
+        f"{r['library_ms']:.4f}")
+    return r
 
 
 def _tf32_library_ms(fn) -> float:
@@ -875,7 +950,8 @@ def phase_kernel_forms(dev, g) -> dict:
             plain_ms=cuda_ms(lambda: kernels.csr_segment_sum_plain(x, splits, n)),
             library_ms=cuda_ms(
                 lambda: torch.segment_reduce(x, "sum", offsets=offsets, unsafe=True)),
-            bound_ms=b_ms, bound_by=b_by,
+            bound_ms=b_ms, bound_by=b_by, **csr_own(lambda: fn(x, splits, n)),
+            dbias=dbias_sums(dev, plan.rel_splits, e_rows, u_pad, d, bf16, gen),
         )
         del x, out, again, plain
 
@@ -973,7 +1049,16 @@ def phase_kernel_forms(dev, g) -> dict:
             library_ms=cuda_ms(lambda: (torch.baddbmm(b_tile, xs_t, wm_t),
                                         torch.bmm(xd_t, ws_t))),
             bound_ms=b_ms, bound_by=b_by,
+            kernel_ms=kernel_ms(lambda: fn(*fwd), "edge_transform_bf16_kernel"),
         )
+        # Kernel 2's bf16 form is the same body with one output: its times
+        # beside kernel 5's, taken in turns.
+        k2 = kernels.edge_transform_sorted_combined
+        k2_ms = [cuda_ms(lambda: k2(*fwd)) for _ in range(2)]
+        k5_ms = [results[("edge_transform_sorted", "bf16", d)]["ms"], cuda_ms(lambda: fn(*fwd))]
+        results[("edge_transform_sorted", "bf16", d)]["kernel_2_bf16_ms"] = k2_ms
+        log(f"kernel 5 bf16 d={d}: {k5_ms[0]:.4f}, {k5_ms[1]:.4f} ms; kernel 2 bf16 "
+            f"beside it: {k2_ms[0]:.4f}, {k2_ms[1]:.4f} ms")
         del out, plain, xs_t, xd_t, wm_t, ws_t, b_tile
 
         # Kernel 6's bf16 form of x_src against the bf16 cotangent: f32 dW
@@ -1135,6 +1220,7 @@ def phase_kernel_forms(dev, g) -> dict:
                 ms=cuda_ms(lambda: fn(*args, mode=mode)),
                 plain_ms=cuda_ms(lambda: plain_fn(*args, mode=mode)),
                 library_ms=cuda_ms(library), bound_ms=b_ms, bound_by=b_by,
+                **csr_own(lambda: fn(*args, mode=mode)),
             )
             del out, again, plain, exact, streams, wide, args, exact_args, library
         del xa, xb
@@ -1801,10 +1887,14 @@ def main() -> int:
     keys = ("max_abs_err", "dw_scaled_err", "f64_err", "plain_f64_err",
             "f64_scaled_err", "plain_f64_scaled_err", "tol", "ms", "ms_plan_table",
             "kernel_ms", "plain_ms", "bound_ms", "bound_by", "cuda_core_bound_ms",
-            "library_ms", "bmm_ms", "err_vs_exact")
+            "library_ms", "bmm_ms", "err_vs_exact", "device_launches_per_call",
+            "kernel_2_bf16_ms", "host_ms")
 
     def numbers(r):
-        return {key: r[key] for key in keys if key in r}
+        out = {key: r[key] for key in keys if key in r}
+        if "dbias" in r:
+            out["dbias"] = numbers(r["dbias"])
+        return out
 
     # launches: kernels 1-3 over the timed training steps, kernels 5 and 6
     # in the d=64 two-stream layer (their path); kernel 7 is on no path, as

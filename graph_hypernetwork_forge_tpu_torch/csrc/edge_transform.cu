@@ -77,9 +77,10 @@
 // 8 bf16 to odd multiples of 16 bytes: no bank conflicts. What bounds it:
 // bytes, half of kernel 2's (~0.4 GB at E=1.03M, d=64), against 17 GFLOP at
 // 989 TFLOP/s of dense bf16 (0.02 ms). On an H100 80GB HBM3 at 700 W it took
-// 0.219 / 0.472 ms at xl d=64 / 128 (cuBLAS's bf16 baddbmm of the same
-// products over tile-gathered banks: 0.335 / 0.712); the one-TF32-pass mode
-// 0.315 / 0.679.
+// 0.219 / 0.472 ms at xl d=64 / 128 with stores from the accumulators
+// (cuBLAS's bf16 baddbmm of the same products over tile-gathered banks:
+// 0.335 / 0.712), 0.166 / 0.384 with the staged epilogue below; the
+// one-TF32-pass mode 0.315 / 0.679.
 //
 // Kernel 5's bf16 form (the bf16 branch of the TPU kernel of
 // edge_transform_sorted, JAX :90-103) is the kTwo mode of that body, as
@@ -89,7 +90,22 @@
 // the banks transposed ([U, d_out, d_in]) and a zero bias, so d_in and d_out
 // are free: K slices and column slabs past an edge are zero-filled, the
 // stores masked. What bounds it: bytes, half of kernel 5's f32 form (~0.53
-// GB at E=1.03M, d=64: 0.16 ms).
+// GB at E=1.03M, d=64: 0.16 ms), of which its two [E, d_out] outputs are
+// half.
+//
+// The bf16 body's epilogue (kernels 2 and 5). Stored from the accumulators,
+// each warp store wrote 4 bytes into each of 8 rows, so an output row was
+// filled by several partial stores. Where d_out % 8 == 0 the tile now
+// leaves through shared memory instead (kStageOut): once the last product
+// is done the ring's space holds the [128][kBN + 8] bf16 tile, each thread
+// writes its pairs (bias added in f32, one rounding), and the block stores
+// whole output rows in 16-byte pieces; the masked scalar stores stay for
+// d_out % 8 != 0. At 64-column slabs the body runs 3 blocks an SM (80
+// registers), so one block's stores overlap another's loads; at 128, 2 (3
+// spill). On an H100 80GB HBM3 at 700 W (scripts/tune_edge_kernels.py, xl
+// d=64 / 128): kernel 5 0.218 / 0.474 ms against 0.328 / 0.695 stored from
+// the accumulators (0.335 / 0.691 for the parent commit's body), 0.256 at
+// d=64 with 2 blocks an SM; kernel 2 0.166 / 0.384 against 0.208 / 0.469.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -352,11 +368,25 @@ constexpr int smem_bytes_h() {
   return kStages2 * (BM2 * kXStrideH + BKH * w_stride_h<kBN>()) * 2;
 }
 
+// The bf16 body's output tile [BM2][kBN] leaves through shared memory (the
+// ring's space, once the last product is done) in 16-byte stores of whole
+// rows where d_out % 8 == 0; else each thread stores its accumulators.
+constexpr bool kStageOut = true;
+// Resident blocks an SM the bf16 body is compiled for: 3 at 64-column slabs
+// (80 registers, no spills), 2 at 128 (128 registers; 3 spilled and ran
+// slower, scripts/tune_edge_kernels.py).
+template <int kBN>
+__host__ __device__ constexpr int blocks_h() { return kBN == 64 ? 3 : 2; }
+template <int kBN>
+__host__ __device__ constexpr int out_stride_h() { return kBN + 8; }  // odd x 16 bytes
+static_assert(BM2 * out_stride_h<64>() * 2 <= smem_bytes_h<64>(), "staged tile fits");
+static_assert(BM2 * out_stride_h<128>() * 2 <= smem_bytes_h<128>(), "staged tile fits");
+
 // kTwo (kernel 5): blockIdx.z 0 writes msg (x_src, W_msg, the bias) to
 // out, 1 writes selfc (x_dst, W_self) to out_self. Else (kernel 2) the sum
 // of both with the bias to out.
 template <int kBN, bool kVec, bool kTwo>
-__global__ void __launch_bounds__(kThreads2, 2)
+__global__ void __launch_bounds__(kThreads2, blocks_h<kBN>())
 edge_transform_bf16_kernel(const bf16* __restrict__ x_src,
                            const bf16* __restrict__ x_dst,
                            const int32_t* __restrict__ rel_sorted,
@@ -470,9 +500,47 @@ edge_transform_bf16_kernel(const bf16* __restrict__ x_src,
     }
   }
 
+  // The bias is added in f32 and the sum rounded once to bf16.
   const bf16* __restrict__ b_rel = bias + (int64_t)rel * d_out;
   const bool with_bias = plane == 0;
   bf16* __restrict__ dst0 = plane ? out_self : out;
+  if constexpr (kVec && kStageOut) {
+    // Fragments -> the staged tile [BM2][kOS] (pairs of columns: each warp
+    // store covers 8 rows x 4 pairs in 32 distinct banks) -> 16-byte
+    // pieces of whole output rows, consecutive threads on consecutive
+    // pieces of a row.
+    constexpr int kOS = out_stride_h<kBN>();
+    bf16* const Os = As;
+    tf32x3::cp_async_wait<0>();
+    __syncthreads();  // every warp is done with the ring
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int c = wn * (kBN / 2) + j * 8 + 2 * tig;
+      const int n = col0 + c;
+      // d_out % 8 == 0: n and n + 1 both in or both out
+      const float bias0 = with_bias && n < d_out ? __bfloat162float(b_rel[n]) : 0.f;
+      const float bias1 = with_bias && n < d_out ? __bfloat162float(b_rel[n + 1]) : 0.f;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = wm * 32 + i * 16 + gid + 8 * h;
+          *reinterpret_cast<__nv_bfloat162*>(Os + r * kOS + c) = bf16mma::pack(
+              acc[i][j][2 * h] + bias0, acc[i][j][2 * h + 1] + bias1);
+        }
+    }
+    __syncthreads();
+    const int cols = min(kBN, d_out - col0);  // a multiple of 8
+#pragma unroll
+    for (int v = tid; v < BM2 * kBN / 8; v += kThreads2) {
+      const int r = v / (kBN / 8), c = (v % (kBN / 8)) * 8;
+      const int64_t row = row0 + r;
+      if (row < num_edges && c < cols)
+        *reinterpret_cast<uint4*>(dst0 + row * d_out + col0 + c) =
+            *reinterpret_cast<const uint4*>(Os + r * kOS + c);
+    }
+    return;
+  }
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
     const int n = col0 + wn * (kBN / 2) + j * 8 + 2 * tig;

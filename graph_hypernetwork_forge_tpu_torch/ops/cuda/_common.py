@@ -96,15 +96,16 @@ def require_same_dtype(kernel: str, **data: torch.Tensor) -> torch.dtype:
     return next(iter(dtypes.values()))
 
 
-# Ticket counters of kernels 3 and 6's in-kernel dW reduction, one buffer
-# per (device, stream); see run_counters.
+# Ticket counters of the kernels' ordered last-arriver reductions (kernels
+# 3 and 6's dW, kernels 1 and 7's segments that cross row blocks), one
+# buffer per (device, stream); see run_counters.
 _COUNTERS: dict = {}
 
 
-def run_counters(device: torch.device, n: int) -> torch.Tensor:
-    """At least ``n`` int32 ticket counters for kernels 3 and 6's ordered
-    last-arriver dW reduction (``csrc/run_reduce.cuh``) on the current
-    stream of ``device``.
+def run_counters(device: torch.device, n: int, stream=None) -> torch.Tensor:
+    """At least ``n`` int32 ticket counters for an ordered last-arriver
+    reduction (``csrc/run_reduce.cuh``: kernels 3 and 6's dW, kernels 1 and
+    7's segments that cross row blocks) on the current stream of ``device``.
 
     One buffer is kept per device and stream, zeroed once when it is made,
     and each launch leaves every counter it used at zero again, so the
@@ -112,7 +113,9 @@ def run_counters(device: torch.device, n: int) -> torch.Tensor:
     per call would cost a fill launch on every call; one per stream keeps
     launches on two streams, which may run at once, apart.
     """
-    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    if stream is None:
+        stream = torch.cuda.current_stream(device)
+    key = (device.index, stream.cuda_stream)
     buf = _COUNTERS.get(key)
     if buf is None or buf.numel() < n:
         # Stream-ordered: a larger buffer is zeroed after the launches that
@@ -144,7 +147,7 @@ def vec16(*tensors: torch.Tensor, widths: tuple[int, ...],
     """1 when a kernel may move 16 bytes at a time: every row width is a
     multiple of 16 bytes of ``dtype`` (4 floats, 8 bf16) and every tensor
     starts 16-byte aligned; else 0."""
-    per16 = 16 // torch.empty((), dtype=dtype).element_size()
+    per16 = 16 // dtype.itemsize
     return int(
         all(w % per16 == 0 for w in widths)
         and all(t.data_ptr() % 16 == 0 for t in tensors)

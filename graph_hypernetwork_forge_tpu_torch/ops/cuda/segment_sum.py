@@ -13,10 +13,13 @@ its own bounds, in one pass: the function of the TPU kernel
 ``dual_sorted_segment_sum_pallas`` (same file, :463). Forward only, as
 there.
 
-On the card the kernels split the rows into fixed chunks, one warp each,
-and add the pieces of segments that cross chunks in a second pass, so a
-segment of any length costs no more than its rows; the sums are bitwise
-deterministic. Both kernels also take bf16 rows (the speed mode's, the TPU
+On the card each kernel is one launch. It splits the rows into fixed
+blocks, and each block's lane groups sum consecutive spans of rows as
+segmented sums; the pieces of segments that cross spans are joined in the
+block, and those that cross blocks by the block that draws a segment's last
+ticket (int32 counters, left at zero). So a segment of any length costs no
+more than its rows, and the sums are bitwise deterministic. Both kernels
+also take bf16 rows (the speed mode's, the TPU
 kernels' bf16 branch): read as bf16, summed and written in f32. And both
 take the TPU kernels' ``mode``: ``"exact"``, or ``"fast"``, in which f32
 rows are rounded to bf16 (to nearest even) as they are read and then summed
@@ -75,12 +78,13 @@ _VEC = dict(f32=4, bf16=8, fast=4)
 def _lib() -> ctypes.CDLL:
     lib = load("segment_sum")
     stream = [ctypes.c_void_p] * 4 + [ctypes.c_int64]
+    tail = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     for form in _ENTRY:
         one, dual = getattr(lib, _ENTRY[form]), getattr(lib, _DUAL_ENTRY[form])
-        one.argtypes = stream + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        dual.argtypes = stream * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        one.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] + tail
+        dual.argtypes = stream * 2 + [ctypes.c_void_p] + tail
         one.restype = dual.restype = ctypes.c_int
-    lib.ghf_csr_rows_per_chunk.restype = ctypes.c_int
+    lib.ghf_csr_rows_per_block.restype = ctypes.c_int
     return lib
 
 
@@ -99,10 +103,44 @@ def _check_stream(name, dev, x_sorted, splits, num_segments) -> None:
         )
 
 
-def _scratch(lib, rows: int, d: int, dev) -> torch.Tensor:
-    """Scratch for the pieces of segments that cross row chunks."""
-    chunks = -(-rows // lib.ghf_csr_rows_per_chunk())
-    return torch.empty((2 * chunks * d,), dtype=torch.float32, device=dev)
+@functools.cache
+def _rows_per_block() -> int:
+    return _lib().ghf_csr_rows_per_block()
+
+
+def _blocks(rows: int) -> int:
+    """Row blocks of one stream: at least one, so that a call whose
+    segments are all empty still writes their zeros."""
+    return max(1, -(-rows // _rows_per_block()))
+
+
+def _launch(name, entry, form, dev, streams, num_segments, d) -> list[torch.Tensor]:
+    """One launch of ``entry`` over ``streams`` (``(x_sorted, splits)``
+    pairs of one shape and dtype) → their f32 sums. Sizes the scratch (two
+    pieces a row block) and the ticket counters (one per row block and
+    32-lane column window, kept per stream by ``_common.run_counters``)."""
+    rows = int(streams[0][0].shape[0])
+    blocks = _blocks(rows)
+    outs = [torch.empty((num_segments, d), dtype=torch.float32, device=dev) for _ in streams]
+    parts = [torch.empty((2 * blocks * d,), dtype=torch.float32, device=dev) for _ in streams]
+    dtype = streams[0][0].dtype
+    vec = _VEC[form] if _common.vec16(*(x for x, _ in streams), *outs, *parts,
+                                      widths=(d,), dtype=dtype) else 1
+    windows = max(1, -(-(d // vec) // 32))
+    stream = torch.cuda.current_stream(dev)
+    counters = _common.run_counters(dev, len(streams) * blocks * windows, stream)
+    args = []
+    for (x, splits), out, part in zip(streams, outs, parts):
+        args += [x.data_ptr(), splits.data_ptr(), out.data_ptr(), part.data_ptr()]
+        if len(streams) == 1:
+            args.append(counters.data_ptr())
+        args.append(rows)
+    if len(streams) == 2:
+        args.append(counters.data_ptr())
+    with torch.cuda.device(dev):
+        code = entry(*args, num_segments, d, vec, stream.cuda_stream)
+    _common.raise_on_error(name, code)
+    return outs
 
 
 def csr_segment_sum(
@@ -127,18 +165,8 @@ def csr_segment_sum(
     _common.require_inference(_NAME, x_sorted)
     dev = x_sorted.device
     _check_stream(_NAME, dev, x_sorted, splits, num_segments)
-    rows, d = (int(s) for s in x_sorted.shape)
-    lib = _lib()
-    out = torch.empty((num_segments, d), dtype=torch.float32, device=dev)
-    partial = _scratch(lib, rows, d, dev)
-    vec = _common.vec16(x_sorted, out, partial, widths=(d,), dtype=x_sorted.dtype)
-    with torch.cuda.device(dev):
-        code = getattr(lib, _ENTRY[form])(
-            _common.ptr(x_sorted), _common.ptr(splits), _common.ptr(out),
-            _common.ptr(partial), rows, num_segments, d, _VEC[form] if vec else 1,
-            _common.stream_of(dev),
-        )
-    _common.raise_on_error(_NAME, code)
+    (out,) = _launch(_NAME, getattr(_lib(), _ENTRY[form]), form, dev,
+                     [(x_sorted, splits)], num_segments, int(x_sorted.shape[1]))
     _common.count_launch(csr_segment_sum, form)
     return out
 
@@ -202,24 +230,9 @@ def dual_sorted_segment_sum(
     _check_stream(_DUAL, dev, xa_sorted, splits_a, num_segments)
     _check_stream(_DUAL, dev, xb_sorted, splits_b, num_segments)
     _common.require_same_dtype(_DUAL, xa_sorted=xa_sorted, xb_sorted=xb_sorted)
-    rows, d = (int(s) for s in xa_sorted.shape)
-    lib = _lib()
-    out_a, out_b = (
-        torch.empty((num_segments, d), dtype=torch.float32, device=dev)
-        for _ in range(2)
-    )
-    part_a, part_b = (_scratch(lib, rows, d, dev) for _ in range(2))
-    vec = _common.vec16(xa_sorted, xb_sorted, out_a, out_b, part_a, part_b,
-                        widths=(d,), dtype=xa_sorted.dtype)
-    with torch.cuda.device(dev):
-        code = getattr(lib, _DUAL_ENTRY[form])(
-            _common.ptr(xa_sorted), _common.ptr(splits_a), _common.ptr(out_a),
-            _common.ptr(part_a), rows,
-            _common.ptr(xb_sorted), _common.ptr(splits_b), _common.ptr(out_b),
-            _common.ptr(part_b), rows,
-            num_segments, d, _VEC[form] if vec else 1, _common.stream_of(dev),
-        )
-    _common.raise_on_error(_DUAL, code)
+    out_a, out_b = _launch(_DUAL, getattr(_lib(), _DUAL_ENTRY[form]), form, dev,
+                           [(xa_sorted, splits_a), (xb_sorted, splits_b)],
+                           num_segments, int(xa_sorted.shape[1]))
     _common.count_launch(dual_sorted_segment_sum, form)
     return out_a, out_b
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time variants of kernels 2, 3, 5 and 6 side by side at the xl shapes.
+"""Time variants of kernels 1, 2, 3, 5, 6 and 7 side by side at the xl shapes.
 
     python3 scripts/tune_edge_kernels.py [--only SOURCE ...] [CSRC_DIR ...]
 
@@ -9,12 +9,15 @@ under ``build/variants/`` with a few lines of a kernel source changed (the
 first place each line occurs), built with the port's nvcc flags; the
 wrappers then launch it in place of the built-in library.
 ``edge_transform.cu`` holds kernels 2 and 5, so each of its variants
-times both. Variants named "ablation: ..." leave out part of the work (the
+times both; ``segment_sum.cu`` holds kernels 1 and 7, timed over the xl
+layout's dst_splits (and src_splits for kernel 7's second stream) and at
+the dbias shape (rel_splits), in f32 and on bf16 rows. Variants named "ablation: ..." leave out part of the work (the
 products, the row loads) to show where the time goes, so their errors are
 large; kernels 2, 3, 5 and 6 are also timed in their one-TF32-pass mode
 (precision="default") and in their bf16 form. The ablations and the
 k-loop variants edit the f32 bodies, which come first in each source;
-the variants named "bf16: ..." edit kernel 3's bf16 body. Kernels 3 and 6
+the variants named "bf16: ..." edit the bf16 bodies (kernel 3's, and
+kernels 2 and 5's). Kernels 3 and 6
 are called with a run table built before the timing, as a SortPlan hands
 it down on the main path.
 Kernels 3 and 6 are timed against the library composition that computes
@@ -25,7 +28,8 @@ and timed as one more variant, source by source where its C interface is
 the same as this tree's (else that source is skipped), so that two
 versions compare within one call. Kernels 3 and 6 are also timed at other
 run lengths than the SortPlan's (``RUN_TILES``, ``data/encoding.py``). ``--only`` keeps the named sources
-(``edge_transform``, ``edge_transform_bwd``, ``segment_outer``). Every
+(``edge_transform``, ``edge_transform_bwd``, ``segment_outer``,
+``segment_sum``). Every
 line gives the best of three CUDA-event means of the wrapper (20 launches
 each) and the max error against the plain version (kernels 3 and 6: scaled
 by max(1, max|plain|)); each source build's call is also broken down by
@@ -57,14 +61,19 @@ from graph_hypernetwork_forge_tpu_torch.ops.cuda import edge_transform_bwd as k3
 
 # The package re-exports the function segment_outer under the module's name.
 k6 = importlib.import_module("graph_hypernetwork_forge_tpu_torch.ops.cuda.segment_outer")
+k1 = importlib.import_module("graph_hypernetwork_forge_tpu_torch.ops.cuda.segment_sum")
 
 OUT = ROOT / "build" / "variants"
 # The wrapper module of each source.
-MODULES = {"edge_transform": k2, "edge_transform_bwd": k3, "segment_outer": k6}
+MODULES = {"edge_transform": k2, "edge_transform_bwd": k3, "segment_outer": k6,
+           "segment_sum": k1}
 C_FUNCTIONS = ("ghf_edge_transform", "ghf_edge_transform_bf16", "ghf_edge_transform_two",
                "ghf_edge_transform_two_bf16", "ghf_edge_transform_bwd",
                "ghf_edge_transform_bwd_bf16", "ghf_segment_outer", "ghf_segment_outer_bf16",
-               "ghf_run_table")
+               "ghf_run_table", "ghf_csr_segment_sum", "ghf_csr_segment_sum_bf16",
+               "ghf_csr_segment_sum_fast", "ghf_dual_csr_segment_sum",
+               "ghf_dual_csr_segment_sum_bf16", "ghf_dual_csr_segment_sum_fast",
+               "ghf_csr_rows_per_block")
 
 K3_UNROLL = ("#pragma unroll 2\n        for (int kb = 0; kb < DOUT",
              "#pragma unroll 2\n        for (int kb = 0; kb < BM")
@@ -73,6 +82,7 @@ DW = "      // ---- 2. dW += X^T g: warps 4 (x_src^T, x_dst^T rows) x 2 (d_out) 
 K3H_STAGES = "  static constexpr int kStages = 4;"
 K3H_BLOCKS = "kMinBlocks = 1;"
 K2_KSTEPS = "#pragma unroll 1\n    for (int ks = 0; ks < BK2 / 8; ++ks) {"
+K1_BATCH = "__host__ __device__ constexpr int batch_rows() { return VEC == 1 ? 8 : 4; }"
 K6_KSTEPS = "#pragma unroll 2\n    for (int kb = 0; kb < BM; kb += 8) {"
 VARIANTS = {
     "edge_transform_bwd": {
@@ -117,6 +127,21 @@ VARIANTS = {
         "ablation: products only, no row loads": [
             ("    if (s < chunks) load(s, s);", ""),
             ("      load(c + kStages2 - 1, (c + kStages2 - 1) % kStages2);", "      ;")],
+        "bf16: stores from the accumulators": [(
+            "constexpr bool kStageOut = true;", "constexpr bool kStageOut = false;")],
+        "bf16: two blocks an SM at d_out <= 64": [(
+            "return kBN == 64 ? 3 : 2;", "return 2;")],
+    },
+    "segment_sum": {
+        "source": [],
+        "batches of 8 rows": [(K1_BATCH, K1_BATCH.replace("? 8 : 4", "? 8 : 8"))],
+        "batches of 8 rows, 3 blocks an SM": [
+            (K1_BATCH, K1_BATCH.replace("? 8 : 4", "? 8 : 8")),
+            ("constexpr int kMinBlocks = 4;", "constexpr int kMinBlocks = 3;")],
+        "blocks of 1024 rows": [("constexpr int kBlockRows = 2048;",
+                                 "constexpr int kBlockRows = 1024;")],
+        "blocks of 4096 rows": [("constexpr int kBlockRows = 2048;",
+                                 "constexpr int kBlockRows = 4096;")],
     },
     "segment_outer": {
         "source": [],
@@ -260,6 +285,8 @@ def main(argv: list[str]) -> int:
 
     dev = torch.device("cuda")
     g = cs._kernel_graph()
+    plan = g.sort_plan.to(dev)
+    n_nodes = g.sort_plan.dst_splits.shape[0] - 1
     rel = torch.as_tensor(g.rel_ids, device=dev)
     e_rows, u_pad = g.rel_ids.shape[0], g.char_ids.shape[0]
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -282,6 +309,16 @@ def main(argv: list[str]) -> int:
         plain3 = k3.edge_transform_combined_bwd_plain(*bwd)
         plain5 = k2.edge_transform_sorted_plain(*fwd)
         plain6 = k6.segment_outer_plain(*outer)
+        # Kernels 1 and 7: the rows summed over the dst-sorted and
+        # src-sorted bounds, and over rel_splits (dbias: 240 segments).
+        sums = {}
+        for form, t in (("f32", g_out), ("bf16", g_out.bfloat16())):
+            sums[form] = [
+                (f"kernel 1, {form}", (t, plan.dst_splits, n_nodes)),
+                (f"kernel 1 at dbias, {form}", (t, plan.rel_splits, u_pad)),
+                (f"kernel 7, {form}", (xs.to(t.dtype), t, n_nodes, plan.src_splits,
+                                       plan.dst_splits)),
+            ]
         # (label, call, plain result, error) of each source's kernels.
         kernels_of = {
             "edge_transform": [
@@ -296,6 +333,15 @@ def main(argv: list[str]) -> int:
                  plain5, abs_err),
                 ("kernel 5, bf16", lambda: k2.edge_transform_sorted(*fwd_h),
                  k2.edge_transform_sorted_plain(*fwd_h), bf16_err),
+                ("kernel 2, bf16", lambda: k2.edge_transform_sorted_combined(*fwd_h),
+                 k2.edge_transform_sorted_combined_plain(*fwd_h), bf16_err),
+            ],
+            "segment_sum": [
+                (label, (lambda a=a: (k1.dual_sorted_segment_sum if len(a) == 5
+                                      else k1.csr_segment_sum)(*a)),
+                 (k1.dual_sorted_segment_sum_plain if len(a) == 5
+                  else k1.csr_segment_sum_plain)(*a), scaled_err)
+                for form in ("f32", "bf16") for label, a in sums[form]
             ],
             "edge_transform_bwd": [
                 ("kernel 3", lambda: k3.edge_transform_combined_bwd(*bwd, runs=runs["k3"]),
@@ -358,13 +404,16 @@ def main(argv: list[str]) -> int:
                     err = err_of(call(), want)
                     ms = best_ms(call)
                     at = f", runs of {run_tiles} tiles" if with_runs else ""
-                    print(f"{label} d={d} {name}{at}: {ms:.4f} ms, err {err:.2e}", flush=True)
+                    alone = (f", kernel alone {cs.kernel_ms(call, 'csr_segment_sum_kernel'):.4f}"
+                             if src == "segment_sum" else "")
+                    print(f"{label} d={d} {name}{at}: {ms:.4f} ms{alone}, err {err:.2e}",
+                          flush=True)
                     if name == "source" and run_tiles in (None, RUN_TILES):
                         # Device time of one call by kernel.
                         cs.profile_device(f"{label} d={d} {name}", call, rows=8)
             mod._lib = own[src]
         del xs, xd, g_out, wm, ws, bias, fwd, bwd, outer, kernels_of, plain2, plain3
-        del fwd_h, bwd_h, outer_h, plain5, plain6, runs
+        del fwd_h, bwd_h, outer_h, plain5, plain6, runs, sums
         torch.cuda.empty_cache()
     return 0
 

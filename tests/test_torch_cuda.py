@@ -49,7 +49,15 @@ from graph_hypernetwork_forge_tpu_torch.training.train import (
     make_train_step,
 )
 from graph_hypernetwork_forge_tpu_torch.utils.initializers import named_leaves, tree_map
-from torch_cases import edge_case, run_case, segment_case
+from torch_cases import (
+    CSR_CASES,
+    csr_case,
+    csr_lanes_per_row,
+    edge_case,
+    emulate_csr_segment_sum,
+    run_case,
+    segment_case,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -119,6 +127,80 @@ def test_csr_kernel_reads_only_rows_inside_the_bounds(dev):
     # The reference sums the same bounds of `padded`: a junk row summed in
     # would miss it by ~1e6.
     _check_csr(padded, shifted, 90, dev)
+
+
+def _csr_form_case(name, d, form, dev, seed=0):
+    """Kernel 1's input in ``form`` at a named layout: ``(rows on dev,
+    splits on dev, n, splits, rows as the kernel widens them, lanes a
+    row)``."""
+    rows, splits, n = csr_case(name, seed)
+    x = np.random.default_rng(seed + d).standard_normal((rows, d)).astype(np.float32)
+    xt = torch.from_numpy(x).to(dev)
+    if form == "bf16":
+        xt = xt.bfloat16()
+    widened = (xt if form == "f32" else xt.bfloat16()).float().cpu().numpy()
+    per16 = 8 if form == "bf16" else 4
+    lanes = csr_lanes_per_row(d, per16 if d % per16 == 0 else 1)
+    return xt, torch.from_numpy(splits).to(dev), n, splits, widened, lanes
+
+
+@pytest.mark.parametrize("form", ["f32", "bf16", "fast"])
+@pytest.mark.parametrize("d", [3, 64, 128, 256])
+@pytest.mark.parametrize("name", CSR_CASES)
+def test_csr_kernel_is_bitwise_its_partition_emulation(dev, name, d, form):
+    # The one-launch kernel against torch_cases.emulate_csr_segment_sum:
+    # the same partition and order of f32 sums, so the same bits; d=3 takes
+    # the one-element loads, 256 two column windows.
+    xt, st, n, splits, widened, lanes = _csr_form_case(name, d, form, dev)
+    mode = "fast" if form == "fast" else "exact"
+    kernels.reset_launch_counts()
+    a, b = csr_segment_sum(xt, st, n, mode), csr_segment_sum(xt, st, n, mode)
+    torch.cuda.synchronize()
+    assert csr_segment_sum.launches_by_form[form] == 2
+    assert torch.equal(a, b), "two runs differ"
+    want, _ = emulate_csr_segment_sum(widened, splits, n, lanes)
+    assert torch.equal(a.cpu(), torch.from_numpy(want)), "not the emulation's bits"
+    _check_sums(a, widened, splits, n)
+    assert not a[torch.from_numpy(np.diff(splits[: n + 1]) == 0).to(dev)].any()
+
+
+@pytest.mark.parametrize("form", ["f32", "bf16", "fast"])
+def test_csr_kernels_over_two_layouts_in_turn(dev, form):
+    # The ticket counters are one buffer per stream, left at zero by each
+    # launch: layouts in turn, and kernel 7 between them, give the same bits.
+    mode = "fast" if form == "fast" else "exact"
+    a = _csr_form_case("pad_segment", 64, form, dev)
+    b = _csr_form_case("dbias_like", 64, form, dev)
+    first = [csr_segment_sum(t[0], t[1], t[2], mode) for t in (a, b)]
+    dual = dual_sorted_segment_sum(a[0][: b[0].shape[0]], b[0], b[2], b[1], b[1], mode)
+    again = [csr_segment_sum(t[0], t[1], t[2], mode) for t in (a, b, a)]
+    dual_again = dual_sorted_segment_sum(a[0][: b[0].shape[0]], b[0], b[2], b[1], b[1], mode)
+    torch.cuda.synchronize()
+    for x, y in zip(first + first[:1], again):
+        assert torch.equal(x, y), "a layout run before changed the result"
+    assert all(torch.equal(x, y) for x, y in zip(dual, dual_again))
+    assert torch.equal(dual[1], first[1])
+
+
+@pytest.mark.parametrize("form", ["f32", "bf16", "fast"])
+@pytest.mark.parametrize("name", ["pad_segment", "dbias_like", "splits0_positive", "all_empty"])
+def test_dual_kernel_is_bitwise_two_partition_emulations(dev, name, form):
+    # Stream a at the named layout, stream b at random bounds over as many
+    # rows: each stream is summed as kernel 1 sums it alone.
+    xa, sa, n, splits_a, wa, lanes = _csr_form_case(name, 64, form, dev)
+    rng = np.random.default_rng(3)
+    ids = np.sort(rng.integers(0, n, xa.shape[0]))
+    splits_b = np.searchsorted(ids, np.arange(n + 1)).astype(np.int32)
+    xb = xa.flip(0).contiguous()
+    mode = "fast" if form == "fast" else "exact"
+    kernels.reset_launch_counts()
+    got = dual_sorted_segment_sum(xa, xb, n, sa, torch.from_numpy(splits_b).to(dev), mode)
+    torch.cuda.synchronize()
+    assert kernels.dual_sorted_segment_sum.launches_by_form[form] == 1
+    for out, x, splits in zip(got, (wa, wa[::-1].copy()), (splits_a, splits_b)):
+        want, _ = emulate_csr_segment_sum(x, splits, n, lanes)
+        assert torch.equal(out.cpu(), torch.from_numpy(want)), "not the emulation's bits"
+        _check_sums(out, x, splits, n)
 
 
 @pytest.mark.parametrize("d", [40, 64, 128])
@@ -652,6 +734,37 @@ def test_edge_transform_sorted_kernel_bf16_form_matches_plain(dev, d_in, d_out, 
     for name, a, w in zip(("msg", "selfc"), got, kernels.edge_transform_sorted_plain(*args)):
         assert a.dtype == torch.bfloat16, name
         _within_ulp(a.cpu(), w.cpu(), name)
+
+
+@pytest.mark.parametrize("d_out", [40, 64, 128, 192])
+@pytest.mark.parametrize("tail_cut", [0, 100])
+@pytest.mark.parametrize("kernel", ["combined", "two", "two_transposed_banks"])
+def test_bf16_transform_body_stages_every_slab_width(dev, d_out, tail_cut, kernel):
+    # Kernels 2 and 5's bf16 body stores its output tile through shared
+    # memory in 16-byte row pieces (one 64-column slab, one 128, or two at
+    # 192): within one ulp of the plain version and the same bits twice;
+    # kernel 5 also as its backward's dx runs it, on cotangents [E, d_out]
+    # through the banks transposed to [U, d_out, 64] with a zero bias.
+    xs, xd, rel, wm, ws, b = (torch.from_numpy(a).to(dev)
+                              for a in run_case(29, 64, d_out, tail_cut))
+    if kernel == "two_transposed_banks":
+        gen = torch.Generator().manual_seed(d_out)
+        xs, xd = (torch.randn((rel.shape[0], d_out), generator=gen).to(dev) for _ in range(2))
+        wm, ws = (w.transpose(1, 2).contiguous() for w in (wm, ws))
+        b = torch.zeros((b.shape[0], 64), device=dev)
+    args = [t.bfloat16() if t.is_floating_point() else t for t in (xs, xd, rel, wm, ws, b)]
+    fn, plain = ((edge_transform_sorted_combined, edge_transform_sorted_combined_plain)
+                 if kernel == "combined"
+                 else (kernels.edge_transform_sorted, kernels.edge_transform_sorted_plain))
+    kernels.reset_launch_counts()
+    got, again = fn(*args), fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches_by_form["bf16"] == 2
+    got, again, want = ((t,) if kernel == "combined" else t
+                        for t in (got, again, plain(*args)))
+    for a, a2, w in zip(got, again, want):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, a2)
+        _within_ulp(a.cpu(), w.cpu(), kernel)
 
 
 @pytest.mark.parametrize("d_in,d_out", [(64, 64), (128, 128), (40, 72), (36, 30), (32, 200)])
