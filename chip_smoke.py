@@ -8,6 +8,9 @@ It imports the port (``graph_hypernetwork_forge_tpu_torch``) and nothing of
 JAX, and fails (non-zero exit, no result line) on any failed phase:
 
 1. device: require CUDA, print the card's name and power limit, TF32 off;
+   native: build ``native/ghf_native.cpp`` with g++ and load it (the host
+   encoder's dedup, tokenizer and sorts, the sampler's hops); fail without
+   it, and print which path encodes;
 2. build: compile the four CUDA sources of ``csrc/`` with nvcc, in
    parallel;
 3. kernels: each of the six kernels against its plain PyTorch version at
@@ -44,7 +47,9 @@ JAX, and fails (non-zero exit, no result line) on any failed phase:
    and 2 must each have launched 2 × 3 times, the outputs must be finite,
    and the first request must agree with the ``gather`` oracle on the card
    and a toy graph with the CPU run of the same model; one more warm
-   request's device time is broken down by kernel with torch.profiler;
+   request's device time is broken down by kernel with torch.profiler,
+   and its host encode by stage (dedup, tokenize, relation sort, group
+   pad, sort plan);
 5. training: the same xl model (seed 0) takes 1 warm-up and 5 timed
    full-graph steps (``make_train_step(neg_mode="roll")``, Adam lr 1e-3,
    dropout 0, all positives): finite losses, the per-step launches of the
@@ -86,7 +91,29 @@ JAX, and fails (non-zero exit, no result line) on any failed phase:
 8. dense and chunked: the bench config in the stored edge order, per-layer
    embeddings and parameter gradients against the card's ``gather`` oracle
    and against the CPU;
-9. the training line, the kernels line (each kernel, then each bf16 form,
+9. link prediction (BASELINE.json #2, #3 at scale 1.0): FB15k-237-like
+   (14,541 nodes, 310,116 edges, 237 relations; text 64, F = H = 64, 2
+   layers) trains 20 steps on its train split on the kernel layout
+   (kernels 1-3, launches equal to the count derived from the code) with
+   a MetricsLogger and a PhaseTimer, saves an async checkpoint at step 10
+   and restores it into a fresh state, whose steps 10-20 must equal the
+   uninterrupted run's bitwise (parameters and Adam moments); filtered MRR
+   and Hits@1/3/10 of the test split against every node, all edges as the
+   filter, the ranks equal to a float64 ranking on the card wherever no
+   candidate lies within 1e-5 x max|score| of the target; then
+   WN18RR-zero-shot-like (40,943 nodes, 93,003 edges, 11 relations, 27%
+   held out) trains 20 steps and ranks the held-out relations' test edges
+   (weights from text alone); ms/step, evaluation, checkpoint save (return
+   and commit) and restore times;
+10. minibatch (BASELINE.json #4 at benchmarks/minibatch_xxl.py's shapes:
+   N=1M, E=10M, U=237, F = H = 64, batch 1024, fanouts (10, 10), nodes
+   padded to multiples of 32,768): one step at the bench size on the card
+   against the same batch and negatives on the CPU, then 1 warm-up and 5
+   timed steps, each split into host sampling, host-to-device copies and
+   the device step (CUDA events), the backend ``auto`` picks (``grouped``,
+   as in JAX; no kernel launches), subgraph sizes, peak memory, and one
+   profiled device step;
+11. the training line, the kernels line (each kernel, then each bf16 form,
    one-TF32-pass mode and ``mode="fast"`` as an entry of its own,
    ``name[form]``, with its launches on its path), the card line and the
    result line, which is
@@ -96,10 +123,12 @@ JAX, and fails (non-zero exit, no result line) on any failed phase:
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -115,7 +144,17 @@ sys.path.insert(0, str(ROOT))
 
 import torch  # noqa: E402
 
-from graph_hypernetwork_forge_tpu_torch.data.encoding import encode_graph  # noqa: E402
+from graph_hypernetwork_forge_tpu_torch import native_bridge  # noqa: E402
+from graph_hypernetwork_forge_tpu_torch.data.datasets import (  # noqa: E402
+    fb15k237_like,
+    wn18rr_zero_shot_like,
+)
+from graph_hypernetwork_forge_tpu_torch.data.encoding import (  # noqa: E402
+    build_sort_plan,
+    dedup_texts,
+    encode_graph,
+    relation_order,
+)
 from graph_hypernetwork_forge_tpu_torch.data.knowledge_graph import (  # noqa: E402
     ToyKnowledgeGraph,
 )
@@ -140,14 +179,24 @@ from graph_hypernetwork_forge_tpu_torch.ops.message_passing import (  # noqa: E4
 )
 from graph_hypernetwork_forge_tpu_torch.ops.scoring import score_all_tails  # noqa: E402
 from graph_hypernetwork_forge_tpu_torch.training import (  # noqa: E402
+    MinibatchSpec,
+    MinibatchTrainer,
     adam,
     create_train_state,
+    evaluate_link_prediction,
     make_train_step,
+    restore_checkpoint,
+    save_checkpoint,
+    wait_for_checkpoints,
 )
 from graph_hypernetwork_forge_tpu_torch.utils.initializers import (  # noqa: E402
     named_leaves,
     tree_map,
 )
+from graph_hypernetwork_forge_tpu_torch.utils.metrics import MetricsLogger  # noqa: E402
+from graph_hypernetwork_forge_tpu_torch.utils.profiling import PhaseTimer  # noqa: E402
+from graph_hypernetwork_forge_tpu_torch.utils.shapes import pad_bucket_relations  # noqa: E402
+from graph_hypernetwork_forge_tpu_torch.utils.text import tokenize_texts  # noqa: E402
 
 # The xl config (benchmarks/scaling.py): N, E, U, text_dim, width, layers.
 XL_N, XL_E, XL_U, TEXT_DIM, WIDTH, LAYERS = 50_000, 1_000_000, 237, 64, 64, 2
@@ -156,6 +205,15 @@ REQUESTS, QUERY_HEADS, TOP_K = 3, 256, 10
 # (benchmarks/scaling.py), and the bench config (bench.py) of the parity run.
 TRAIN_STEPS, LEARNING_RATE = 5, 1e-3
 BENCH_N, BENCH_E, BENCH_U, PARITY_STEPS = 1_000, 10_000, 50, 3
+# Link prediction (BASELINE.json #2, #3): the datasets' scale, the steps,
+# the step the run is checkpointed and resumed at, and the evaluator's chunk.
+LINKPRED_SCALE, LINKPRED_STEPS, LINKPRED_RESUME_AT = 1.0, 20, 10
+EVAL_CHUNK = 1024
+# Minibatch (BASELINE.json #4, benchmarks/minibatch_xxl.py:45-76): the
+# graph, the trainer's spec, and the steps timed after one warm-up.
+MB_N, MB_E, MB_U = 1_000_000, 10_000_000, 237
+MB_SPEC = dict(batch_size=1024, fanouts=(10, 10), node_bucket_multiple=32_768)
+MB_TIMED = 5
 
 # NVIDIA H100 SXM data sheet, at the 700 W limit: HBM3 bandwidth, the f32
 # rate outside the tensor cores, and the dense TF32 rate of the tensor cores.
@@ -277,6 +335,9 @@ TWO_STREAM_LAUNCHES = dict(
 # One forward and backward of the model on the grouped backend with a sort
 # plan: per layer kernel 1 in the tail and for the h[src], h[dst] and bias
 # cotangents; the per-relation products are PyTorch matmuls.
+# A link-prediction step with uniform negatives: the model's launches of a
+# training step, and none in the loss (plain gathers, no sorted streams).
+LINKPRED_STEP_LAUNCHES = dict(STEP_LAUNCHES, csr_segment_sum=LAYERS * 4)
 GROUPED_LAUNCHES = dict({name: 0 for name in STEP_LAUNCHES}, csr_segment_sum=4 * LAYERS)
 GROUPED_TIMED = 3
 
@@ -436,12 +497,18 @@ def kernel_ms(fn, kernel: str, calls: int = 5) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if f"{kernel}<" in e.key and e.device_type != torch.autograd.DeviceType.CPU)
+    # Now and then the profiler hands back no record of a window's kernels
+    # (once in the H100 runs so far): the window is profiled again, three
+    # times at most.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if f"{kernel}<" in e.key and e.device_type != torch.autograd.DeviceType.CPU)
+        if us > 0:
+            break
     check(us > 0, f"torch.profiler recorded no time of {kernel}")
     return us / 1e3 / calls
 
@@ -530,6 +597,22 @@ def phase_device() -> torch.device:
     log(f"tf32: matmul {torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn {torch.backends.cudnn.allow_tf32}")
     return dev
+
+
+def phase_native() -> dict:
+    """The native host code (``native/ghf_native.cpp``), built with g++ into
+    ``build/ghf_native/`` and loaded; without it the encoder would run its
+    numpy versions, which is not the port's host path, so the run fails."""
+    t0 = time.perf_counter()
+    native = native_bridge.get_native()
+    seconds = time.perf_counter() - t0
+    check(native is not None, "native: the port's native extension did not build or load")
+    where = getattr(native, "__file__", None)
+    log(f"native: {getattr(native, '__name__', None)} from {where}, built and loaded in "
+        f"{seconds:.2f} s; host encode path: "
+        + ("native C++ (dedup, tokenizer, relation and plan sorts, sampling hops)"
+           if native is not None else "numpy"))
+    return dict(loaded=native is not None, seconds=seconds)
 
 
 def phase_build() -> None:
@@ -1344,6 +1427,7 @@ def phase_serving(dev) -> dict:
             torch.topk(score_all_tails(embs, heads), TOP_K, dim=1)
 
     profile = profile_device("one warm request", request)
+    stages = encode_stages(*requests[-1])
 
     # The first request against the gather oracle, on the card.
     oracle = HyperGNN(TEXT_DIM, WIDTH, WIDTH, LAYERS, seed=0, device=dev,
@@ -1362,7 +1446,39 @@ def phase_serving(dev) -> dict:
         f"toy graph card vs cpu {err_cpu:.3e} (tol {SERVING_ATOL})")
     check(err_oracle <= SERVING_ATOL and err_cpu <= SERVING_ATOL,
           "serving disagrees with its references")
-    return dict(launches=launches, latencies=latencies, profile=profile)
+    return dict(launches=launches, latencies=latencies, profile=profile,
+                encode_stages=stages)
+
+
+def encode_stages(ei, etexts) -> dict:
+    """One more warm request's encode (``HyperGNN.preprocess``: the kernel
+    layout with a plan) timed whole, and four stages each timed alone on the
+    same inputs: dedup, tokenize, relation sort, sort plan. The rest (group
+    pad, the text rows, the masks and copies) is not timed alone: it is the
+    whole less those four, by subtraction."""
+    t = [time.perf_counter()]
+    unique, rel_ids = dedup_texts(etexts)
+    t.append(time.perf_counter())
+    tokenize_texts(unique)
+    t.append(time.perf_counter())
+    relation_order(rel_ids, pad_bucket_relations(len(unique)))
+    t.append(time.perf_counter())
+    graph = encode(ei, etexts)
+    t.append(time.perf_counter())
+    build_sort_plan(graph.src, graph.dst, graph.rel_ids, graph.edge_mask, XL_N,
+                    graph.char_ids.shape[0])
+    t.append(time.perf_counter())
+    ms = [(b - a) * 1e3 for a, b in zip(t, t[1:])]
+    out = dict(dedup_ms=ms[0], tokenize_ms=ms[1], relation_sort_ms=ms[2],
+               sort_plan_ms=ms[4], encode_total_ms=ms[3])
+    out["rest_by_subtraction_ms"] = ms[3] - ms[0] - ms[1] - ms[2] - ms[4]
+    names = dict(rest_by_subtraction="rest of encode (group pad, text rows, copies; "
+                 "whole less the four stages, by subtraction)")
+    log("serving encode by stage (one warm request, native host code): " + ", ".join(
+        f"{names.get(k[:-3], k[:-3].replace('_', ' '))} {v:.1f} ms" for k, v in out.items())
+        + "; the numpy encoder's only earlier record on this card class: 920-976 ms "
+        "of host encode a warm request")
+    return out
 
 
 def profile_device(label: str, fn, rows: int = 14) -> dict:
@@ -1370,23 +1486,28 @@ def profile_device(label: str, fn, rows: int = 14) -> dict:
     torch.profiler: the largest ``rows`` entries and the total."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # Device events (kernels and copies) only: host ops (aten ops, the
-    # autograd Functions) and annotated ranges (Optimizer.step) would count
-    # the kernels they launch again.
-    device = sorted(
-        ((e.key, e.count, e.self_device_time_total / 1e3)
-         for e in prof.key_averages()
-         if e.self_device_time_total > 0
-         and e.device_type != torch.autograd.DeviceType.CPU
-         and not getattr(e, "is_user_annotation", False)),
-        key=lambda r: -r[2],
-    )
-    total = sum(ms for _, _, ms in device)
+    # As in kernel_ms, a window the profiler hands back empty is profiled
+    # again, three times at most.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        # Device events (kernels and copies) only: host ops (aten ops, the
+        # autograd Functions) and annotated ranges (Optimizer.step) would
+        # count the kernels they launch again.
+        device = sorted(
+            ((e.key, e.count, e.self_device_time_total / 1e3)
+             for e in prof.key_averages()
+             if e.self_device_time_total > 0
+             and e.device_type != torch.autograd.DeviceType.CPU
+             and not getattr(e, "is_user_annotation", False)),
+            key=lambda r: -r[2],
+        )
+        total = sum(ms for _, _, ms in device)
+        if total > 0:
+            break
     check(total > 0, f"torch.profiler recorded no device time for {label}")
     log(f"profile of {label}: wall {wall_ms:.2f} ms, device {total:.3f} ms")
     for name, calls, ms in device[:rows]:
@@ -1859,9 +1980,479 @@ def phase_dense_chunked(dev) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# Link-prediction training, filtered evaluation, checkpoint and resume
+# ---------------------------------------------------------------------------
+
+
+def linkpred_config() -> HyperGNNConfig:
+    """BASELINE.json configs #2 and #3 at text_dim 64, F = H = 64, 2 layers,
+    on the kernel layout (kernels 1-3 carry the steps)."""
+    return HyperGNNConfig(
+        text_dim=TEXT_DIM, node_feat_dim=WIDTH, hidden_dim=WIDTH, num_layers=LAYERS,
+        backend="cuda", rel_sorted=True, group_padded=True,
+    )
+
+
+def _kernel_layout(kg, split: str | None = None):
+    """``kg``'s edges (or one split's) on the kernel layout, with a plan."""
+    ei, texts = kg.split_edges(split) if split else (kg.edge_index, kg.edge_texts)
+    return encode_graph(ei, texts, kg.num_nodes, sort_by_relation=True,
+                        with_sort_plan=True, group_pad=256)
+
+
+def _on(dev, graph):
+    return ([torch.as_tensor(a, device=dev) for a in graph.arrays],
+            graph.sort_plan.to(dev))
+
+
+def _linkpred_steps(state, feats, arrays, plan, steps, logger=None, timer=None):
+    """Train steps ``steps`` (step i draws from a generator seeded 1000 + i,
+    as the JAX package keys each step), Adam in place; the losses."""
+    step_fn = make_train_step(linkpred_config())
+    timer = timer or PhaseTimer()
+    losses = []
+    for i in steps:
+        t0 = time.perf_counter()
+        with timer.phase("train step") as slot:
+            gen = torch.Generator(device=feats.device).manual_seed(1000 + i)
+            slot["out"] = step_fn(state.params, state.opt_state, feats, *arrays, gen,
+                                  sort_plan=plan)[2]
+        state.step = i + 1
+        losses.append(slot["out"].item())
+        if logger is not None:
+            logger.log(i + 1, loss=losses[-1], step_ms=(time.perf_counter() - t0) * 1e3)
+    return losses
+
+
+def rank_check(embs, src, dst, filter_edges, metrics: dict, label: str) -> dict:
+    """The evaluator's metrics against ranks computed here, apart from its
+    code, at every pair: a dense ``[N, N]`` filter of the known edges (one
+    ``index_put_``), and per pair the candidates that are neither filtered
+    nor the target counted better or tied. The f32 scores are the
+    evaluator's product, chunk for chunk, so MRR and Hits@K must agree
+    exactly. Then float64: each f32 score must lie within the f32 bound of a
+    d-term dot product, gamma_d * sum|a_i b_i|, of its float64 value, and a
+    pair whose f32 and float64 ranks differ must hold a candidate whose
+    float64 gap to the target lies within the two scores' bounds (the pairs
+    that f32 cannot rank for certain, counted)."""
+    n, d = embs.shape
+    dev = embs.device
+    # f32's bound, and float64's own (for the reference's rounding).
+    gamma = sum(d * unit / (1 - d * unit) for unit in (2.0**-24, 2.0**-53))
+    known = torch.zeros(n, n, dtype=torch.bool, device=dev)
+    fe = torch.as_tensor(np.asarray(filter_edges), device=dev)
+    known[fe[0], fe[1]] = True
+    e64 = embs.double()
+    a64 = e64.abs()
+    ranks32, differ, unrankable, scores_out, ranks_out, worst = [], 0, 0, 0, 0, 0.0
+    for lo in range(0, len(src), EVAL_CHUNK):
+        s = torch.as_tensor(src[lo:lo + EVAL_CHUNK], device=dev)
+        t = torch.as_tensor(dst[lo:lo + EVAL_CHUNK], device=dev)
+        rows = torch.arange(len(s), device=dev)
+        counted = ~known[s]
+        counted[rows, t] = False
+
+        def ranks(scores):
+            target = scores[rows, t][:, None]
+            better = ((scores > target) & counted).sum(1)
+            ties = ((scores == target) & counted).sum(1)
+            return 1.0 + better.double() + 0.5 * ties.double()
+
+        s32 = embs[s] @ embs.T
+        s64 = e64[s] @ e64.T
+        bound = gamma * (a64[s] @ a64.T)
+        err = (s32.double() - s64).abs()
+        scores_out += int((err > bound).sum())
+        worst = max(worst, float((err / bound.clamp_min(1e-300)).max()))
+        r32, r64 = ranks(s32), ranks(s64)
+        gap = (s64 - s64[rows, t][:, None]).abs()
+        near = ((gap <= bound + bound[rows, t][:, None]) & counted).any(1)
+        unrankable += int(near.sum())
+        differ += int((r32 != r64).sum())
+        ranks_out += int(((r32 != r64) & ~near).sum())
+        ranks32.append(r32.cpu().numpy())
+    ranks = np.concatenate(ranks32)
+    mine = {"mrr": float(np.mean(1.0 / ranks))}
+    for k in (1, 3, 10):
+        mine[f"hits@{k}"] = float(np.mean(ranks <= k))
+    log(f"linkpred {label}: metrics of ranks computed apart from the evaluator "
+        f"{'equal' if mine == metrics else 'DIFFER: ' + str(mine)} over all {len(src)} "
+        f"pairs; f32 scores within the f32 dot-product bound of float64 (worst "
+        f"{worst:.3f} of it); f32 and float64 ranks differ at {differ} pairs, "
+        f"{unrankable} pairs ({100 * unrankable / len(src):.2f}%) hold a candidate "
+        f"within the bounds of the target; outside the bounds: {scores_out} scores, "
+        f"{ranks_out} ranks")
+    check(mine == metrics, f"linkpred {label}: evaluator {metrics} != ranks here {mine}")
+    check(scores_out == 0 and ranks_out == 0,
+          f"linkpred {label}: {scores_out} scores, {ranks_out} ranks outside f32's bound")
+    return dict(pairs=len(src), f32_f64_ranks_differ=differ, unrankable_pairs=unrankable,
+                worst_score_err_over_bound=worst, scores_outside_bound=scores_out,
+                ranks_outside_bound=ranks_out)
+
+
+def _evaluate(dev, config, params, kg, feats, pairs, label) -> dict:
+    """Embeddings over all of ``kg``'s edges (the transductive protocol of
+    experiments/train_linkpred.py), held against the card's ``gather``
+    oracle, then filtered MRR and Hits@1/3/10 of ``pairs`` against every
+    node, all edges as the filter."""
+    full = _kernel_layout(kg)
+    arrays, plan = _on(dev, full)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        embs = apply_hypergnn(config, params, feats, *arrays, sort_plan=plan)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    metrics = evaluate_link_prediction(embs, pairs[0], pairs[1], filter_edges=kg.edge_index,
+                                       chunk_size=EVAL_CHUNK)
+    t2 = time.perf_counter()
+    launches = launch_counts()
+    check(launches == FORWARD_LAUNCHES,
+          f"linkpred {label} forward launches {launches} != {FORWARD_LAUNCHES}")
+    check(embs.shape == (kg.num_nodes, WIDTH) and bool(torch.isfinite(embs).all()),
+          f"linkpred {label}: embeddings not finite or of wrong shape")
+    with torch.no_grad():
+        oracle = apply_hypergnn(gather_config(config), params, feats, *arrays)
+    oracle_err = (embs - oracle).abs().max().item()
+    log(f"linkpred {label}: embeddings over {full.src.shape[0]:,} rows vs the gather "
+        f"oracle max_abs_err {oracle_err:.3e} (tol {SERVING_ATOL})")
+    check(oracle_err <= SERVING_ATOL, f"linkpred {label}: embeddings disagree with gather")
+    check(all(0.0 <= v <= 1.0 for v in metrics.values()),
+          f"linkpred {label}: a metric outside [0, 1]: {metrics}")
+    ranks = rank_check(embs, pairs[0], pairs[1], kg.edge_index, metrics, label)
+    log(f"linkpred {label}: " + " ".join(f"{k}={v:.6f}" for k, v in metrics.items())
+        + f" over {len(pairs[0])} pairs x {kg.num_nodes} candidates; forward "
+        f"{(t1 - t0) * 1e3:.2f} ms, ranking {(t2 - t1) * 1e3:.2f} ms")
+    return dict(metrics, pairs=len(pairs[0]), forward_ms=(t1 - t0) * 1e3,
+                ranking_ms=(t2 - t1) * 1e3, rank_check=ranks, forward_launches=launches,
+                vs_gather_max_abs_err=oracle_err)
+
+
+def gather_config(config: HyperGNNConfig) -> HyperGNNConfig:
+    return dataclasses.replace(config, backend="gather")
+
+
+def layout_vs_references(dev, init, feats, graph, label: str) -> dict:
+    """Kernels 1-3 on this dataset's train layout (its hub segments and
+    relation runs) against references on the same inputs: the model with its
+    generated weights at scale one (per-layer outputs, gradients of
+    ``sum(out * R)``) against a float64 run of the ``dense`` backend on the
+    host (the kernels take no float64), and the first training step from
+    ``init`` against the card's ``gather`` oracle with the same negatives
+    (loss, per-leaf gradients). At scale one the oracle itself is no
+    reference for the weight gradients: on an H100 its f32 sums over
+    WN18RR-like's ~6k-row relations came 2.9e-5 scaled from float64, the
+    kernels' 1.0e-6."""
+    config = linkpred_config()
+    scaled = _scale_one(tree_map(lambda t: t.clone(), init))
+    exact = _model_run(dataclasses.replace(config, backend="dense"),
+                       tree_map(lambda t: t.double(), scaled), feats.double().cpu(), graph,
+                       torch.device("cpu"))()
+    model_err, model_grad_err = _compare_runs(
+        f"linkpred {label} model at scale one, cuda vs float64 (dense, host)",
+        _model_run(config, scaled, feats, graph, dev)(), exact)
+    arrays, plan = _on(dev, graph)
+    runs = {}
+    for cfg in (config, gather_config(config)):
+        state = create_train_state(tree_map(lambda t: t.to(dev), init), adam(LEARNING_RATE))
+        gen = torch.Generator(device=dev).manual_seed(1000)
+        loss = make_train_step(cfg)(state.params, state.opt_state, feats, *arrays, gen,
+                                    sort_plan=plan)[2]
+        runs[cfg.backend] = (loss.item(), _leaves(state.params, grads=True))
+    (loss, grads), (r_loss, r_grads) = runs["cuda"], runs["gather"]
+    loss_err = abs(loss - r_loss)
+    grad_err = max(scaled_err(grads[p], g) for p, g in r_grads.items())
+    log(f"linkpred {label} first step, cuda vs gather: loss {loss:.6f} err {loss_err:.3e} "
+        f"(tol {SERVING_ATOL}), per-leaf grad scaled err {grad_err:.3e} (tol {GRAD_ATOL})")
+    check(loss_err <= SERVING_ATOL and grad_err <= GRAD_ATOL,
+          f"linkpred {label}: the first step disagrees with the gather oracle")
+    return dict(model_vs_f64_max_abs_err=model_err, model_vs_f64_grad_scaled_err=model_grad_err,
+                step_vs_gather_loss_err=loss_err, step_vs_gather_grad_scaled_err=grad_err)
+
+
+def phase_linkpred(dev) -> dict:
+    """FB15k-237-like (BASELINE.json #2): 20 steps on the train split with a
+    MetricsLogger and a PhaseTimer, an async checkpoint at step 10, filtered
+    evaluation of the test split, and a restore at step 10 that must retrace
+    steps 10-20 bitwise; then WN18RR-like with 27% of the relations held out
+    (#3): 20 steps and the zero-shot MRR of the held-out relations."""
+    config = linkpred_config()
+    kg = fb15k237_like(seed=0, scale=LINKPRED_SCALE)
+    t0 = time.perf_counter()
+    train_graph = _kernel_layout(kg, "train")
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    feats = torch.as_tensor(kg.node_features, device=dev)
+    arrays, plan = _on(dev, train_graph)
+    init = init_hypergnn(config, torch.Generator().manual_seed(0))
+    log(f"linkpred fb15k237-like: N={kg.num_nodes} E={kg.num_edges} "
+        f"U={len(kg.relation_texts)} train {train_graph.num_edges} edges "
+        f"({train_graph.src.shape[0]} rows) encoded in {encode_ms:.1f} ms")
+    references = layout_vs_references(dev, init, feats, train_graph, "fb15k237-like")
+
+    def fresh():
+        return create_train_state(tree_map(lambda t: t.to(dev), init), adam(LEARNING_RATE))
+
+    with tempfile.TemporaryDirectory(prefix="ghf_ckpt_") as ckpt_dir:
+        state, logger, timer = fresh(), MetricsLogger(), PhaseTimer()
+        kernels.reset_launch_counts()
+        losses = _linkpred_steps(state, feats, arrays, plan, range(LINKPRED_RESUME_AT),
+                                 logger, timer)
+        t0 = time.perf_counter()
+        path = save_checkpoint(ckpt_dir, state.params, state.opt_state, step=state.step)
+        save_return_ms = (time.perf_counter() - t0) * 1e3
+        losses += _linkpred_steps(state, feats, arrays, plan,
+                                  range(LINKPRED_RESUME_AT, LINKPRED_STEPS), logger, timer)
+        launches = launch_counts()
+        want = {k: v * LINKPRED_STEPS for k, v in LINKPRED_STEP_LAUNCHES.items()}
+        check(launches == want, f"linkpred launches {launches} != {want}")
+        check(all(np.isfinite(losses)), "linkpred: a loss is not finite")
+        step_ms = [h["step_ms"] for h in logger.history.history]
+        log(f"linkpred fb15k237-like: losses {['%.5f' % v for v in losses]}")
+        log(f"linkpred fb15k237-like: {timer.totals['train step'] / LINKPRED_STEPS * 1e3:.3f} "
+            f"ms/step (PhaseTimer, {LINKPRED_STEPS} steps; median {np.median(step_ms):.3f}, "
+            f"first {step_ms[0]:.3f}); launches over the steps {launches}")
+        want_params = _leaves(state.params, grads=False)
+        want_moments = {f"{i}.{k}": v.cpu().clone() for i, s in
+                        enumerate(state.opt_state.state.values()) for k, v in s.items()}
+
+        t0 = time.perf_counter()
+        save_checkpoint(ckpt_dir, state.params, state.opt_state, step=state.step)
+        t1 = time.perf_counter()
+        wait_for_checkpoints()
+        t2 = time.perf_counter()
+        ckpt = dict(save_return_ms_overlapped=save_return_ms,
+                    save_return_ms=(t1 - t0) * 1e3, save_commit_ms=(t2 - t0) * 1e3)
+
+        # The fault: a fresh process state restored from step 10 retraces
+        # steps 10-20; kernels 1, 3 and 6 are bitwise deterministic, so the
+        # parameters and moments must equal the uninterrupted run's bitwise.
+        resumed = fresh()
+        t0 = time.perf_counter()
+        restored = restore_checkpoint(path, resumed.params, resumed.opt_state)
+        ckpt["restore_ms"] = (time.perf_counter() - t0) * 1e3
+        resumed.step = restored["step"]
+        check(resumed.step == LINKPRED_RESUME_AT, f"linkpred: restored step {resumed.step}")
+        resumed_losses = _linkpred_steps(resumed, feats, arrays, plan,
+                                         range(LINKPRED_RESUME_AT, LINKPRED_STEPS))
+    got_params = _leaves(resumed.params, grads=False)
+    got_moments = {f"{i}.{k}": v.cpu() for i, s in
+                   enumerate(resumed.opt_state.state.values()) for k, v in s.items()}
+    differ = [p for p in want_params if not torch.equal(got_params[p], want_params[p])]
+    differ += [m for m in want_moments if not torch.equal(got_moments[m], want_moments[m])]
+    same_losses = resumed_losses == losses[LINKPRED_RESUME_AT:]
+    log(f"linkpred resume at step {LINKPRED_RESUME_AT}: losses equal {same_losses}, "
+        f"{len(differ)} of {len(want_params) + len(want_moments)} parameter and moment "
+        f"tensors differ bitwise from the uninterrupted run")
+    check(same_losses and not differ, f"linkpred: the resumed run differs: {differ[:5]}")
+    step_fn = make_train_step(config)
+    profile = profile_device(
+        "one more fb15k237-like step",
+        lambda: step_fn(resumed.params, resumed.opt_state, feats, *arrays,
+                        torch.Generator(device=dev).manual_seed(0), sort_plan=plan))
+    log("linkpred checkpoint: save returned in {save_return_ms_overlapped:.2f} ms at step "
+        "10 (written while training went on); at step 20 returned in {save_return_ms:.2f} "
+        "ms, committed in {save_commit_ms:.2f} ms; restore {restore_ms:.2f} ms".format(**ckpt))
+
+    test_ei, _ = kg.split_edges("test")
+    evaluation = _evaluate(dev, config, state.params, kg, feats, test_ei, "fb15k237-like test")
+    train_ms = timer.totals["train step"] * 1e3
+    run_ms = train_ms + evaluation["forward_ms"] + evaluation["ranking_ms"] + \
+        ckpt["save_return_ms_overlapped"]
+    shares = dict(train=train_ms / run_ms,
+                  evaluation=(evaluation["forward_ms"] + evaluation["ranking_ms"]) / run_ms,
+                  checkpoint=ckpt["save_return_ms_overlapped"] / run_ms)
+    log(f"linkpred run of {run_ms:.1f} ms: " + ", ".join(
+        f"{k} {100 * v:.2f}%" for k, v in shares.items()))
+
+    # WN18RR-like, 27% of the relation types held out of training.
+    kg2 = wn18rr_zero_shot_like(seed=0, scale=LINKPRED_SCALE)
+    feats2 = torch.as_tensor(kg2.node_features, device=dev)
+    train2 = _kernel_layout(kg2, "train")
+    arrays2, plan2 = _on(dev, train2)
+    references2 = layout_vs_references(dev, init, feats2, train2, "wn18rr-zero-shot-like")
+    state2 = create_train_state(tree_map(lambda t: t.to(dev), init), adam(LEARNING_RATE))
+    timer2 = PhaseTimer()
+    losses2 = _linkpred_steps(state2, feats2, arrays2, plan2, range(LINKPRED_STEPS),
+                              timer=timer2)
+    check(all(np.isfinite(losses2)), "linkpred wn18rr: a loss is not finite")
+    test2, test2_texts = kg2.split_edges("test")
+    held_out = {kg2.relation_texts[r] for r in kg2.zero_shot_relations}
+    zs = np.asarray([t in held_out for t in test2_texts])
+    check(zs.any() and not (set(train2.unique_texts) & held_out),
+          "linkpred wn18rr: held-out relations missing from test or present in train")
+    log(f"linkpred wn18rr-zero-shot-like: N={kg2.num_nodes} E={kg2.num_edges} "
+        f"U={len(kg2.relation_texts)}, held out {sorted(kg2.zero_shot_relations)}; "
+        f"{timer2.totals['train step'] / LINKPRED_STEPS * 1e3:.3f} ms/step, losses "
+        f"{losses2[0]:.5f} -> {losses2[-1]:.5f}")
+    zero_shot = _evaluate(dev, config, state2.params, kg2, feats2, test2[:, zs],
+                          "wn18rr zero-shot test")
+    return dict(
+        fb15k237=dict(losses=losses, ms_per_step=train_ms / LINKPRED_STEPS,
+                      step_ms=step_ms, launches=launches, checkpoint=ckpt,
+                      resume_bitwise=same_losses and not differ, evaluation=evaluation,
+                      run_shares=shares, profile=profile, references=references),
+        wn18rr_zero_shot=dict(losses=losses2,
+                              ms_per_step=timer2.totals["train step"] / LINKPRED_STEPS * 1e3,
+                              held_out=list(kg2.zero_shot_relations),
+                              evaluation=zero_shot, references=references2),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Neighbor-sampled minibatch training
+# ---------------------------------------------------------------------------
+
+
+def mb_graph(n: int, e: int, u: int, seed: int = 0):
+    """The graph of benchmarks/minibatch_xxl.py:45-60, drawn as it draws it:
+    edges, texts, then features."""
+    rng = np.random.default_rng(seed)
+    ei = np.stack([rng.integers(0, n, e), rng.integers(0, n, e)]).astype(np.int64)
+    texts = [f"relation type number {i} with descriptive text" for i in range(u)]
+    etexts = [texts[i] for i in rng.integers(0, u, e)]
+    feats = rng.standard_normal((n, WIDTH)).astype(np.float32)
+    return ei, etexts, feats
+
+
+def mb_config() -> HyperGNNConfig:
+    return HyperGNNConfig(text_dim=TEXT_DIM, node_feat_dim=WIDTH, hidden_dim=WIDTH,
+                          num_layers=LAYERS)
+
+
+def _mb_backend(config, batch) -> str:
+    feats, graph = batch[0], batch[1]
+    return resolve_backend(config.backend, feats.shape[0], graph.char_ids.shape[0],
+                           graph.src.shape[0], config.hidden_dim, rel_sorted=False,
+                           group_padded=False, has_sort_plan=False)
+
+
+def phase_minibatch_parity(dev) -> dict:
+    """At the bench size (N=1k, E=10k, U=50), one minibatch step on the card
+    against the same step on the CPU: the same sampled batch, negatives and
+    initial weights; loss, gradients and updated parameters within the f32
+    gate (gradients after dividing by max(1, max|ref|))."""
+    ei, etexts, feats = mb_graph(BENCH_N, BENCH_E, BENCH_U)
+    config, spec = mb_config(), MinibatchSpec(**MB_SPEC)
+    init = init_hypergnn(config, torch.Generator().manual_seed(0))
+    runs = {}
+    batch = None
+    for label, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        trainer = MinibatchTrainer(config, adam(LEARNING_RATE), ei, etexts, feats, spec,
+                                   device=device)
+        batch = batch or trainer.sample_batch(np.random.default_rng(3))
+        neg = np.random.default_rng(4).integers(0, batch[0].shape[0], spec.batch_size)
+        state = create_train_state(tree_map(lambda t: t.to(device), init),
+                                   adam(LEARNING_RATE))
+        _, _, loss = trainer.device_step(
+            state.params, state.opt_state, trainer.to_device(batch),
+            neg_dst=torch.as_tensor(neg.astype(np.int32), device=device))
+        runs[label] = (loss.item(), _leaves(state.params, grads=True),
+                       _leaves(state.params, grads=False))
+    (loss, grads, params), (r_loss, r_grads, r_params) = runs["card"], runs["cpu"]
+    loss_err = abs(loss - r_loss)
+    grad_err = max(scaled_err(grads[p], g) for p, g in r_grads.items())
+    diffs = torch.cat([(params[p] - t).abs().flatten() for p, t in r_params.items()])
+    param_err, param_q999 = diffs.max().item(), torch.quantile(diffs.double(), 0.999).item()
+    backend = _mb_backend(config, batch)
+    log(f"minibatch parity (bench size, backend {backend}, {batch[1].num_edges} sampled "
+        f"edges): card vs cpu loss {loss:.6f} err {loss_err:.3e}, grad scaled err "
+        f"{grad_err:.3e} (tol {GRAD_ATOL}), params after Adam max err {param_err:.3e} "
+        f"(tol {2 * LEARNING_RATE}: Adam's first step is lr·sign(g)) q99.9 "
+        f"{param_q999:.3e} (tol {PARAM_Q999_ATOL})")
+    check(loss_err <= SERVING_ATOL and grad_err <= GRAD_ATOL
+          and param_err <= 2 * LEARNING_RATE and param_q999 <= PARAM_Q999_ATOL,
+          "minibatch step on the card disagrees with the CPU")
+    return dict(backend=backend, loss=loss, loss_err=loss_err, grad_scaled_err=grad_err,
+                param_max_abs_err=param_err, param_q999_abs_err=param_q999)
+
+
+def phase_minibatch(dev) -> dict:
+    """BASELINE.json config #4 on one card at benchmarks/minibatch_xxl.py's
+    shapes: N=1M, E=10M, U=237, F = H = 64, 2 layers, MinibatchSpec(1024,
+    (10, 10), 32768); 1 warm-up and MB_TIMED timed steps, each split into
+    host sampling, host-to-device copies and the device step (CUDA events),
+    then one profiled device step."""
+    t0 = time.perf_counter()
+    ei, etexts, feats = mb_graph(MB_N, MB_E, MB_U)
+    graph_s = time.perf_counter() - t0
+    config = mb_config()
+    t0 = time.perf_counter()
+    trainer = MinibatchTrainer(config, adam(LEARNING_RATE), ei, etexts, feats,
+                               MinibatchSpec(**MB_SPEC), device=dev)
+    build_s = time.perf_counter() - t0
+    log(f"minibatch: graph N={MB_N:,} E={MB_E:,} U={MB_U} drawn in {graph_s:.1f} s; "
+        f"MinibatchTrainer built in {build_s:.2f} s (its NeighborSampler's CSR and "
+        f"relation ids, and its copies of the edges and texts)")
+    state = create_train_state(
+        tree_map(lambda t: t.to(dev),
+                 init_hypergnn(config, torch.Generator().manual_seed(0))),
+        adam(LEARNING_RATE))
+    rng_np, gen = np.random.default_rng(1), torch.Generator(device=dev).manual_seed(2)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    steps = []
+    for i in range(1 + MB_TIMED):
+        t0 = time.perf_counter()
+        batch = trainer.sample_batch(rng_np)
+        t1 = time.perf_counter()
+        tensors = trainer.to_device(batch)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        start.record()
+        _, _, loss = trainer.device_step(state.params, state.opt_state, tensors, gen)
+        stop.record()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        graph = batch[1]
+        steps.append(dict(
+            loss=loss.item(), sample_ms=(t1 - t0) * 1e3, h2d_ms=(t2 - t1) * 1e3,
+            device_ms=start.elapsed_time(stop), step_wall_ms=(t3 - t2) * 1e3,
+            backend=_mb_backend(config, batch),
+            nodes=graph.num_nodes, nodes_padded=batch[0].shape[0],
+            edges=graph.num_edges, edges_padded=graph.src.shape[0],
+            relations=graph.num_relations,
+        ))
+        s = steps[-1]
+        log(f"minibatch step {i}{' (warm-up)' if i == 0 else ''}: loss {s['loss']:.6f}; "
+            f"host sampling {s['sample_ms']:.1f} ms, host-to-device {s['h2d_ms']:.2f} ms, "
+            f"device step {s['device_ms']:.2f} ms (CUDA events; wall {s['step_wall_ms']:.2f}); "
+            f"backend {s['backend']}; nodes {s['nodes']:,} of {s['nodes_padded']:,}, "
+            f"edges {s['edges']:,} of {s['edges_padded']:,}, relations {s['relations']}")
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    timed = steps[1:]
+
+    def med(key):
+        return float(np.median([s[key] for s in timed]))
+
+    log(f"minibatch: medians over {MB_TIMED} steps: sampling {med('sample_ms'):.1f} ms, "
+        f"host-to-device {med('h2d_ms'):.2f} ms, device step {med('device_ms'):.2f} ms; "
+        f"peak memory {peak_gb:.2f} GB; kernel launches {launches}")
+    check(all(np.isfinite(s["loss"]) for s in steps), "minibatch: a loss is not finite")
+    # JAX's auto picks grouped on this subgraph (unsorted, U x N_pad x d
+    # beyond the dense budget); the port's grouped runs cuBLAS per relation
+    # and no hand-written kernel.
+    check(all(s["backend"] == "grouped" for s in steps),
+          "minibatch: auto did not pick grouped, as the JAX package does")
+    check(not any(launches.values()), f"minibatch: kernels launched: {launches}")
+    profile = profile_device(
+        "one minibatch device step",
+        lambda: trainer.device_step(state.params, state.opt_state, tensors, gen))
+    busy = profile["device_ms"] / med("device_ms")
+    log(f"minibatch: device busy {100 * busy:.1f}% of a device step")
+    return dict(build_s=build_s, graph_s=graph_s, steps=steps,
+                median_sample_ms=med("sample_ms"), median_h2d_ms=med("h2d_ms"),
+                median_device_ms=med("device_ms"), peak_memory_gb=peak_gb,
+                device_busy_share=busy, launches=launches, profile=profile)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     dev = phase_device()
+    native = phase_native()
     phase_build()
     g = _kernel_graph()
     measured = phase_kernels(dev, g)
@@ -1881,6 +2472,8 @@ def main() -> int:
     two_stream = {d: phase_two_stream(dev, g, d) for d in (64, 128)}
     grouped = phase_grouped(dev)
     dense_chunked = phase_dense_chunked(dev)
+    linkpred = phase_linkpred(dev)
+    minibatch = dict(parity=phase_minibatch_parity(dev), xxl=phase_minibatch(dev))
     if FAILURES:
         log(f"chip_smoke.py: {len(FAILURES)} check(s) failed: {FAILURES}")
         return 1
@@ -1943,6 +2536,8 @@ def main() -> int:
     print(json.dumps({"speed_mode": speed}))
     print(json.dumps({"two_stream": two_stream, "grouped": grouped,
                       "dense_chunked": dense_chunked}))
+    print(json.dumps({"native": native, "encode_stages": served["encode_stages"],
+                      "linkpred": linkpred, "minibatch": minibatch}))
     log(f"chip_smoke.py: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(line))
     print(card_line())

@@ -7,8 +7,11 @@ relation-sorted and group-padded layouts, and the :class:`SortPlan` of
 host-precomputed permutations and CSR bounds. Relation identity enters the
 model only through the tokenized text.
 
-Everything here is numpy; :meth:`SortPlan.to` moves a plan's arrays to a
-torch device for the compute core.
+Everything here is numpy, with the native C++ extension (``native_bridge``)
+for the dedup, the tokenizer and the stable counting sorts where it is
+built, as the JAX encoder uses it; every array is the same either way.
+:meth:`SortPlan.to` moves a plan's arrays to a torch device for the
+compute core.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from graph_hypernetwork_forge_tpu_torch import native_bridge
 from graph_hypernetwork_forge_tpu_torch.utils.shapes import (
     pad_bucket_edges,
     pad_bucket_relations,
@@ -90,6 +94,29 @@ def split_runs(tile_splits: np.ndarray, run_tiles: int) -> np.ndarray:
     return out
 
 
+def _node_sort(ids: np.ndarray, num_nodes: int) -> Tuple[np.ndarray, np.ndarray]:
+    """``(perm, splits)``: the stable argsort of node ids in ``[0,
+    num_nodes)`` and the CSR bounds of the sorted ids (``splits[i]`` = first
+    row whose sorted id is ``>= i``), both int32. Natively one counting
+    sort (``build_csr``), else ``np.argsort`` and a binary search."""
+    native = native_bridge.get_native()
+    if native is not None:
+        ptr, perm = native.build_csr(ids, num_nodes)
+        return perm.astype(np.int32), ptr.astype(np.int32)
+    perm = np.argsort(ids, kind="stable")
+    splits = np.searchsorted(ids[perm], np.arange(num_nodes + 1), side="left")
+    return perm.astype(np.int32), splits.astype(np.int32)
+
+
+def relation_order(rel_ids: np.ndarray, num_rel: int) -> np.ndarray:
+    """The stable argsort of relation ids in ``[0, num_rel)``: natively a
+    counting sort (``sort_by_relation``), else ``np.argsort``."""
+    native = native_bridge.get_native()
+    if native is not None:
+        return native.sort_by_relation(rel_ids, num_rel)
+    return np.argsort(rel_ids, kind="stable")
+
+
 def build_sort_plan(
     src: np.ndarray,
     dst: np.ndarray,
@@ -102,10 +129,10 @@ def build_sort_plan(
     e = src.shape[0]
     arange = np.arange(e, dtype=np.int32)
 
-    dst_perm = np.argsort(dst, kind="stable").astype(np.int32)
+    dst_perm, dst_splits = _node_sort(dst, num_nodes)
     inv_dst = np.empty(e, dtype=np.int32)
     inv_dst[dst_perm] = arange
-    src_perm = np.argsort(src, kind="stable").astype(np.int32)
+    src_perm, src_splits = _node_sort(src, num_nodes)
     inv_src = np.empty(e, dtype=np.int32)
     inv_src[src_perm] = arange
 
@@ -117,7 +144,6 @@ def build_sort_plan(
 
     dst_sorted = dst[dst_perm].astype(np.int32)
     src_sorted = src[src_perm].astype(np.int32)
-    node_bounds = np.arange(num_nodes + 1, dtype=np.int32)
     rel_splits = np.zeros(num_rel_pad + 1, dtype=np.int32)
     np.cumsum(rel_counts, out=rel_splits[1:])
     # Tile t takes the relation of its first row 256 t, so the tiles below
@@ -133,8 +159,8 @@ def build_sort_plan(
         src_sorted=src_sorted,
         in_degree=in_degree,
         rel_counts=rel_counts,
-        dst_splits=np.searchsorted(dst_sorted, node_bounds, side="left").astype(np.int32),
-        src_splits=np.searchsorted(src_sorted, node_bounds, side="left").astype(np.int32),
+        dst_splits=dst_splits,
+        src_splits=src_splits,
         rel_splits=rel_splits,
         tile_splits=tile_splits,
         run_splits=split_runs(tile_splits, RUN_TILES),
@@ -221,7 +247,14 @@ def validate_graph_for_config(graph: EncodedGraph, config) -> None:
 
 
 def dedup_texts(edge_texts: Sequence[str]) -> Tuple[List[str], np.ndarray]:
-    """Order-preserving dedup → (unique_texts, per-edge int32 relation ids)."""
+    """Order-preserving dedup → (unique_texts, per-edge int32 relation ids).
+
+    Natively one C++ hash pass, except for an ``np.ndarray`` of texts, as
+    the JAX encoder skips it there.
+    """
+    native = native_bridge.get_native()
+    if native is not None and not isinstance(edge_texts, np.ndarray):
+        return native.dedup_and_ids(list(edge_texts))
     text_to_idx: dict = {}
     rel_ids = np.empty(len(edge_texts), dtype=np.int32)
     for i, t in enumerate(edge_texts):
@@ -287,7 +320,7 @@ def encode_graph(
         mask = np.zeros(e_pad, dtype=np.float32)
         rids = np.repeat(np.arange(u_pad, dtype=np.int32), padded)
         if e:
-            order = np.argsort(rel_ids, kind="stable")
+            order = relation_order(rel_ids, u_pad)
             sorted_rel = rel_ids[order]
             group_start = np.concatenate([[0], np.cumsum(counts)[:-1]])
             within = np.arange(e) - group_start[sorted_rel]
@@ -306,7 +339,7 @@ def encode_graph(
         rids[:e] = rel_ids
         mask[:e] = 1.0
         if sort_by_relation:
-            order = np.argsort(rids, kind="stable")
+            order = relation_order(rids, u_pad)
             src, dst, rids, mask = src[order], dst[order], rids[order], mask[order]
 
     cid = np.zeros((u_pad, char_ids.shape[1]), dtype=np.int32)

@@ -1070,3 +1070,89 @@ def test_no_run_table_launch_where_a_sort_plan_is_given(dev):
         assert kernels.run_table.launches == 0
         assert (segment_outer.launches == 2 if two_stream
                 else edge_transform_combined_bwd.launches == 1)
+
+
+# ---------------------------------------------------------------------------
+# The host-side modules' device work: evaluation, minibatch steps, checkpoints
+# ---------------------------------------------------------------------------
+
+
+def test_evaluation_on_the_card_equals_the_cpu(dev):
+    from graph_hypernetwork_forge_tpu_torch.training.evaluate import evaluate_link_prediction
+
+    # Small-integer embeddings: every score is an exact integer on both
+    # devices, so the ranks (exact ties included) must be equal.
+    rng = np.random.default_rng(0)
+    n = 700
+    embs = rng.integers(-3, 4, (n, 8)).astype(np.float32)
+    src, dst = rng.integers(0, n, 300), rng.integers(0, n, 300)
+    known = np.stack([rng.integers(0, n, 4000), rng.integers(0, n, 4000)])
+    for kw in (dict(), dict(filter_edges=known), dict(filter_edges=known, chunk_size=64)):
+        on_card = evaluate_link_prediction(torch.as_tensor(embs, device=dev), src, dst, **kw)
+        assert on_card == evaluate_link_prediction(embs, src, dst, device="cpu", **kw)
+
+
+def test_minibatch_step_on_the_card_matches_the_cpu(dev):
+    from graph_hypernetwork_forge_tpu_torch.data.datasets import generate_synthetic_kg
+    from graph_hypernetwork_forge_tpu_torch.training.minibatch import (
+        MinibatchSpec,
+        MinibatchTrainer,
+    )
+
+    kg = generate_synthetic_kg(300, 3000, 12, feat_dim=16, seed=1)
+    cfg = HyperGNNConfig(16, 16, 16, backend="grouped")
+    spec = MinibatchSpec(batch_size=64, fanouts=(5, 5), node_bucket_multiple=128)
+    init = init_hypergnn(cfg, torch.Generator().manual_seed(2))
+    lr, runs, batch = 1e-3, [], None
+    neg = torch.as_tensor(np.random.default_rng(3).integers(0, 128, 64).astype(np.int32))
+    for device in (dev, torch.device("cpu")):
+        trainer = MinibatchTrainer(cfg, adam(lr), kg.edge_index, kg.edge_texts,
+                                   kg.node_features, spec, device=device)
+        batch = batch or trainer.sample_batch(np.random.default_rng(4))
+        state = create_train_state(tree_map(lambda t: t.to(device), init), adam(lr))
+        kernels.reset_launch_counts()
+        params, _, loss = trainer.device_step(state.params, state.opt_state,
+                                              trainer.to_device(batch),
+                                              neg_dst=neg.to(device))
+        assert csr_segment_sum.launches == 0  # grouped: no kernel on this path
+        runs.append((loss.item(), {p: (t.detach().cpu(), t.grad.cpu())
+                                   for p, t in named_leaves(params)}))
+    (l_card, card), (l_cpu, cpu) = runs
+    assert abs(l_card - l_cpu) <= 3e-5
+    for path, (p_cpu, g_cpu) in cpu.items():
+        _close_scaled(card[path][1], g_cpu, f"grad {path}")
+        torch.testing.assert_close(card[path][0], p_cpu, rtol=0, atol=2 * lr, msg=path)
+
+
+def test_checkpoint_of_card_tensors_restores_on_the_card(dev, tmp_path):
+    from graph_hypernetwork_forge_tpu_torch.training.checkpoint import (
+        restore_checkpoint,
+        save_checkpoint,
+    )
+
+    kg = ToyKnowledgeGraph()
+    cfg = HyperGNNConfig(64, 16, 32)
+    init = init_hypergnn(cfg, torch.Generator().manual_seed(5))
+    feats = torch.as_tensor(kg.node_features, dtype=torch.float32, device=dev)
+    arrays = [torch.as_tensor(a, device=dev)
+              for a in encode_graph(kg.edge_index, kg.edge_texts, kg.num_nodes).arrays]
+    step = make_train_step(cfg)
+
+    def fresh():
+        return create_train_state(tree_map(lambda t: t.to(dev), init), adam(1e-3))
+
+    state = fresh()
+    for i in range(2):
+        step(state.params, state.opt_state, feats, *arrays,
+             torch.Generator(device=dev).manual_seed(i))
+    saved = {p: t.detach().clone() for p, t in named_leaves(state.params)}
+    path = save_checkpoint(str(tmp_path), state.params, state.opt_state, step=2)
+    # An in-place step right after the save must not reach the checkpoint.
+    step(state.params, state.opt_state, feats, *arrays, torch.Generator(device=dev))
+    other = fresh()
+    restore_checkpoint(path, other.params, other.opt_state)
+    for p, t in named_leaves(other.params):
+        assert t.device.type == "cuda" and torch.equal(t, saved[p]), p
+    moments = [v for s in other.opt_state.state.values() for k, v in s.items()
+               if k != "step"]
+    assert moments and all(v.device.type == "cuda" for v in moments)
