@@ -113,7 +113,22 @@ JAX, and fails (non-zero exit, no result line) on any failed phase:
    the device step (CUDA events), the backend ``auto`` picks (``grouped``,
    as in JAX; no kernel launches), subgraph sizes, peak memory, and one
    profiled device step;
-11. the training line, the kernels line (each kernel, then each bf16 form,
+11. parallel (``parallel/`` slices A and B): an NCCL process group of one
+   rank through a ``file://`` rendezvous and ``make_mesh((1,), ("edge",))``
+   on the card; at xl, relation-sharded generation of the banks (seed 0,
+   weights at scale one) bit for bit equal to single-rank generation;
+   edge-partitioned, node-partitioned, halo and scheduled-halo message
+   passing each against the main path (the ``cuda`` backend over the
+   SortPlan: kernels 1 and 2, kernel 3 in the backward) and ``dense``:
+   output and the gradients of ``Σ out · R`` w.r.t. h, W_msg, W_self and
+   the bias within 3e-5 (scaled), CUDA-event ms of a forward + backward and
+   its peak memory; a data-parallel step over 2 copies of the xl graph
+   against the single-process step on the mean of their losses (loss
+   1e-5, parameters after Adam 3e-5) and its ms; then, on the host, the
+   halo plans of the xl graph for 4 and 8 ranks, on raw labels and after
+   ``locality_relabel``: build ms, bytes per device, padding factors and
+   rounds;
+12. the training line, the kernels line (each kernel, then each bf16 form,
    one-TF32-pass mode and ``mode="fast"`` as an entry of its own,
    ``name[form]``, with its launches on its path), the card line and the
    result line, which is
@@ -178,6 +193,24 @@ from graph_hypernetwork_forge_tpu_torch.ops.message_passing import (  # noqa: E4
     two_stream_tail,
 )
 from graph_hypernetwork_forge_tpu_torch.ops.scoring import score_all_tails  # noqa: E402
+from graph_hypernetwork_forge_tpu_torch.models.text_encoder import (  # noqa: E402
+    apply_text_encoder,
+)
+from graph_hypernetwork_forge_tpu_torch.models.weight_generator import (  # noqa: E402
+    apply_weight_generator,
+)
+from graph_hypernetwork_forge_tpu_torch.parallel import halo  # noqa: E402
+from graph_hypernetwork_forge_tpu_torch.parallel import (  # noqa: E402
+    edge_partitioned_message_passing,
+    make_data_parallel_step,
+    make_mesh,
+    node_partitioned_message_passing,
+    partition_edges_by_dst,
+    relation_sharded_generate,
+)
+from graph_hypernetwork_forge_tpu_torch.training.objectives import (  # noqa: E402
+    link_prediction_loss,
+)
 from graph_hypernetwork_forge_tpu_torch.training import (  # noqa: E402
     MinibatchSpec,
     MinibatchTrainer,
@@ -214,6 +247,12 @@ EVAL_CHUNK = 1024
 MB_N, MB_E, MB_U = 1_000_000, 10_000_000, 237
 MB_SPEC = dict(batch_size=1024, fanouts=(10, 10), node_bucket_multiple=32_768)
 MB_TIMED = 5
+# parallel/ at world size 1 (one card): the f32 gate of each form against
+# the main path (ROADMAP), the DP step's gates (tests/test_data_parallel.py:
+# 57, :64), its batch of xl copies (__graft_entry__.py:139-140), and the
+# mesh sizes the host plans are built for.
+PARALLEL_ATOL, DP_LOSS_ATOL, DP_PARAM_ATOL = 3e-5, 1e-5, 3e-5
+DP_BATCH, PLAN_SHARDS = 2, (4, 8)
 
 # NVIDIA H100 SXM data sheet, at the 700 W limit: HBM3 bandwidth, the f32
 # rate outside the tensor cores, and the dense TF32 rate of the tensor cores.
@@ -497,10 +536,12 @@ def kernel_ms(fn, kernel: str, calls: int = 5) -> float:
 
     fn()
     torch.cuda.synchronize()
-    # Now and then the profiler hands back no record of a window's kernels
-    # (once in the H100 runs so far): the window is profiled again, three
-    # times at most.
-    for _ in range(3):
+    # Now and then the profiler hands back no record of a window's kernels,
+    # in up to three windows in a row (H100 runs of PRs 10 and 11, each
+    # followed by windows that recorded): the window is profiled again, six
+    # times at most, after a pause that grows.
+    for attempt in range(6):
+        time.sleep(0.1 * attempt)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
@@ -509,6 +550,7 @@ def kernel_ms(fn, kernel: str, calls: int = 5) -> float:
                  if f"{kernel}<" in e.key and e.device_type != torch.autograd.DeviceType.CPU)
         if us > 0:
             break
+        log(f"torch.profiler: window {attempt + 1} recorded no time of {kernel}")
     check(us > 0, f"torch.profiler recorded no time of {kernel}")
     return us / 1e3 / calls
 
@@ -2449,6 +2491,238 @@ def phase_minibatch(dev) -> dict:
                 device_busy_share=busy, launches=launches, profile=profile)
 
 
+def _grad_run(fn, inputs, r):
+    """``(out, [grads of Σ out · R w.r.t. inputs])`` of one call of ``fn``."""
+    args = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*args)
+    (out * r).sum().backward()
+    return out.detach(), [a.grad for a in args]
+
+
+def _parallel_forms(dev, mesh, g, h, banks, r) -> dict:
+    """Edge-partitioned, node-partitioned, halo and scheduled-halo message
+    passing on the one-rank mesh, each against the main path (the ``cuda``
+    backend over the SortPlan: kernels 1 and 2 forward, 1-3 backward) and
+    ``dense``: the output and the gradients of ``Σ out · R`` w.r.t. h,
+    W_msg, W_self and the bias, CUDA-event ms of a forward + backward and
+    its peak memory."""
+    src, dst, rel, mask = (torch.as_tensor(a, device=dev) for a in g.arrays[:4])
+    host = [np.asarray(a) for a in g.arrays[:4]]
+    plan = g.sort_plan.to(dev)
+    inputs = [h, banks["W_msg"], banks["W_self"], banks["bias"]]
+    t0 = time.perf_counter()
+    node = partition_edges_by_dst(*host, XL_N, 1)
+    node_t = [torch.as_tensor(a, device=dev) for a in node[:4]]
+    halo_plan = halo.build_halo_plan(*host, XL_N, 1)
+    halo_t = [torch.as_tensor(a, device=dev) for a in halo_plan.edge_arrays]
+    send_idx = torch.as_tensor(halo_plan.send_idx, device=dev)
+    sched = halo.build_scheduled_halo_plan(*host, XL_N, 1)
+    log(f"parallel: one-rank plans built on the host in {time.perf_counter() - t0:.2f} s")
+    forms = {
+        "edge_partitioned": lambda h, wm, ws, b: edge_partitioned_message_passing(
+            mesh, h, src, dst, rel, wm, ws, b, edge_mask=mask),
+        "node_partitioned": lambda h, wm, ws, b: node_partitioned_message_passing(
+            mesh, h, *node_t[:3], wm, ws, b, node_t[3], node[4]),
+        "halo": lambda h, wm, ws, b: halo.halo_message_passing(
+            mesh, h, halo_t, send_idx, wm, ws, b, halo_plan.nodes_per_shard,
+            halo_plan.halo_width),
+        "scheduled_halo": lambda h, wm, ws, b: halo.scheduled_halo_message_passing(
+            mesh, h, sched, wm, ws, b),
+    }
+    backends = {
+        backend: (lambda h, wm, ws, b, backend=backend: relational_message_passing(
+            h, src, dst, rel, wm, ws, b, num_nodes=XL_N, edge_mask=mask, backend=backend,
+            rel_sorted=True, group_padded=True,
+            sort_plan=plan if backend == "cuda" else None))
+        for backend in ("cuda", "dense")
+    }
+    refs = {}
+    for backend, fn in backends.items():
+        refs[backend] = _grad_run(fn, inputs, r)
+        torch.cuda.empty_cache()
+    out = {}
+    names = ("h", "W_msg", "W_self", "bias")
+    for name, fn in forms.items():
+        torch.cuda.reset_peak_memory_stats(dev)
+        got, grads = _grad_run(fn, inputs, r)
+        torch.cuda.synchronize()
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        res = dict(peak_memory_gb=peak_gb)
+        for ref_name, (want, want_grads) in refs.items():
+            err = (got - want).abs().max().item()
+            grad_errs = {n: scaled_err(a, b) for n, a, b in zip(names, grads, want_grads)}
+            res[f"vs_{ref_name}"] = dict(max_abs_err=err, grad_scaled_err=grad_errs)
+            log(f"parallel {name} vs {ref_name}: max_abs_err {err:.3e}, gradient scaled "
+                f"errors " + ", ".join(f"{n} {e:.3e}" for n, e in grad_errs.items())
+                + f" (tol {PARALLEL_ATOL})")
+            check(err <= PARALLEL_ATOL and max(grad_errs.values()) <= PARALLEL_ATOL,
+                  f"parallel {name} disagrees with {ref_name}")
+        del got, grads
+        res["ms"] = cuda_ms(lambda fn=fn: _grad_run(fn, inputs, r), iters=3, warmup=1)
+        log(f"parallel {name}: {res['ms']:.3f} ms per forward + backward (CUDA events), "
+            f"peak memory {peak_gb:.2f} GB")
+        out[name] = res
+        torch.cuda.empty_cache()
+    for backend, fn in backends.items():
+        out[f"{backend}_backend_ms"] = cuda_ms(lambda fn=fn: _grad_run(fn, inputs, r),
+                                               iters=3, warmup=1)
+        log(f"parallel: the {backend} backend {out[f'{backend}_backend_ms']:.3f} ms per "
+            f"forward + backward (CUDA events)")
+    return out
+
+
+def _parallel_dp(dev, mesh, feats_np, g) -> dict:
+    """One data-parallel step over DP_BATCH copies of the xl graph against
+    the single-process step on the mean of the copies' losses, from the
+    same parameters, Adam state and negatives; then its ms."""
+    config = train_config()
+    init = init_hypergnn(config, torch.Generator().manual_seed(3))
+    feats = torch.as_tensor(np.stack([feats_np] * DP_BATCH), device=dev)
+    arrays = [torch.as_tensor(np.stack([a] * DP_BATCH), device=dev) for a in g.arrays]
+    gen = torch.Generator(device=dev).manual_seed(4)
+    neg = torch.randint(0, XL_N, arrays[0].shape, generator=gen, device=dev,
+                        dtype=arrays[0].dtype)
+
+    def fresh():
+        return create_train_state(tree_map(lambda t: t.to(dev), init), adam(LEARNING_RATE))
+
+    dp = fresh()
+    step = make_data_parallel_step(mesh, config, adam(LEARNING_RATE), axis="edge")
+    ref = fresh()
+    # Both steps sum the same terms in the same order, but without a plan
+    # the cuda backend reduces over dst with index_add_, whose float atomics
+    # round in any order; Adam's first step moves a parameter by ~lr·sign(g),
+    # so a gradient at rounding noise could differ by 2·lr. PyTorch's
+    # deterministic algorithms take the atomics out of the comparison.
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        _, _, loss = step(dp.params, dp.opt_state, feats, *arrays, gen, neg=neg)
+        ref.opt_state.zero_grad(set_to_none=True)
+        ref_loss = sum(
+            link_prediction_loss(
+                apply_hypergnn(config, ref.params, feats[b], *(a[b] for a in arrays)),
+                arrays[0][b], arrays[1][b], neg[b], edge_mask=arrays[3][b])
+            for b in range(DP_BATCH)) / DP_BATCH
+        ref_loss.backward()
+        ref.opt_state.step()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    loss_err = abs(loss.item() - ref_loss.item())
+    param_err = max((a.detach() - b.detach()).abs().max().item()
+                    for (_, a), (_, b) in zip(named_leaves(dp.params),
+                                              named_leaves(ref.params)))
+    log(f"parallel DP step ({DP_BATCH} xl copies): loss {loss.item():.6f}, against the "
+        f"single-process step {loss_err:.3e} (tol {DP_LOSS_ATOL}), parameters after Adam "
+        f"{param_err:.3e} (tol {DP_PARAM_ATOL})")
+    check(np.isfinite(loss.item()) and loss_err <= DP_LOSS_ATOL
+          and param_err <= DP_PARAM_ATOL, "parallel: the DP step disagrees")
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = cuda_ms(lambda: step(dp.params, dp.opt_state, feats, *arrays, gen, neg=neg),
+                 iters=2, warmup=0)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    log(f"parallel DP step: {ms:.3f} ms (CUDA events, {DP_BATCH} xl copies on one rank), "
+        f"peak memory {peak_gb:.2f} GB")
+    return dict(loss=loss.item(), loss_err=loss_err, param_err=param_err, ms=ms,
+                peak_memory_gb=peak_gb)
+
+
+def _plan_numbers(g) -> dict:
+    """Host ms of the halo plans at xl for meshes of PLAN_SHARDS ranks, on
+    raw labels and after ``locality_relabel``, with their wire volumes at
+    d=64: plans that ranks on other cards would use, built and measured on
+    this host."""
+    real = np.asarray(g.edge_mask) > 0
+    src, dst, rel, mask = (np.asarray(a)[real] for a in g.arrays[:4])
+    t0 = time.perf_counter()
+    perm = halo.locality_relabel(src, dst, XL_N)
+    relabel_ms = (time.perf_counter() - t0) * 1e3
+    log(f"parallel plans (host): locality_relabel of the xl graph {relabel_ms:.1f} ms")
+    out = dict(locality_relabel_ms=relabel_ms)
+    for labels, (s, t) in (("raw", (src, dst)), ("relabeled", (perm[src], perm[dst]))):
+        for k in PLAN_SHARDS:
+            t0 = time.perf_counter()
+            plan = halo.build_halo_plan(s, t, rel, mask, XL_N, k)
+            t1 = time.perf_counter()
+            sched = halo.build_scheduled_halo_plan(s, t, rel, mask, XL_N, k)
+            t2 = time.perf_counter()
+            res = dict(
+                build_halo_plan_ms=(t1 - t0) * 1e3,
+                build_scheduled_halo_plan_ms=(t2 - t1) * 1e3,
+                halo_bytes_per_device=halo.halo_bytes_per_device(plan, WIDTH),
+                allgather_bytes_per_device=halo.allgather_bytes_per_device(plan, WIDTH),
+                halo_padding_factor=halo.halo_padding_factor(plan),
+                scheduled_bytes_per_device=halo.scheduled_halo_bytes_per_device(sched, WIDTH),
+                scheduled_padding_factor=halo.scheduled_halo_padding_factor(sched),
+                rounds=sched.num_rounds, halo_width=plan.halo_width)
+            log(f"parallel plans (host) {labels} k={k}: build_halo_plan "
+                f"{res['build_halo_plan_ms']:.1f} ms, build_scheduled_halo_plan "
+                f"{res['build_scheduled_halo_plan_ms']:.1f} ms; bytes per device: halo "
+                f"{res['halo_bytes_per_device']:,}, all_gather "
+                f"{res['allgather_bytes_per_device']:,}, scheduled "
+                f"{res['scheduled_bytes_per_device']:,.0f}; padding factors "
+                f"{res['halo_padding_factor']:.3f} / {res['scheduled_padding_factor']:.3f}; "
+                f"{res['rounds']} rounds, B = {res['halo_width']}")
+            out[f"{labels}_k{k}"] = res
+    return out
+
+
+def phase_parallel(dev) -> dict:
+    """``parallel/`` slices A and B on a one-rank NCCL process group over
+    the card (``make_mesh((1,), ("edge",))``), at xl: the four forms of
+    message passing against the main path and ``dense``, relation-sharded
+    generation bit for bit against single-rank generation, a DP step
+    against the single-process step; then the halo plans for larger meshes
+    on the host."""
+    import torch.distributed as dist
+
+    t_start = time.perf_counter()
+    feats_np, g = xl_graph()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                init_method=f"file://{tmp}/rendezvous", rank=0,
+                                world_size=1)
+        try:
+            mesh = make_mesh((1,), ("edge",), device_type=dev.type)
+            log(f"parallel: {dist.get_backend()} process group of {dist.get_world_size()} "
+                f"rank, mesh {mesh.mesh_dim_names} on {mesh.device_type}")
+            config = train_config()
+            params = tree_map(lambda t: t.to(dev), _scale_one(
+                init_hypergnn(config, torch.Generator().manual_seed(0))))
+            chars, lens = (torch.as_tensor(a, device=dev) for a in g.arrays[4:6])
+            te, wg = params["text_encoder"], params["weight_generators"][0]
+            single = apply_weight_generator(config.weight_generator, wg,
+                                            apply_text_encoder(te, chars, lens))
+            torch.cuda.reset_peak_memory_stats(dev)
+            banks = relation_sharded_generate(mesh, config.weight_generator, te, wg,
+                                              chars, lens, axis="edge")
+            gen_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+            bitwise = all(torch.equal(banks[k], single[k]) for k in single)
+            gen_ms = cuda_ms(lambda: relation_sharded_generate(
+                mesh, config.weight_generator, te, wg, chars, lens, axis="edge"),
+                iters=5, warmup=1)
+            log(f"parallel relation_sharded_generate: banks {tuple(banks['W_msg'].shape)} "
+                f"bit for bit equal to single-rank generation: {bitwise}; {gen_ms:.3f} ms, "
+                f"peak memory {gen_peak_gb:.2f} GB")
+            check(bitwise, "parallel: relation-sharded banks differ from single-rank ones")
+            rgen = torch.Generator().manual_seed(1)
+            h = torch.randn(XL_N, WIDTH, generator=rgen).to(dev)
+            r = torch.randn(XL_N, WIDTH, generator=rgen).to(dev)
+            banks = {k: v.detach() for k, v in banks.items()}
+            out = dict(relation_sharded=dict(bitwise=bitwise, ms=gen_ms,
+                                             peak_memory_gb=gen_peak_gb))
+            out.update(_parallel_forms(dev, mesh, g, h, banks, r))
+            del h, r, banks
+            torch.cuda.empty_cache()
+            out["data_parallel"] = _parallel_dp(dev, mesh, feats_np, g)
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    out["plans"] = _plan_numbers(g)
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"parallel: phase in {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     dev = phase_device()
@@ -2474,6 +2748,7 @@ def main() -> int:
     dense_chunked = phase_dense_chunked(dev)
     linkpred = phase_linkpred(dev)
     minibatch = dict(parity=phase_minibatch_parity(dev), xxl=phase_minibatch(dev))
+    parallel = phase_parallel(dev)
     if FAILURES:
         log(f"chip_smoke.py: {len(FAILURES)} check(s) failed: {FAILURES}")
         return 1
@@ -2538,6 +2813,7 @@ def main() -> int:
                       "dense_chunked": dense_chunked}))
     print(json.dumps({"native": native, "encode_stages": served["encode_stages"],
                       "linkpred": linkpred, "minibatch": minibatch}))
+    print(json.dumps({"parallel": parallel}))
     log(f"chip_smoke.py: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(line))
     print(card_line())

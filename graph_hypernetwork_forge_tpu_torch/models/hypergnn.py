@@ -123,6 +123,7 @@ class HyperGNNConfig:
             hidden_dim=max(64, self.text_dim * 2),
             num_hidden=2,
             dropout=self.dropout,
+            precision=self.precision,
         )
 
 
@@ -167,8 +168,12 @@ def apply_hypergnn(
     use_dropout = train and config.dropout > 0.0
     if use_dropout and gen is None:
         raise ValueError("dropout requires a torch.Generator in training mode")
-    h = torch.relu(linear_apply(params["input_proj"], node_features))
-    text_embs = apply_text_encoder(params["text_encoder"], char_ids, text_lengths)
+    h = torch.relu(
+        linear_apply(params["input_proj"], node_features, precision=config.precision)
+    )
+    text_embs = apply_text_encoder(
+        params["text_encoder"], char_ids, text_lengths, precision=config.precision
+    )
     n = node_features.shape[0]
     p = config.dropout
 
@@ -225,6 +230,11 @@ def apply_hypergnn(
             h = layer_fn(h, gen_params, norm_params, wg_keep, h_keep)
         per_layer.append(h)
     return per_layer if return_all_layers else h
+
+
+def score_triple(head_emb, tail_emb) -> torch.Tensor:
+    """Dot-product link score; ``[d] → scalar`` or ``[B, d] → [B]``."""
+    return score_pairs(torch.as_tensor(head_emb), torch.as_tensor(tail_emb))
 
 
 class HyperGNN(nn.Module):
@@ -341,7 +351,7 @@ class HyperGNN(nn.Module):
 
     def score_triple(self, head_emb, tail_emb) -> torch.Tensor:
         """Dot-product link score; ``[d] → scalar`` or ``[B, d] → [B]``."""
-        return score_pairs(torch.as_tensor(head_emb), torch.as_tensor(tail_emb))
+        return score_triple(head_emb, tail_emb)
 
     def num_parameters(self) -> int:
         """Total parameter count."""

@@ -40,11 +40,14 @@ def init_text_encoder(config: TextEncoderConfig, gen: torch.Generator) -> dict:
 
 
 def apply_text_encoder(
-    params: dict, char_ids: torch.Tensor, lengths: torch.Tensor
+    params: dict, char_ids: torch.Tensor, lengths: torch.Tensor,
+    precision="highest",
 ) -> torch.Tensor:
     """``[U, L]`` char ids + ``[U]`` lengths → ``[U, text_dim]``.
 
-    The masked mean runs over exactly the real characters.
+    The masked mean runs over exactly the real characters. ``precision``
+    reaches the projection (:func:`~graph_hypernetwork_forge_tpu_torch.
+    utils.initializers.linear_apply`).
     """
     emb = params["char_emb"][char_ids]  # [U, L, C]
     max_len = char_ids.shape[-1]
@@ -54,7 +57,7 @@ def apply_text_encoder(
     pooled = (emb * mask[..., None]).sum(dim=-2) / lengths.clamp(min=1).to(
         emb.dtype
     )[:, None]
-    return torch.tanh(linear_apply(params["proj"], pooled))
+    return torch.tanh(linear_apply(params["proj"], pooled, precision=precision))
 
 
 class TextEncoder:

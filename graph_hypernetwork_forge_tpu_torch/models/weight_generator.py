@@ -45,6 +45,7 @@ class WeightGeneratorConfig:
     num_hidden: int = 2
     dropout: float = 0.0
     init_scale: float = 0.01
+    precision: str = "highest"
 
     def __post_init__(self):
         if self.text_dim <= 0 or self.d_in <= 0 or self.d_out <= 0:
@@ -120,10 +121,10 @@ def apply_weight_generator(
         x = text_emb
         layers = params["heads"][name]
         for i, layer in enumerate(layers[:-1]):
-            x = torch.relu(linear_apply(layer, x))
+            x = torch.relu(linear_apply(layer, x, precision=config.precision))
             if use_dropout:
                 x = torch.where(keep[name][i], x / (1.0 - p), 0.0)
-        flat = linear_apply(layers[-1], x)  # [B, prod(shape)]
+        flat = linear_apply(layers[-1], x, precision=config.precision)  # [B, prod(shape)]
         w = flat.reshape((x.shape[0],) + shape) * torch.exp(params["log_scales"][name])
         out[name] = w[0] if single else w
     return out

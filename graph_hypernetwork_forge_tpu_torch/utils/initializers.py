@@ -46,8 +46,20 @@ def layer_norm_params(dim: int) -> dict:
     return {"g": torch.ones(dim), "b": torch.zeros(dim)}
 
 
-def linear_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """``x @ w + b`` with ``w`` stored ``[d_in, d_out]``."""
+def check_precision(precision) -> None:
+    """Refuse a ``precision`` that the JAX package's ``resolve_precision``
+    does not take by name: ``"highest"``, ``"high"``, ``"default"`` or
+    ``None``. PyTorch's own products run in full float32 at every one of
+    them (choosing the card turns TF32 off, ``device.resolve_device``), so
+    it changes no value here."""
+    if precision not in ("highest", "high", "default", None):
+        raise ValueError(f"unknown precision {precision!r}")
+
+
+def linear_apply(params: dict, x: torch.Tensor, precision="highest") -> torch.Tensor:
+    """``x @ w + b`` with ``w`` stored ``[d_in, d_out]``; ``precision`` as
+    :func:`check_precision` takes it."""
+    check_precision(precision)
     return x @ params["w"] + params["b"]
 
 

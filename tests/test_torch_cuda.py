@@ -1156,3 +1156,95 @@ def test_checkpoint_of_card_tensors_restores_on_the_card(dev, tmp_path):
     moments = [v for s in other.opt_state.state.values() for k, v in s.items()
                if k != "step"]
     assert moments and all(v.device.type == "cuda" for v in moments)
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    """A one-rank NCCL process group and its ("edge",) mesh on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc: the CUDA kernels run only there")
+    import torch.distributed as dist
+
+    from graph_hypernetwork_forge_tpu_torch.parallel.mesh import make_mesh
+
+    resolve_device(None)
+    rendezvous = tmp_path_factory.mktemp("nccl") / "rendezvous"
+    dist.init_process_group("nccl", init_method=f"file://{rendezvous}", rank=0,
+                            world_size=1)
+    try:
+        yield make_mesh((1,), ("edge",))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("form", ["edge", "node", "halo", "scheduled"])
+def test_parallel_forms_at_world_size_one_match_the_cuda_backend(nccl_mesh, form):
+    """Each ``parallel/`` message-passing form on one NCCL rank against the
+    main path (the ``cuda`` backend: kernels 1 and 2, and 3 in the
+    backward): output and the gradients of ``Σ out · R`` within the f32
+    gate."""
+    from graph_hypernetwork_forge_tpu_torch.parallel import halo
+    from graph_hypernetwork_forge_tpu_torch.parallel.edge_partition import (
+        edge_partitioned_message_passing,
+    )
+    from graph_hypernetwork_forge_tpu_torch.parallel.node_partition import (
+        node_partitioned_message_passing,
+        partition_edges_by_dst,
+    )
+
+    dev = torch.device(nccl_mesh.device_type)
+    rng = np.random.default_rng(3)
+    n, e, u, d = 300, 3000, 6, 64
+    ei = np.stack([rng.integers(0, n, e), rng.integers(0, n - 10, e)])
+    texts = [f"relation kind {i}" for i in range(u)]
+    g = encode_graph(ei, [texts[i] for i in rng.integers(0, u, e)], n,
+                     sort_by_relation=True, with_sort_plan=True, group_pad=GROUP_PAD)
+    u_pad = g.char_ids.shape[0]
+    src, dst, rel, mask = (torch.as_tensor(a, device=dev) for a in g.arrays[:4])
+
+    inputs = [rng.standard_normal(shape).astype(np.float32) * scale
+              for shape, scale in (((n, d), 1.0), ((u_pad, d, d), d**-0.5),
+                                   ((u_pad, d, d), d**-0.5), ((u_pad, d), 1.0))]
+    r = torch.as_tensor(rng.standard_normal((n, d)).astype(np.float32), device=dev)
+
+    def run(fn):
+        args = [torch.as_tensor(a, device=dev).requires_grad_(True) for a in inputs]
+        out = fn(*args)
+        (out * r).sum().backward()
+        return out.detach(), [a.grad for a in args]
+
+    want, want_grads = run(lambda h, wm, ws, b: relational_message_passing(
+        h, src, dst, rel, wm, ws, b, num_nodes=n, edge_mask=mask, backend="cuda",
+        rel_sorted=True, group_padded=True, sort_plan=g.sort_plan.to(dev)))
+    host = [np.asarray(a) for a in g.arrays[:4]]
+    if form == "edge":
+        def fn(h, wm, ws, b):
+            return edge_partitioned_message_passing(nccl_mesh, h, src, dst, rel, wm, ws, b,
+                                                    edge_mask=mask)
+    elif form == "node":
+        p_src, p_dst, p_rel, p_mask, npp = (
+            torch.as_tensor(a, device=dev) if isinstance(a, np.ndarray) else a
+            for a in partition_edges_by_dst(*host, n, 1))
+
+        def fn(h, wm, ws, b):
+            return node_partitioned_message_passing(nccl_mesh, h, p_src, p_dst, p_rel, wm,
+                                                    ws, b, p_mask, npp)
+    elif form == "halo":
+        plan = halo.build_halo_plan(*host, n, 1)
+        arrays = [torch.as_tensor(a, device=dev) for a in plan.edge_arrays]
+
+        def fn(h, wm, ws, b):
+            return halo.halo_message_passing(
+                nccl_mesh, h, arrays, torch.as_tensor(plan.send_idx, device=dev), wm, ws,
+                b, plan.nodes_per_shard, plan.halo_width)
+    else:
+        plan = halo.build_scheduled_halo_plan(*host, n, 1)
+
+        def fn(h, wm, ws, b):
+            return halo.scheduled_halo_message_passing(nccl_mesh, h, plan, wm, ws, b)
+
+    got, grads = run(fn)
+    torch.testing.assert_close(got, want, rtol=0, atol=3e-5)
+    for name, a, b in zip(("h", "W_msg", "W_self", "bias"), grads, want_grads):
+        scale = max(1.0, b.abs().max().item())
+        torch.testing.assert_close(a / scale, b / scale, rtol=0, atol=3e-5, msg=name)

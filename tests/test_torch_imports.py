@@ -44,5 +44,8 @@ def test_training_and_the_new_kernel_module_are_probed():
                 "ops.cuda.edge_transform_bwd", "ops.cuda.segment_outer",
                 "native_bridge", "data.sampling", "data.datasets", "data.triples",
                 "training.evaluate", "training.checkpoint", "training.minibatch",
-                "utils.metrics", "utils.profiling"):
+                "utils.metrics", "utils.profiling", "parallel", "parallel.mesh",
+                "parallel.collectives", "parallel.edge_partition",
+                "parallel.relation_sharding", "parallel.sharding",
+                "parallel.data_parallel", "parallel.node_partition", "parallel.halo"):
         assert f"{port.__name__}.{mod}" in names, mod
