@@ -127,7 +127,23 @@ JAX, and fails (non-zero exit, no result line) on any failed phase:
    1e-5, parameters after Adam 3e-5) and its ms; then, on the host, the
    halo plans of the xl graph for 4 and 8 ranks, on raw labels and after
    ``locality_relabel``: build ms, bytes per device, padding factors and
-   rounds;
+   rounds; slices C and D on the same group: ``tp_generate_weights``
+   against ``apply_weight_generator`` and ``tp_message_passing`` against the
+   main path (values, gradients, ms); ``pipelined_forward`` and
+   ``make_pipelined_train_step`` at S=1 over 2 xl microbatches against
+   ``apply_hypergnn`` and the sequential step (on the backend ``auto``
+   picks without a plan, as JAX's pipeline passes none); the composed step
+   at k=1 on the halo (local_roll) and dense v1 (uniform_global) layouts,
+   relation-sorted and group-padded per shard, with the contributions
+   ``pallas`` and ``pallas_packed`` (the ``cuda`` backend over the shard's
+   SortPlan: kernels 1-3, launches per step equal to the count from the
+   code and no run-table launch), ``grouped`` and ``dense``, the uniform
+   forms against ``make_train_step`` on the same negatives (loss 1e-5,
+   gradients 3e-5 scaled, parameters after Adam at that gate where |g| >=
+   1e-6), ms per step and peak memory; the 2D composed step on a (1, 1)
+   mesh against the 1D step; the sharded ``make_train_step`` over DTensors
+   against the plain step; kernel 1 alone on each reduction of the first
+   shard's plan at k=4 (the segments and empty segments it runs over);
 12. the training line, the kernels line (each kernel, then each bf16 form,
    one-TF32-pass mode and ``mode="fast"`` as an entry of its own,
    ``name[form]``, with its launches on its path), the card line and the
@@ -202,11 +218,29 @@ from graph_hypernetwork_forge_tpu_torch.models.weight_generator import (  # noqa
 from graph_hypernetwork_forge_tpu_torch.parallel import halo  # noqa: E402
 from graph_hypernetwork_forge_tpu_torch.parallel import (  # noqa: E402
     edge_partitioned_message_passing,
+    make_composed_train_step,
     make_data_parallel_step,
     make_mesh,
     node_partitioned_message_passing,
     partition_edges_by_dst,
+    pipelined_forward,
+    prepare_composed_inputs,
     relation_sharded_generate,
+    shard_graph_arrays,
+    shard_params,
+)
+from graph_hypernetwork_forge_tpu_torch.parallel.composed import local_inputs  # noqa: E402
+from graph_hypernetwork_forge_tpu_torch.parallel.composed_tp import (  # noqa: E402
+    make_composed_tp_train_step,
+    shard_composed_tp_params,
+)
+from graph_hypernetwork_forge_tpu_torch.parallel.pipeline import (  # noqa: E402
+    make_pipelined_train_step,
+)
+from graph_hypernetwork_forge_tpu_torch.parallel.tensor_parallel import (  # noqa: E402
+    shard_generator_params,
+    tp_generate_weights,
+    tp_message_passing,
 )
 from graph_hypernetwork_forge_tpu_torch.training.objectives import (  # noqa: E402
     link_prediction_loss,
@@ -253,6 +287,16 @@ MB_TIMED = 5
 # mesh sizes the host plans are built for.
 PARALLEL_ATOL, DP_LOSS_ATOL, DP_PARAM_ATOL = 3e-5, 1e-5, 3e-5
 DP_BATCH, PLAN_SHARDS = 2, (4, 8)
+# parallel/ slices C and D at world size 1: the composed step's
+# contribution backends (JAX's names; "pallas" and "pallas_packed" run the
+# cuda backend over the shard's SortPlan), its timed steps, the pipeline's
+# microbatches, and the Adam gate of the step comparisons: the loss within
+# 1e-5, the gradients at the f32 gate scaled, the parameters after Adam at
+# that gate wherever |g| is above ADAM_NOISE_GRAD (below it Adam's first
+# step, lr·g/(|g| + eps), follows the rounding of g, up to a flipped sign:
+# within 2·lr there).
+COMPOSED_CONTRIBS = ("pallas", "pallas_packed", "grouped", "dense")
+COMPOSED_TIMED, PIPE_MICRO, STEP_LOSS_ATOL, ADAM_NOISE_GRAD = 3, 2, 1e-5, 1e-6
 
 # NVIDIA H100 SXM data sheet, at the 700 W limit: HBM3 bandwidth, the f32
 # rate outside the tensor cores, and the dense TF32 rate of the tensor cores.
@@ -358,6 +402,10 @@ STEP_LAUNCHES = {
     "segment_outer": 0,
     "dual_sorted_segment_sum": 0,
 }
+# The composed step with the cuda contribution: kernels 1-3 as a training
+# step's layers launch them; its loss (local or uniform scoring) gathers
+# rows with PyTorch and launches no kernel.
+COMPOSED_LAUNCHES = dict(STEP_LAUNCHES, csr_segment_sum=LAYERS * 4)
 # A forward (serving) runs kernels 1 and 2 once per layer.
 FORWARD_LAUNCHES = {
     name: LAYERS if name in ("csr_segment_sum", "edge_transform_sorted_combined") else 0
@@ -2666,13 +2714,373 @@ def _plan_numbers(g) -> dict:
     return out
 
 
+def _events_ms(fn, iters: int) -> float:
+    """Mean CUDA-event milliseconds of ``fn()`` over ``iters`` calls, no
+    warm-up (the caller warms up)."""
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def adam_step_errors(label, got_loss, got_params, want_loss, want_params,
+                     lr: float = LEARNING_RATE) -> dict:
+    """One step against another from the same parameters: the loss, each
+    leaf's gradient scaled, and the parameters after Adam (the gate where
+    |g| is above ADAM_NOISE_GRAD, 2·lr elsewhere); recorded as checks."""
+    got, want = dict(named_leaves(got_params)), dict(named_leaves(want_params))
+    got_loss, want_loss = (float(x.detach()) if torch.is_tensor(x) else float(x)
+                           for x in (got_loss, want_loss))
+    loss_err = abs(got_loss - want_loss)
+    grad_err = max(scaled_err(got[p].grad, w.grad) for p, w in want.items())
+    param_err, flip_err = 0.0, 0.0
+    for p, w in want.items():
+        diff = (got[p].detach() - w.detach()).abs()
+        sure = w.grad.abs() >= ADAM_NOISE_GRAD
+        param_err = max(param_err, torch.where(sure, diff, 0.0).max().item()
+                        / max(1.0, w.detach().abs().max().item()))
+        flip_err = max(flip_err, diff.max().item())
+    log(f"{label}: loss {got_loss:.6f} against {want_loss:.6f} "
+        f"({loss_err:.3e}, tol {STEP_LOSS_ATOL}); gradients scaled {grad_err:.3e} "
+        f"(tol {GRAD_ATOL}); parameters after Adam scaled {param_err:.3e} where |g| >= "
+        f"{ADAM_NOISE_GRAD} (tol {GRAD_ATOL}), at most {flip_err:.3e} (tol {2 * lr})")
+    check(np.isfinite(got_loss) and loss_err <= STEP_LOSS_ATOL
+          and grad_err <= GRAD_ATOL and param_err <= GRAD_ATOL and flip_err <= 2 * lr,
+          f"{label}: disagree")
+    return dict(loss=got_loss, loss_err=loss_err, grad_scaled_err=grad_err,
+                param_scaled_err=param_err, param_max_err=flip_err)
+
+
+def _with_grad(t: torch.Tensor) -> torch.Tensor:
+    """A detached copy of a leaf that carries a copy of its gradient."""
+    out = t.detach().clone()
+    out.grad = t.grad.clone()
+    return out
+
+
+def _fresh(init, dev):
+    return create_train_state(tree_map(lambda t: t.to(dev, copy=True), init),
+                              adam(LEARNING_RATE))
+
+
+def _parallel_tp(dev, mesh, g, params) -> dict:
+    """tensor_parallel on the one-rank axis at xl: the Megatron-split
+    generator against ``apply_weight_generator``, and ``tp_message_passing``
+    against the main path (the ``cuda`` backend over the SortPlan): values,
+    the gradients of ``Σ out · R``, ms and peak memory."""
+    config = train_config()
+    wg_cfg = config.weight_generator
+    te, wg = params["text_encoder"], params["weight_generators"][0]
+    chars, lens = (torch.as_tensor(a, device=dev) for a in g.arrays[4:6])
+    text = apply_text_encoder(te, chars, lens)
+    blocks = shard_generator_params(wg, wg_cfg, mesh, axis="edge")
+    got = tp_generate_weights(mesh, wg_cfg, blocks, text, axis="edge")
+    want = apply_weight_generator(wg_cfg, wg, text)
+    gen_err = max((got[n] - want[n]).abs().max().item() for n in want)
+    gen_ms = cuda_ms(lambda: tp_generate_weights(mesh, wg_cfg, blocks, text, axis="edge"),
+                     iters=5, warmup=1)
+    log(f"parallel tp_generate_weights: max_abs_err {gen_err:.3e} against "
+        f"apply_weight_generator (tol {PARALLEL_ATOL}), {gen_ms:.3f} ms")
+    check(gen_err <= PARALLEL_ATOL, "parallel: tp_generate_weights disagrees")
+    src, dst, rel, mask = (torch.as_tensor(a, device=dev) for a in g.arrays[:4])
+    plan = g.sort_plan.to(dev)
+    rgen = torch.Generator().manual_seed(1)
+    h = torch.randn(XL_N, WIDTH, generator=rgen).to(dev)
+    r = torch.randn(XL_N, WIDTH, generator=rgen).to(dev)
+    inputs = [h] + [want[n].detach() for n in ("W_msg", "W_self", "bias")]
+    ref, ref_grads = _grad_run(lambda h, wm, ws, b: relational_message_passing(
+        h, src, dst, rel, wm, ws, b, num_nodes=XL_N, edge_mask=mask, backend="cuda",
+        rel_sorted=True, group_padded=True, sort_plan=plan), inputs, r)
+
+    def tp_mp(h, wm, ws, b):
+        return tp_message_passing(mesh, h, src, dst, rel,
+                                  {"W_msg": wm, "W_self": ws, "bias": b}, XL_N,
+                                  edge_mask=mask, axis="edge")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    out, grads = _grad_run(tp_mp, inputs, r)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    err = (out - ref).abs().max().item()
+    grad_errs = {n: scaled_err(a, b) for n, a, b in
+                 zip(("h", "W_msg", "W_self", "bias"), grads, ref_grads)}
+    del out, grads, ref, ref_grads
+    ms = cuda_ms(lambda: _grad_run(tp_mp, inputs, r), iters=3, warmup=1)
+    log(f"parallel tp_message_passing vs the main path: max_abs_err {err:.3e}, gradient "
+        f"scaled errors " + ", ".join(f"{n} {e:.3e}" for n, e in grad_errs.items())
+        + f" (tol {PARALLEL_ATOL}); {ms:.3f} ms per forward + backward, peak {peak:.2f} GB")
+    check(err <= PARALLEL_ATOL and max(grad_errs.values()) <= PARALLEL_ATOL,
+          "parallel: tp_message_passing disagrees with the main path")
+    torch.cuda.empty_cache()
+    return dict(generate=dict(max_abs_err=gen_err, ms=gen_ms),
+                message_passing=dict(max_abs_err=err, grad_scaled_err=grad_errs, ms=ms,
+                                     peak_memory_gb=peak))
+
+
+def _parallel_pipeline(dev, mesh, feats_np, g) -> dict:
+    """The pipeline at S = 1 over PIPE_MICRO xl microbatches (the xl graph
+    with other features): ``pipelined_forward`` against ``apply_hypergnn``
+    per microbatch, and ``make_pipelined_train_step`` against the
+    sequential step on the same negatives; the backend ``auto`` picks for
+    the microbatch layout (JAX's pipeline passes no plan), ms."""
+    config = train_config("auto")
+    backend = resolve_backend("auto", XL_N, g.char_ids.shape[0], g.src.shape[0], WIDTH,
+                              rel_sorted=True, group_padded=False, has_sort_plan=False)
+    init = init_hypergnn(config, torch.Generator().manual_seed(5))
+    rng = np.random.default_rng(5)
+    feats = torch.as_tensor(np.stack([feats_np] + [
+        rng.standard_normal(feats_np.shape).astype(np.float32)
+        for _ in range(PIPE_MICRO - 1)]), device=dev)
+    arrays = [torch.as_tensor(np.stack([a] * PIPE_MICRO), device=dev) for a in g.arrays]
+    params = tree_map(lambda t: t.to(dev), init)
+    with torch.no_grad():
+        out = pipelined_forward(mesh, config, params, feats, *arrays, axis="edge")
+        err = max((out[m] - apply_hypergnn(config, params, feats[m], *(a[m] for a in arrays))
+                   ).abs().max().item() for m in range(PIPE_MICRO))
+        fwd_ms = cuda_ms(lambda: pipelined_forward(mesh, config, params, feats, *arrays,
+                                                   axis="edge"), iters=2, warmup=1)
+    log(f"parallel pipelined_forward (S=1, {PIPE_MICRO} xl microbatches, auto picks "
+        f"{backend!r}): max_abs_err {err:.3e} against apply_hypergnn per microbatch (tol "
+        f"{PARALLEL_ATOL}), {fwd_ms:.3f} ms")
+    check(err <= PARALLEL_ATOL, "parallel: pipelined_forward disagrees")
+    del out
+    gen = torch.Generator(device=dev).manual_seed(6)
+    neg = torch.randint(0, XL_N, arrays[0].shape, generator=gen, device=dev,
+                        dtype=arrays[0].dtype)
+    pipe, ref = _fresh(init, dev), _fresh(init, dev)
+    step = make_pipelined_train_step(mesh, config, adam(LEARNING_RATE), axis="edge")
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, _, loss = step(pipe.params, pipe.opt_state, feats, *arrays, gen, neg_dst=neg)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    ref.opt_state.zero_grad(set_to_none=True)
+    ref_loss = torch.stack([
+        link_prediction_loss(apply_hypergnn(config, ref.params, feats[m],
+                                            *(a[m] for a in arrays)),
+                             arrays[0][m], arrays[1][m], neg[m], edge_mask=arrays[3][m])
+        for m in range(PIPE_MICRO)]).mean()
+    ref_loss.backward()
+    ref.opt_state.step()
+    res = adam_step_errors("parallel make_pipelined_train_step vs the sequential step",
+                           loss, pipe.params, ref_loss, ref.params)
+    step_ms = _events_ms(lambda: step(pipe.params, pipe.opt_state, feats, *arrays, gen,
+                                      neg_dst=neg), 2)
+    log(f"parallel pipelined train step: {step_ms:.3f} ms (CUDA events), peak {peak:.2f} GB")
+    torch.cuda.empty_cache()
+    return dict(backend=backend, forward=dict(max_abs_err=err, ms=fwd_ms),
+                train_step=dict(res, ms=step_ms, peak_memory_gb=peak))
+
+
+def composed_layouts(g, feats_np, k: int) -> dict:
+    """The composed step's host layouts of the xl graph for k ranks, both
+    relation-sorted and group-padded per shard: halo and the dense v1."""
+    out = {}
+    for name, halo_mode in (("halo", True), ("dense_v1", False)):
+        t0 = time.perf_counter()
+        out[name] = prepare_composed_inputs(g, feats_np, k, halo=halo_mode,
+                                            rel_sort_local=True, group_pad=256)
+        log(f"composed layout {name} k={k}: prepare_composed_inputs "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms on the host, cap "
+            f"{out[name].src.shape[0] // k}, halo width {out[name].halo_width}")
+    return out
+
+
+def composed_step(mesh, config, inputs, contrib: str, *, local_roll: bool, axis="edge"):
+    """A composed step over ``inputs`` and its keyword arrays (the rank's
+    blocks): the kernel contributions with the shard's plan, grouped with
+    its group sizes, dense without either."""
+    halo_mode = inputs.src_halo is not None
+    step = make_composed_train_step(
+        mesh, config, adam(LEARNING_RATE), inputs.nodes_per_shard, axis=axis,
+        num_nodes=inputs.num_nodes, halo_width=inputs.halo_width if halo_mode else None,
+        neg_mode="local_roll" if local_roll else "uniform_global", contrib=contrib,
+        agg_sorted=contrib not in ("grouped", "dense"))
+    return step
+
+
+def composed_kwargs(kw: dict, contrib: str) -> dict:
+    kernel = contrib not in ("grouped", "dense")
+    return {key: v for key, v in kw.items()
+            if not ((key in ("agg_plan", "kernel_plan") and not kernel)
+                    or (key == "rel_group_sizes" and contrib != "grouped"))}
+
+
+def _parallel_composed(dev, mesh, feats_np, g) -> tuple:
+    """The composed step at k = 1 on the xl layouts, halo with local_roll
+    and the dense v1 with uniform_global, each contribution backend: the
+    uniform forms against the single-process ``make_train_step`` (the cuda
+    backend over the layout's SortPlan) on the same negatives, the local
+    forms against each other; the cuda contribution's launches per step
+    against the count from the code and no run-table launch; ms per step
+    and peak memory."""
+    config = train_config()
+    init = _scale_one(init_hypergnn(config, torch.Generator().manual_seed(8)))
+    layouts = composed_layouts(g, feats_np, 1)
+    out = {}
+    for mode, inputs in layouts.items():
+        local_roll = mode == "halo"
+        arrays, kw = local_inputs(inputs, mesh, "edge", dev)
+        gen = torch.Generator(device=dev).manual_seed(9)
+        cap = arrays[1].shape[0]
+        neg = 12_345 if local_roll else torch.randint(
+            0, XL_N, (cap,), generator=gen, device=dev, dtype=arrays[1].dtype)
+        ref = None
+        if not local_roll:
+            host = [np.asarray(a) for a in (inputs.src, inputs.dst, inputs.rel_ids,
+                                            inputs.edge_mask)]
+            plan = build_sort_plan(*host, XL_N, inputs.char_ids.shape[0]).to(dev)
+            ref = _fresh(init, dev)
+            _, _, ref_loss = make_train_step(config)(
+                ref.params, ref.opt_state, *arrays, gen, neg_dst=neg, sort_plan=plan)
+        first = None
+        for contrib in COMPOSED_CONTRIBS:
+            label = f"parallel composed {mode} contrib={contrib}"
+            step = composed_step(mesh, config, inputs, contrib, local_roll=local_roll)
+            ckw = composed_kwargs(kw, contrib)
+            state = _fresh(init, dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            _, _, loss = step(state.params, state.opt_state, *arrays, gen, neg=neg, **ckw)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(dev) / 1e9
+            if ref is not None:
+                res = adam_step_errors(f"{label} vs make_train_step", loss, state.params,
+                                       ref_loss, ref.params)
+            elif first is None:
+                # A copy: the timed steps below go on updating the parameters.
+                first = (loss, tree_map(_with_grad, state.params))
+                res = dict(loss=float(loss))
+            else:
+                res = adam_step_errors(f"{label} vs contrib={COMPOSED_CONTRIBS[0]}",
+                                       loss, state.params, *first)
+            kernels.reset_launch_counts()
+            ms = _events_ms(lambda: step(state.params, state.opt_state, *arrays, gen, neg=neg,
+                                         **ckw), COMPOSED_TIMED)
+            launches = launch_counts()
+            per_step = {n: c // COMPOSED_TIMED for n, c in launches.items()}
+            tables = kernels.run_table.launches
+            if contrib in ("pallas", "pallas_packed"):
+                log(f"{label}: launches per step {per_step} (expected {COMPOSED_LAUNCHES}), "
+                    f"run_table launches {tables}")
+                check(per_step == COMPOSED_LAUNCHES and tables == 0,
+                      f"{label}: launches differ from the code's count")
+            log(f"{label}: {ms:.3f} ms per step (CUDA events, {COMPOSED_TIMED} steps), "
+                f"peak {peak:.2f} GB")
+            if (mode, contrib) == ("halo", "pallas"):
+                res["profile"] = profile_device(label, lambda: step(
+                    state.params, state.opt_state, *arrays, gen, neg=neg, **ckw), rows=10)
+            out[f"{mode}/{contrib}"] = dict(res, ms=ms, peak_memory_gb=peak,
+                                            launches=launches, run_table_launches=tables)
+            del state
+            torch.cuda.empty_cache()
+    return out, layouts
+
+
+def _shard_stream_sums(dev, g, feats_np, k: int = 4) -> dict:
+    """Kernel 1 alone on the reductions of the composed step's first shard
+    at k ranks (the xl halo layout, group-padded per shard), one launch per
+    stream as the step makes it: the aggregation over the shard's nodes,
+    the dst and src gathers' cotangents over its [local ++ halo] rows, and
+    dbias; CUDA-event ms, beside the segments and how many are empty."""
+    inputs = prepare_composed_inputs(g, feats_np, k, halo=True, rel_sort_local=True,
+                                     group_pad=256)
+    cap, npp = inputs.src.shape[0] // k, inputs.nodes_per_shard
+    rows = npp + k * inputs.halo_width
+    x = torch.randn(cap, WIDTH, generator=torch.Generator().manual_seed(13)).to(dev)
+    out = {}
+    for name, (splits, n) in {
+        "aggregation": (inputs.kernel_dst_splits[0], npp),
+        "dst_cotangent": (inputs.kernel_dst_splits[0], rows),
+        "src_cotangent": (inputs.kernel_src_splits[0], rows),
+        "dbias": (inputs.kernel_rel_splits[0], inputs.char_ids.shape[0]),
+    }.items():
+        sp = torch.as_tensor(splits, device=dev)
+        ms = cuda_ms(lambda: kernels.csr_segment_sum(x, sp, n), iters=10, warmup=2)
+        empty = int((np.diff(splits[: n + 1]) == 0).sum())
+        log(f"kernel 1 on the composed k={k} shard 0 {name}: {ms:.4f} ms over {cap} rows, "
+            f"{n} segments, {empty} empty")
+        out[name] = dict(ms=ms, rows=cap, segments=n, empty_segments=empty)
+    return out
+
+
+def _parallel_composed_tp(dev, layouts) -> dict:
+    """The 2D composed step on a (1, 1) ("edge", "model") mesh against the
+    1D composed step on the same halo layout and rotation (grouped)."""
+    config = train_config()
+    init = _scale_one(init_hypergnn(config, torch.Generator().manual_seed(8)))
+    mesh2 = make_mesh((1, 1), ("edge", "model"), device_type=dev.type)
+    inputs = layouts["halo"]
+    arrays, kw = local_inputs(inputs, mesh2, "edge", dev)
+    ckw = composed_kwargs(kw, "grouped")
+    ckw.pop("agg_plan", None)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    one_d = _fresh(init, dev)
+    step1 = composed_step(mesh2, config, inputs, "grouped", local_roll=True)
+    _, _, ref_loss = step1(one_d.params, one_d.opt_state, *arrays, gen, neg=777, **ckw)
+    two_d = create_train_state(shard_composed_tp_params(
+        tree_map(lambda t: t.to(dev, copy=True), init), config, mesh2), adam(LEARNING_RATE))
+    step2 = make_composed_tp_train_step(mesh2, config, adam(LEARNING_RATE),
+                                        inputs.nodes_per_shard, halo_width=inputs.halo_width,
+                                        contrib="grouped")
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, _, loss = step2(two_d.params, two_d.opt_state, *arrays, gen, neg=777, **ckw)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    res = adam_step_errors("parallel composed_tp (1, 1) vs the 1D composed step", loss,
+                           two_d.params, ref_loss, one_d.params)
+    ms = _events_ms(lambda: step2(two_d.params, two_d.opt_state, *arrays, gen, neg=777,
+                                  **ckw), 2)
+    log(f"parallel composed_tp: {ms:.3f} ms per step (CUDA events), peak {peak:.2f} GB")
+    torch.cuda.empty_cache()
+    return dict(res, ms=ms, peak_memory_gb=peak)
+
+
+def _parallel_sharded(dev, mesh, feats_np, g) -> dict:
+    """``make_train_step`` (the main path: roll negatives through the
+    SortPlan) on DTensor parameters and graph arrays against the same step
+    on plain tensors, from the same parameters and shift."""
+    config = train_config()
+    init = init_hypergnn(config, torch.Generator().manual_seed(11))
+    feats = torch.as_tensor(feats_np, device=dev)
+    arrays = [torch.as_tensor(a, device=dev) for a in g.arrays]
+    plan = g.sort_plan.to(dev)
+    shift = torch.tensor(4_321, device=dev)
+    step = make_train_step(config, neg_mode="roll")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    ref = _fresh(init, dev)
+    _, _, ref_loss = step(ref.params, ref.opt_state, feats, *arrays, gen, neg_dst=shift,
+                          sort_plan=plan)
+    sharded = create_train_state(
+        shard_params(tree_map(lambda t: t.to(dev, copy=True), init), config, mesh),
+        adam(LEARNING_RATE))
+    dt_arrays = shard_graph_arrays(arrays, mesh)
+    _, _, loss = step(sharded.params, sharded.opt_state, feats, *dt_arrays, gen,
+                      neg_dst=shift, sort_plan=plan)
+    whole = tree_map(lambda t: t.full_tensor().detach(), sharded.params)
+    for (_, w), (_, t) in zip(named_leaves(whole), named_leaves(sharded.params)):
+        w.grad = t.grad.full_tensor()
+    res = adam_step_errors("parallel sharded make_train_step vs plain", loss, whole,
+                           ref_loss, ref.params)
+    placements = sorted({str(t.placements) for _, t in named_leaves(sharded.params)})
+    ms = _events_ms(lambda: step(sharded.params, sharded.opt_state, feats, *dt_arrays, gen,
+                                 neg_dst=shift, sort_plan=plan), 2)
+    log(f"parallel sharded step: placements kept {placements}; {ms:.3f} ms (CUDA events)")
+    torch.cuda.empty_cache()
+    return dict(res, placements=placements, ms=ms)
+
+
 def phase_parallel(dev) -> dict:
-    """``parallel/`` slices A and B on a one-rank NCCL process group over
-    the card (``make_mesh((1,), ("edge",))``), at xl: the four forms of
-    message passing against the main path and ``dense``, relation-sharded
-    generation bit for bit against single-rank generation, a DP step
-    against the single-process step; then the halo plans for larger meshes
-    on the host."""
+    """``parallel/`` on a one-rank NCCL process group over the card
+    (``make_mesh((1,), ("edge",))``), at xl. Slices A and B: the four forms
+    of message passing against the main path and ``dense``,
+    relation-sharded generation bit for bit against single-rank generation,
+    a DP step against the single-process step. Slices C and D: the
+    tensor-parallel generator and message passing, the pipeline at S = 1,
+    the composed step in every contribution backend (its kernels' launches
+    counted), the 2D composed step on a (1, 1) mesh and the sharded
+    ``make_train_step``, each against its single-process counterpart. Then
+    the halo plans for larger meshes on the host."""
     import torch.distributed as dist
 
     t_start = time.perf_counter()
@@ -2714,6 +3122,13 @@ def phase_parallel(dev) -> dict:
             del h, r, banks
             torch.cuda.empty_cache()
             out["data_parallel"] = _parallel_dp(dev, mesh, feats_np, g)
+            # Slices C and D.
+            out["tensor_parallel"] = _parallel_tp(dev, mesh, g, params)
+            out["pipeline"] = _parallel_pipeline(dev, mesh, feats_np, g)
+            out["composed"], layouts = _parallel_composed(dev, mesh, feats_np, g)
+            out["composed"]["shard_streams_k4"] = _shard_stream_sums(dev, g, feats_np)
+            out["composed_tp"] = _parallel_composed_tp(dev, layouts)
+            out["sharded_step"] = _parallel_sharded(dev, mesh, feats_np, g)
         finally:
             dist.destroy_process_group()
     torch.cuda.empty_cache()
@@ -2793,6 +3208,8 @@ def main() -> int:
             launches_per_forward=served["launches"][name] // REQUESTS,
             launches_per_two_stream_layer=f32_layer[name],
             launches_per_grouped_step=grouped["launches"][name],
+            launches_per_composed_step=(
+                parallel["composed"]["halo/pallas"]["launches"][name] // COMPOSED_TIMED),
             **numbers(measured[(name, 64)]), d128=numbers(measured[(name, 128)]),
         )
         for name, k in KERNELS.items()

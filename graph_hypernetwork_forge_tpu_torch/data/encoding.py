@@ -100,7 +100,10 @@ def _node_sort(ids: np.ndarray, num_nodes: int) -> Tuple[np.ndarray, np.ndarray]
     row whose sorted id is ``>= i``), both int32. Natively one counting
     sort (``build_csr``), else ``np.argsort`` and a binary search."""
     native = native_bridge.get_native()
-    if native is not None:
+    # The counting sort indexes by id: ids outside [0, num_nodes) (a
+    # partition's pad rows can carry them) take the comparison sort.
+    in_range = ids.size == 0 or (ids.min() >= 0 and ids.max() < num_nodes)
+    if native is not None and in_range:
         ptr, perm = native.build_csr(ids, num_nodes)
         return perm.astype(np.int32), ptr.astype(np.int32)
     perm = np.argsort(ids, kind="stable")

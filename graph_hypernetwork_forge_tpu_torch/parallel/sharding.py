@@ -86,6 +86,21 @@ def shard_graph_arrays(arrays: tuple, mesh: DeviceMesh) -> tuple:
                  for a, p in zip(arrays, graph_array_shardings(mesh)))
 
 
+def local_shard(t: torch.Tensor, placements: Placements, mesh: DeviceMesh) -> torch.Tensor:
+    """This rank's block of the whole tensor ``t`` under ``placements``: the
+    block the ``shard_map`` body sees (DTensor's ``to_local``, cut here
+    without a collective). A sharded dim must divide by its axis size."""
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            k = mesh.size(i)
+            if t.shape[p.dim] % k:
+                raise ValueError(f"dim {p.dim} of size {t.shape[p.dim]} does not split "
+                                 f"over {k} ranks of {mesh.mesh_dim_names[i]!r}")
+            t = t.chunk(k, dim=p.dim)[coord[i]]
+    return t.contiguous()
+
+
 def replicate(tree: Any, mesh: DeviceMesh) -> Any:
     """Every leaf of ``tree`` as a replicated DTensor."""
     repl = _named(mesh)

@@ -21,6 +21,7 @@ from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from graph_hypernetwork_forge_tpu_torch.data.encoding import EncodedGraph
 from graph_hypernetwork_forge_tpu_torch.device import resolve_device
@@ -67,6 +68,13 @@ def create_train_state(params: Any, optimizer: Optimizer) -> TrainState:
     return TrainState(params=params, opt_state=optimizer(tree_leaves(params)))
 
 
+def _whole(t):
+    """A DTensor's whole value, through a differentiable all-gather (the
+    gradient returns to the DTensor's own placements); any other value as
+    it is."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def _check_modes(neg_mode: str, num_pos_samples: Optional[int]) -> None:
     if neg_mode not in ("uniform", "roll"):
         raise ValueError(f"unknown neg_mode: {neg_mode!r}")
@@ -104,6 +112,14 @@ def make_train_step(
     ``num_negatives`` K > 1 averages the hinge over K uniform tails per
     positive, and ``adversarial_temperature`` T > 0 weights them by
     ``softmax(T * neg_score)``. Dropout is on when ``config.dropout > 0``.
+
+    The parameters and the arrays may be DTensors placed by
+    ``parallel.shard_params`` / ``shard_graph_arrays`` (the sharded step):
+    the step computes on their whole values, gathered at its entry, since
+    the kernels' launches take plain tensors; the gradients return to each
+    parameter's own shards, and Adam updates them in place, so the
+    parameters keep their placements. Every rank computes the whole step,
+    so every rank passes the same ``gen`` state (or ``neg_dst``).
     """
     _check_modes(neg_mode, num_pos_samples)
     if num_negatives < 1:
@@ -151,6 +167,10 @@ def make_train_step(
         neg_dst=None,
         sort_plan=None,
     ) -> Tuple[Any, torch.optim.Optimizer, torch.Tensor]:
+        whole = tree_map(_whole, params)
+        node_features, src, dst, rel_ids, edge_mask, char_ids, text_lengths = (
+            _whole(t) for t in (node_features, src, dst, rel_ids, edge_mask, char_ids,
+                                text_lengths))
         dev = node_features.device
         if num_pos_samples is None:
             pos_src, pos_dst, pos_mask = src, dst, edge_mask
@@ -177,7 +197,7 @@ def make_train_step(
             )
         opt_state.zero_grad(set_to_none=True)
         loss = loss_fn(
-            params, node_features, src, dst, rel_ids, edge_mask, char_ids,
+            whole, node_features, src, dst, rel_ids, edge_mask, char_ids,
             text_lengths, pos_src, pos_dst, pos_mask, neg_dst, gen, sort_plan,
         )
         loss.backward()

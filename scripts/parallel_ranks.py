@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""``parallel/`` slices A and B across cards: one NCCL rank per card.
+"""``parallel/`` across cards: one NCCL rank per card.
 
     python3 scripts/parallel_ranks.py [RANKS]
 
@@ -24,13 +24,22 @@ one):
   parameters after Adam;
 - times each form's forward + backward, the DP step and each form's
   exchange alone (CUDA events, each rank; the slowest rank is reported)
-  and their peak memory.
+  and their peak memory;
+- slices C and D: the composed step over RANKS shards of the xl halo
+  layout (relation-sorted, group-padded per shard) with the ``cuda``
+  contribution, held with uniform negatives to the single-card step on the
+  same layout, then timed with local scoring beside its exchanges alone
+  and the one-shard step in the same call; the 2D composed step on a
+  (RANKS/2, 2) mesh against the 1D step on its edge axis; the pipeline
+  over RANKS stages at xl widths with one layer a stage (num_layers =
+  RANKS) and 4 microbatches, against the sequential forward and step.
 
 Rank 0 prints one JSON line. Exits non-zero if a check fails.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import sys
 import tempfile
@@ -47,9 +56,15 @@ import torch.multiprocessing as mp  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from graph_hypernetwork_forge_tpu_torch.parallel import collectives as coll  # noqa: E402
+from graph_hypernetwork_forge_tpu_torch.parallel.composed_tp import (  # noqa: E402
+    composed_tp_param_specs,
+)
+from graph_hypernetwork_forge_tpu_torch.parallel.sharding import local_shard  # noqa: E402
 
 ATOL = 3e-5
 DEFAULT_RANKS = 4
+# The pipeline's microbatches: with S = RANKS stages, T = M + S - 1 ticks.
+PIPE_RANKS_MICRO = 4
 
 
 def _rank_rows(t: torch.Tensor, mesh) -> torch.Tensor:
@@ -165,6 +180,199 @@ def _dp(dev, mesh, k, feats_np, g) -> dict:
                 peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
 
 
+def _composed(dev, mesh, k, feats_np, g) -> dict:
+    """The composed step at k ranks on the xl halo layout, relation-sorted
+    and group-padded per shard: with uniform negatives and the cuda
+    contribution against the single-card step on the same layout and
+    negatives (the ``dense`` backend over the whole layout); then, with
+    local scoring (the production form), its ms per step, its launches, the
+    exchanges alone, and the k = 1 step (every rank the whole graph, a
+    ("edge", "data") mesh of (1, k)) in the same call."""
+    config = cs.train_config()
+    init = cs._scale_one(cs.init_hypergnn(config, torch.Generator().manual_seed(8)))
+    t0 = time.perf_counter()
+    inputs = cs.prepare_composed_inputs(g, feats_np, k, halo=True, rel_sort_local=True,
+                                        group_pad=256)
+    prep_ms = (time.perf_counter() - t0) * 1e3
+    arrays, kw = cs.local_inputs(inputs, mesh, "edge", dev)
+    whole = [torch.as_tensor(np.asarray(a), device=dev) for a in (
+        inputs.feats, inputs.src, inputs.dst, inputs.rel_ids, inputs.edge_mask,
+        inputs.char_ids, inputs.lengths)]
+    gen = torch.Generator(device=dev).manual_seed(9)
+    neg = torch.randint(0, cs.XL_N, whole[1].shape, generator=gen, device=dev,
+                        dtype=whole[1].dtype)
+    step = cs.composed_step(mesh, config, inputs, "pallas", local_roll=False)
+    state = cs._fresh(init, dev)
+    _, _, loss = step(state.params, state.opt_state, *arrays, gen, neg=_rank_rows(neg, mesh),
+                      **kw)
+    ref = cs._fresh(init, dev)
+    ref_config = dataclasses.replace(config, backend="dense", rel_sorted=False,
+                                     group_padded=False)
+    ref.opt_state.zero_grad(set_to_none=True)
+    ref_loss = cs.link_prediction_loss(
+        cs.apply_hypergnn(ref_config, ref.params, *whole), whole[1], whole[2], neg,
+        edge_mask=whole[4])
+    ref_loss.backward()
+    ref.opt_state.step()
+    res = dict(uniform=cs.adam_step_errors(
+        f"composed k={k} uniform_global contrib=pallas vs the single-card step", loss,
+        state.params, ref_loss, ref.params))
+    del state, ref
+    torch.cuda.empty_cache()
+
+    shift = 1 + int(torch.randint(0, arrays[1].shape[0] - 1, (), generator=gen, device=dev))
+    step = cs.composed_step(mesh, config, inputs, "pallas", local_roll=True)
+    state = cs._fresh(init, dev)
+    step(state.params, state.opt_state, *arrays, gen, neg=shift, **kw)
+    torch.cuda.reset_peak_memory_stats(dev)
+    cs.kernels.reset_launch_counts()
+    ms = cs._events_ms(lambda: step(state.params, state.opt_state, *arrays, gen, neg=shift,
+                                    **kw), cs.COMPOSED_TIMED)
+    launches = {n: c // cs.COMPOSED_TIMED for n, c in cs.launch_counts().items()}
+    res["local_roll"] = dict(ms=ms, launches_per_step=launches,
+                             launches_as_counted=launches == cs.COMPOSED_LAUNCHES,
+                             run_table_launches=cs.kernels.run_table.launches,
+                             peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    # Where the step's time goes: its device time against its wall time.
+    res["profile"] = cs.profile_device(f"composed k={k} step", lambda: step(
+        state.params, state.opt_state, *arrays, gen, neg=shift, **kw), rows=8)
+    # The exchanges alone: a layer's halo all_to_all, its three bank
+    # all_gathers, and the all_reduce of every parameter's gradient.
+    h = torch.randn(inputs.nodes_per_shard, cs.WIDTH, device=dev)
+    send = kw["send_idx"]
+    u_loc = arrays[5].shape[0]
+    banks = [torch.randn(u_loc, cs.WIDTH, cs.WIDTH, device=dev),
+             torch.randn(u_loc, cs.WIDTH, cs.WIDTH, device=dev),
+             torch.randn(u_loc, cs.WIDTH, device=dev)]
+    n_params = sum(t.numel() for _, t in cs.named_leaves(init))
+    flat = torch.randn(n_params, device=dev)
+    res["exchange_ms"] = dict(
+        halo_all_to_all=cs.cuda_ms(lambda: coll.all_to_all(
+            h.index_select(0, send[0].reshape(-1)).reshape(k, inputs.halo_width, -1),
+            mesh, "edge"), iters=10, warmup=2),
+        bank_all_gathers=cs.cuda_ms(lambda: [coll.all_gather(b, mesh, "edge") for b in banks],
+                                    iters=10, warmup=2),
+        gradient_all_reduce=cs.cuda_ms(lambda: coll.psum(flat, mesh, "edge"), iters=10,
+                                       warmup=2))
+    del state
+    torch.cuda.empty_cache()
+
+    one = cs.make_mesh((1, k), ("edge", "data"), device_type=dev.type)
+    inputs1 = cs.prepare_composed_inputs(g, feats_np, 1, halo=True, rel_sort_local=True,
+                                         group_pad=256)
+    arrays1, kw1 = cs.local_inputs(inputs1, one, "edge", dev)
+    step1 = cs.composed_step(one, config, inputs1, "pallas", local_roll=True)
+    state = cs._fresh(init, dev)
+    step1(state.params, state.opt_state, *arrays1, gen, neg=shift, **kw1)
+    res["k1_ms"] = cs._events_ms(lambda: step1(state.params, state.opt_state, *arrays1, gen,
+                                               neg=shift, **kw1), cs.COMPOSED_TIMED)
+    res["k1_profile"] = cs.profile_device("composed k=1 step", lambda: step1(
+        state.params, state.opt_state, *arrays1, gen, neg=shift, **kw1), rows=8)
+    res["prepare_ms"] = prep_ms
+    res["cap"] = int(arrays[1].shape[0])
+    res["halo_width"] = int(inputs.halo_width)
+    del state
+    torch.cuda.empty_cache()
+    return res
+
+
+def _composed_tp(dev, k, feats_np, g) -> dict:
+    """The 2D composed step on a (k/2, 2) ("edge", "model") mesh (grouped,
+    halo, local scoring) against the 1D composed step on its edge axis,
+    from the same parameters and rotations; ms of both."""
+    config = cs.train_config()
+    init = cs._scale_one(cs.init_hypergnn(config, torch.Generator().manual_seed(8)))
+    mesh2 = cs.make_mesh((k // 2, 2), ("edge", "model"), device_type=dev.type)
+    inputs = cs.prepare_composed_inputs(g, feats_np, k // 2, halo=True, rel_sort_local=True)
+    arrays, kw = cs.local_inputs(inputs, mesh2, "edge", dev)
+    kw = cs.composed_kwargs(kw, "grouped")
+    gen = torch.Generator(device=dev).manual_seed(10 + coll.axis_index(mesh2, "edge"))
+    shift = 777
+    one_d = cs._fresh(init, dev)
+    step1 = cs.composed_step(mesh2, config, inputs, "grouped", local_roll=True)
+    _, _, ref_loss = step1(one_d.params, one_d.opt_state, *arrays, gen, neg=shift, **kw)
+    two_d = cs.create_train_state(cs.shard_composed_tp_params(
+        cs.tree_map(lambda t: t.to(dev, copy=True), init), config, mesh2),
+        cs.adam(cs.LEARNING_RATE))
+    step2 = cs.make_composed_tp_train_step(
+        mesh2, config, cs.adam(cs.LEARNING_RATE), inputs.nodes_per_shard,
+        halo_width=inputs.halo_width, contrib="grouped")
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, _, loss = step2(two_d.params, two_d.opt_state, *arrays, gen, neg=shift, **kw)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    specs = dict(cs.named_leaves(composed_tp_param_specs(config, mesh2)))
+    want = {}
+    for path, t in cs.named_leaves(one_d.params):
+        want[path] = local_shard(t.detach(), specs[path], mesh2).clone()
+        want[path].grad = local_shard(t.grad, specs[path], mesh2).clone()
+    res = cs.adam_step_errors(f"composed_tp {k // 2}x2 vs the 1D composed step", loss,
+                              two_d.params, ref_loss, want)
+    res["ms_2d"] = cs._events_ms(lambda: step2(two_d.params, two_d.opt_state, *arrays, gen,
+                                               neg=shift, **kw), 2)
+    res["ms_1d"] = cs._events_ms(lambda: step1(one_d.params, one_d.opt_state, *arrays, gen,
+                                               neg=shift, **kw), 2)
+    res["peak_memory_gb"] = peak
+    del one_d, two_d
+    torch.cuda.empty_cache()
+    return res
+
+
+def _pipeline(dev, k, feats_np, g) -> dict:
+    """The GPipe pipeline over k stages, one layer a stage (num_layers = k,
+    xl widths), PIPE_RANKS_MICRO xl microbatches: the forward against
+    ``apply_hypergnn`` per microbatch and the train step against the
+    sequential step on the same negatives; ms, the ring hop alone."""
+    config = dataclasses.replace(cs.train_config("auto"), num_layers=k)
+    mesh_p = cs.make_mesh((k,), ("pipe",), device_type=dev.type)
+    init = cs.init_hypergnn(config, torch.Generator().manual_seed(5))
+    rng = np.random.default_rng(5)
+    feats = torch.as_tensor(np.stack([feats_np] + [
+        rng.standard_normal(feats_np.shape).astype(np.float32)
+        for _ in range(PIPE_RANKS_MICRO - 1)]), device=dev)
+    arrays = [torch.as_tensor(np.stack([a] * PIPE_RANKS_MICRO), device=dev) for a in g.arrays]
+    params = cs.tree_map(lambda t: t.to(dev), init)
+    with torch.no_grad():
+        out = cs.pipelined_forward(mesh_p, config, params, feats, *arrays)
+        fwd_err = max((out[m] - cs.apply_hypergnn(config, params, feats[m],
+                                                  *(a[m] for a in arrays))).abs().max().item()
+                      for m in range(PIPE_RANKS_MICRO))
+        del out
+        fwd_ms = cs.cuda_ms(lambda: cs.pipelined_forward(mesh_p, config, params, feats,
+                                                         *arrays), iters=2, warmup=1)
+        seq_ms = cs.cuda_ms(lambda: [cs.apply_hypergnn(config, params, feats[m],
+                                                       *(a[m] for a in arrays))
+                                     for m in range(PIPE_RANKS_MICRO)], iters=2, warmup=1)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    neg = torch.randint(0, cs.XL_N, arrays[0].shape, generator=gen, device=dev,
+                        dtype=arrays[0].dtype)
+    pipe, ref = cs._fresh(init, dev), cs._fresh(init, dev)
+    step = cs.make_pipelined_train_step(mesh_p, config, cs.adam(cs.LEARNING_RATE))
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, _, loss = step(pipe.params, pipe.opt_state, feats, *arrays, gen, neg_dst=neg)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    ref.opt_state.zero_grad(set_to_none=True)
+    ref_loss = torch.stack([
+        cs.link_prediction_loss(cs.apply_hypergnn(config, ref.params, feats[m],
+                                                  *(a[m] for a in arrays)),
+                                arrays[0][m], arrays[1][m], neg[m], edge_mask=arrays[3][m])
+        for m in range(PIPE_RANKS_MICRO)]).mean()
+    ref_loss.backward()
+    ref.opt_state.step()
+    res = cs.adam_step_errors(f"pipeline S={k} vs the sequential step", loss, pipe.params,
+                              ref_loss, ref.params)
+    res.update(
+        forward_max_abs_err=fwd_err, forward_ms=fwd_ms, sequential_forward_ms=seq_ms,
+        step_ms=cs._events_ms(lambda: step(pipe.params, pipe.opt_state, feats, *arrays, gen,
+                                           neg_dst=neg), 2),
+        ring_hop_ms=cs.cuda_ms(lambda: coll.ppermute(
+            feats[0], mesh_p, "pipe",
+            [(i, (i + 1) % k) for i in range(k)]), iters=10, warmup=2),
+        peak_memory_gb=peak, microbatches=PIPE_RANKS_MICRO, layers=k)
+    del pipe, ref
+    torch.cuda.empty_cache()
+    return res
+
+
 def run_rank(rank: int, world: int, tmp: str, backend: str = "nccl") -> None:
     if backend == "nccl":
         torch.cuda.set_device(rank)
@@ -208,6 +416,10 @@ def run_rank(rank: int, world: int, tmp: str, backend: str = "nccl") -> None:
         del ref, banks, inputs
         torch.cuda.empty_cache()
         res["data_parallel"] = _dp(dev, mesh, world, feats_np, g)
+        torch.cuda.empty_cache()
+        res["composed"] = _composed(dev, mesh, world, feats_np, g)
+        res["composed_tp"] = _composed_tp(dev, world, feats_np, g)
+        res["pipeline"] = _pipeline(dev, world, feats_np, g)
         res["seconds"] = time.perf_counter() - t0
         everyone = [None] * world
         dist.all_gather_object(everyone, res)
@@ -249,6 +461,43 @@ def _report(world: int, results: list, path: Path) -> None:
         ms=max(d["ms"] for d in dps), peak_memory_gb=max(d["peak_memory_gb"] for d in dps))
     if line["data_parallel"]["loss_err"] > 1e-5 or line["data_parallel"]["grad_scaled_err"] > ATOL:
         failures.append("data_parallel")
+    def worst(entries, key):
+        return max(e[key] for e in entries)
+
+    step_keys = ("loss_err", "grad_scaled_err", "param_scaled_err", "param_max_err")
+    comp = [r["composed"] for r in results]
+    line["composed"] = dict(
+        uniform={key: worst([c["uniform"] for c in comp], key) for key in step_keys},
+        local_roll=dict(
+            ms=worst([c["local_roll"] for c in comp], "ms"),
+            peak_memory_gb=worst([c["local_roll"] for c in comp], "peak_memory_gb"),
+            launches_per_step=comp[0]["local_roll"]["launches_per_step"],
+            launches_as_counted=all(c["local_roll"]["launches_as_counted"] for c in comp),
+            run_table_launches=worst([c["local_roll"] for c in comp], "run_table_launches")),
+        exchange_ms={key: worst([c["exchange_ms"] for c in comp], key)
+                     for key in comp[0]["exchange_ms"]},
+        k1_ms=worst(comp, "k1_ms"), prepare_ms=worst(comp, "prepare_ms"),
+        profile=comp[0]["profile"], k1_profile=comp[0]["k1_profile"],
+        cap=comp[0]["cap"], halo_width=comp[0]["halo_width"])
+    tps = [r["composed_tp"] for r in results]
+    line["composed_tp"] = {key: worst(tps, key)
+                           for key in step_keys + ("ms_2d", "ms_1d", "peak_memory_gb")}
+    pipes = [r["pipeline"] for r in results]
+    line["pipeline"] = {key: worst(pipes, key) for key in step_keys + (
+        "forward_max_abs_err", "forward_ms", "sequential_forward_ms", "step_ms", "ring_hop_ms",
+        "peak_memory_gb")}
+    line["pipeline"].update(microbatches=PIPE_RANKS_MICRO, layers=world)
+    gates = dict(loss_err=cs.STEP_LOSS_ATOL, grad_scaled_err=ATOL, param_scaled_err=ATOL,
+                 param_max_err=2 * cs.LEARNING_RATE)
+    for name, entry in (("composed", line["composed"]["uniform"]),
+                        ("composed_tp", line["composed_tp"]), ("pipeline", line["pipeline"])):
+        if any(entry[key] > tol for key, tol in gates.items()):
+            failures.append(name)
+    if line["pipeline"]["forward_max_abs_err"] > ATOL:
+        failures.append("pipeline_forward")
+    local = line["composed"]["local_roll"]
+    if not local["launches_as_counted"] or local["run_table_launches"]:
+        failures.append("composed_launches")
     line["seconds"] = max(r["seconds"] for r in results)
     line["failures"] = failures
     text = json.dumps(line)

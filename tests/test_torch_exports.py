@@ -2,13 +2,10 @@
 port's counterpart, and the port's ``models.hypergnn`` has the module-level
 ``score_triple``.
 
-Left out, each for its reason: ``utils.resolve_precision`` maps a string
-to ``jax.lax.Precision``, which has no PyTorch meaning (the port checks the
-string with ``utils.initializers.check_precision``); ``parallel``'s
-``composed_forward``, ``make_composed_train_step``,
-``prepare_composed_inputs``, ``pipelined_forward`` and
-``stack_layer_params`` belong to the tensor-parallel, pipeline and composed
-modules, which the port does not have yet.
+Left out, for its reason: ``utils.resolve_precision`` maps a string to
+``jax.lax.Precision``, which has no PyTorch meaning (the port checks the
+string with ``utils.initializers.check_precision``). ``parallel`` exports
+all of JAX's names.
 """
 
 import importlib
@@ -18,11 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-NOT_PORTED = {
-    "utils": {"resolve_precision"},
-    "parallel": {"composed_forward", "make_composed_train_step",
-                 "prepare_composed_inputs", "pipelined_forward", "stack_layer_params"},
-}
+NOT_PORTED = {"utils": {"resolve_precision"}}
 
 
 @pytest.mark.parametrize("sub", ["models", "ops", "utils", "data", "training", "parallel"])

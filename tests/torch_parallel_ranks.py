@@ -12,6 +12,7 @@ conftest.
 
 from __future__ import annotations
 
+import importlib
 import os
 import time
 from pathlib import Path
@@ -64,8 +65,9 @@ SPAWN_TIMEOUT_S = 240
 
 
 def spawn(body: str, world: int, workdir: Path, inputs: dict) -> list[dict]:
-    """Run ``BODIES[body]`` on ``world`` gloo ranks over ``inputs`` (numpy
-    arrays by name); return each rank's outputs, in rank order."""
+    """Run ``BODIES[body]`` (or ``"module:function"``) on ``world`` gloo
+    ranks over ``inputs`` (numpy arrays by name); return each rank's
+    outputs, in rank order."""
     workdir = Path(workdir)
     np.savez(workdir / "inputs.npz", **inputs)
     procs = mp.start_processes(
@@ -97,10 +99,19 @@ def _entry(rank: int, world: int, workdir: str, body: str) -> None:
     try:
         with np.load(os.path.join(workdir, "inputs.npz")) as f:
             inputs = dict(f)
-        out = BODIES[body](inputs)
+        out = _body(body)(inputs)
         np.savez(os.path.join(workdir, f"rank{rank}.npz"), **out)
     finally:
         dist.destroy_process_group()
+
+
+def _body(name: str):
+    """``BODIES[name]``, or ``module:function`` of another rank-body module
+    on the test path."""
+    if ":" not in name:
+        return BODIES[name]
+    module, fn = name.split(":")
+    return getattr(importlib.import_module(module), fn)
 
 
 def _t(a) -> torch.Tensor:
