@@ -144,7 +144,20 @@ JAX, and fails (non-zero exit, no result line) on any failed phase:
    mesh against the 1D step; the sharded ``make_train_step`` over DTensors
    against the plain step; kernel 1 alone on each reduction of the first
    shard's plan at k=4 (the segments and empty segments it runs over);
-12. the training line, the kernels line (each kernel, then each bf16 form,
+   ``DistributedMinibatchTrainer`` on the (1,) mesh: at the bench size one
+   step in ``dense`` and in ``grouped`` against
+   ``MinibatchTrainer.device_step`` on the same batch, negatives and
+   weights (the Adam-step gate), and on the minibatch phase's xxl graph
+   (drawn once) 1 warm-up and 5 timed steps split into host sampling, the
+   partition and ladder, host-to-device copies and the device step, peak
+   memory, the busy share and no kernel launch;
+12. experiments: the scripts of ``graph_hypernetwork_forge_tpu_torch.
+   experiments`` on the card, ``train_linkpred`` on WN18RR-zero-shot-like
+   at scale 1.0 (100 steps, evaluating every 50), ``sweep_zeroshot``'s
+   ``run_one`` (K=8, cosine, best-on-valid every 50) and the port side of
+   ``parity_zeroshot`` at scale 0.1 (100 steps): ms/step, MRR and
+   zero-shot MRR as readouts;
+13. the training line, the kernels line (each kernel, then each bf16 form,
    one-TF32-pass mode and ``mode="fast"`` as an entry of its own,
    ``name[form]``, with its launches on its path), the card line and the
    result line, which is
@@ -154,6 +167,7 @@ JAX, and fails (non-zero exit, no result line) on any failed phase:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -190,6 +204,11 @@ from graph_hypernetwork_forge_tpu_torch.data.knowledge_graph import (  # noqa: E
     ToyKnowledgeGraph,
 )
 from graph_hypernetwork_forge_tpu_torch.device import resolve_device  # noqa: E402
+from graph_hypernetwork_forge_tpu_torch.experiments import (  # noqa: E402
+    parity_zeroshot,
+    sweep_zeroshot,
+    train_linkpred,
+)
 from graph_hypernetwork_forge_tpu_torch.models.hypergnn import (  # noqa: E402
     HyperGNN,
     HyperGNNConfig,
@@ -246,11 +265,13 @@ from graph_hypernetwork_forge_tpu_torch.training.objectives import (  # noqa: E4
     link_prediction_loss,
 )
 from graph_hypernetwork_forge_tpu_torch.training import (  # noqa: E402
+    DistributedMinibatchTrainer,
     MinibatchSpec,
     MinibatchTrainer,
     adam,
     create_train_state,
     evaluate_link_prediction,
+    make_composed_minibatch_step,
     make_train_step,
     restore_checkpoint,
     save_checkpoint,
@@ -281,6 +302,14 @@ EVAL_CHUNK = 1024
 MB_N, MB_E, MB_U = 1_000_000, 10_000_000, 237
 MB_SPEC = dict(batch_size=1024, fanouts=(10, 10), node_bucket_multiple=32_768)
 MB_TIMED = 5
+# The distributed minibatch trainer's ladder of per-shard edge caps
+# (benchmarks/minibatch_xxl.py:67-73).
+MB_CAP_MULTIPLE = 8192
+# The experiment scripts on the card: steps, the evaluation interval, the
+# sweep's negatives, the datasets' scale, and the parity run's scale (its
+# JAX script's default).
+EXP_STEPS, EXP_EVAL_EVERY, EXP_SWEEP_K = 100, 50, 8
+EXP_SCALE, EXP_PARITY_SCALE = 1.0, 0.1
 # parallel/ at world size 1 (one card): the f32 gate of each form against
 # the main path (ROADMAP), the DP step's gates (tests/test_data_parallel.py:
 # 57, :64), its batch of xl copies (__graft_entry__.py:139-140), and the
@@ -2458,15 +2487,14 @@ def phase_minibatch_parity(dev) -> dict:
                 param_max_abs_err=param_err, param_q999_abs_err=param_q999)
 
 
-def phase_minibatch(dev) -> dict:
+def phase_minibatch(dev, mb, graph_s: float) -> dict:
     """BASELINE.json config #4 on one card at benchmarks/minibatch_xxl.py's
     shapes: N=1M, E=10M, U=237, F = H = 64, 2 layers, MinibatchSpec(1024,
     (10, 10), 32768); 1 warm-up and MB_TIMED timed steps, each split into
     host sampling, host-to-device copies and the device step (CUDA events),
-    then one profiled device step."""
-    t0 = time.perf_counter()
-    ei, etexts, feats = mb_graph(MB_N, MB_E, MB_U)
-    graph_s = time.perf_counter() - t0
+    then one profiled device step. ``mb`` is the graph ``mb_graph`` drew,
+    in ``graph_s`` seconds."""
+    ei, etexts, feats = mb
     config = mb_config()
     t0 = time.perf_counter()
     trainer = MinibatchTrainer(config, adam(LEARNING_RATE), ei, etexts, feats,
@@ -3070,7 +3098,7 @@ def _parallel_sharded(dev, mesh, feats_np, g) -> dict:
     return dict(res, placements=placements, ms=ms)
 
 
-def phase_parallel(dev) -> dict:
+def phase_parallel(dev, mb) -> dict:
     """``parallel/`` on a one-rank NCCL process group over the card
     (``make_mesh((1,), ("edge",))``), at xl. Slices A and B: the four forms
     of message passing against the main path and ``dense``,
@@ -3079,8 +3107,10 @@ def phase_parallel(dev) -> dict:
     tensor-parallel generator and message passing, the pipeline at S = 1,
     the composed step in every contribution backend (its kernels' launches
     counted), the 2D composed step on a (1, 1) mesh and the sharded
-    ``make_train_step``, each against its single-process counterpart. Then
-    the halo plans for larger meshes on the host."""
+    ``make_train_step``, each against its single-process counterpart. The
+    distributed minibatch trainer on the xxl graph ``mb`` (``mb_graph``'s,
+    shared with the minibatch phase) and its bench-size parity. Then the
+    halo plans for larger meshes on the host."""
     import torch.distributed as dist
 
     t_start = time.perf_counter()
@@ -3129,12 +3159,198 @@ def phase_parallel(dev) -> dict:
             out["composed"]["shard_streams_k4"] = _shard_stream_sums(dev, g, feats_np)
             out["composed_tp"] = _parallel_composed_tp(dev, layouts)
             out["sharded_step"] = _parallel_sharded(dev, mesh, feats_np, g)
+            out["distributed_minibatch"] = dict(parity=_dist_minibatch_parity(dev, mesh),
+                                                xxl=_dist_minibatch_xxl(dev, mesh, mb))
         finally:
             dist.destroy_process_group()
     torch.cuda.empty_cache()
     out["plans"] = _plan_numbers(g)
     out["seconds"] = time.perf_counter() - t_start
     log(f"parallel: phase in {out['seconds']:.1f} s")
+    return out
+
+
+def _dist_minibatch_parity(dev, mesh) -> dict:
+    """At the bench size (N=1k, E=10k, U=50), one step of the distributed
+    minibatch step on the (1,) mesh, in ``dense`` and in ``grouped``,
+    against ``MinibatchTrainer.device_step`` on the same batch, negatives
+    and initial weights: the Adam-step gate."""
+    ei, etexts, feats = mb_graph(BENCH_N, BENCH_E, BENCH_U)
+    config, spec = mb_config(), MinibatchSpec(**MB_SPEC)
+    init = init_hypergnn(config, torch.Generator().manual_seed(0))
+    single = MinibatchTrainer(config, adam(LEARNING_RATE), ei, etexts, feats, spec,
+                              device=dev)
+    trainer = DistributedMinibatchTrainer(mesh, config, adam(LEARNING_RATE), ei, etexts,
+                                          feats, spec, cap_multiple=MB_CAP_MULTIPLE,
+                                          device=dev)
+    batch = single.sample_batch(np.random.default_rng(3))
+    sharded = trainer.shard_batch(batch)
+    neg = torch.as_tensor(np.random.default_rng(4).integers(
+        0, batch[0].shape[0], spec.batch_size).astype(np.int32), device=dev)
+    ref = _fresh(init, dev)
+    _, _, ref_loss = single.device_step(ref.params, ref.opt_state, single.to_device(batch),
+                                        neg_dst=neg)
+    tensors = trainer.to_device(sharded)
+    out = dict(reference_backend=_mb_backend(config, batch))
+    for contrib in ("dense", "grouped"):
+        step = make_composed_minibatch_step(mesh, config, adam(LEARNING_RATE),
+                                            sharded[0].nodes_per_shard, contrib=contrib)
+        state = _fresh(init, dev)
+        _, _, loss = step(state.params, state.opt_state, *tensors[:10],
+                          rel_group_sizes=tensors[10], neg_dst=neg)
+        out[contrib] = adam_step_errors(
+            f"distributed minibatch k=1 contrib={contrib} vs MinibatchTrainer.device_step "
+            f"(bench size)", loss, state.params, ref_loss, ref.params)
+        del state
+    del ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_minibatch_steps(label, trainer, state, rng_np, gen, dev, timed: int) -> list:
+    """1 warm-up and ``timed`` steps of a ``DistributedMinibatchTrainer``,
+    each split into host sampling, the partition and ladder
+    (``shard_batch``), the copies of the rank's blocks to the card, and the
+    device step (CUDA events)."""
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    k = trainer.num_shards
+    steps = []
+    for i in range(1 + timed):
+        t0 = time.perf_counter()
+        batch = trainer.sample_batch(rng_np)
+        t1 = time.perf_counter()
+        sharded = trainer.shard_batch(batch)
+        t2 = time.perf_counter()
+        tensors = trainer.to_device(sharded)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        start.record()
+        _, _, loss = trainer.device_step(state.params, state.opt_state, tensors, gen)
+        stop.record()
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        inputs = sharded[0]
+        steps.append(dict(
+            loss=loss.item(), sample_ms=(t1 - t0) * 1e3, shard_ms=(t2 - t1) * 1e3,
+            h2d_ms=(t3 - t2) * 1e3, device_ms=start.elapsed_time(stop),
+            step_wall_ms=(t4 - t3) * 1e3,
+            contrib=trainer._pick_contrib(k * inputs.nodes_per_shard,
+                                          inputs.char_ids.shape[0]),
+            nodes=batch[1].num_nodes, nodes_padded=inputs.feats.shape[0],
+            nodes_per_shard=inputs.nodes_per_shard, edges=batch[1].num_edges,
+            edge_rows=sharded[2].shape[0], relations_padded=inputs.char_ids.shape[0],
+            buckets=len(trainer._dist_steps)))
+        s = steps[-1]
+        log(f"{label} step {i}{' (warm-up)' if i == 0 else ''}: loss {s['loss']:.6f}; "
+            f"host sampling {s['sample_ms']:.1f} ms, partition + ladder {s['shard_ms']:.1f} ms, "
+            f"host-to-device {s['h2d_ms']:.2f} ms, device step {s['device_ms']:.2f} ms (CUDA "
+            f"events; wall {s['step_wall_ms']:.2f}); contrib {s['contrib']}; nodes "
+            f"{s['nodes']:,} of {s['nodes_padded']:,}, edges {s['edges']:,} in "
+            f"{s['edge_rows']:,} rows; {s['buckets']} bucket(s)")
+    return steps
+
+
+def medians(steps: list) -> dict:
+    return {f"median_{key}": float(np.median([s[key] for s in steps]))
+            for key in ("sample_ms", "shard_ms", "h2d_ms", "device_ms", "step_wall_ms")}
+
+
+def _dist_minibatch_xxl(dev, mesh, mb) -> dict:
+    """BASELINE.json config #4 through ``DistributedMinibatchTrainer`` on the
+    (1,) mesh at benchmarks/minibatch_xxl.py's shapes (cap_multiple 8192):
+    1 warm-up and MB_TIMED timed steps split by stage, peak memory, the
+    busy share of one profiled device step, and no kernel launch (the
+    minibatch step runs ``dense`` or ``grouped``, as JAX's)."""
+    ei, etexts, feats = mb
+    config = mb_config()
+    t0 = time.perf_counter()
+    trainer = DistributedMinibatchTrainer(mesh, config, adam(LEARNING_RATE), ei, etexts,
+                                          feats, MinibatchSpec(**MB_SPEC),
+                                          cap_multiple=MB_CAP_MULTIPLE, device=dev)
+    build_s = time.perf_counter() - t0
+    state = create_train_state(
+        tree_map(lambda t: t.to(dev),
+                 init_hypergnn(config, torch.Generator().manual_seed(0))),
+        adam(LEARNING_RATE))
+    rng_np, gen = np.random.default_rng(1), torch.Generator(device=dev).manual_seed(2)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    steps = dist_minibatch_steps("distributed minibatch k=1", trainer, state, rng_np, gen,
+                                 dev, MB_TIMED)
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    med = medians(steps[1:])
+    check(all(np.isfinite(s["loss"]) for s in steps),
+          "distributed minibatch: a loss is not finite")
+    check(all(s["contrib"] == "grouped" for s in steps),
+          "distributed minibatch: _pick_contrib did not pick grouped at xxl, as JAX's does")
+    check(not any(launches.values()), f"distributed minibatch: kernels launched: {launches}")
+    tensors = trainer.to_device(trainer.sample_batch_sharded(rng_np))
+    profile = profile_device("one distributed minibatch device step (k=1)", lambda: (
+        trainer.device_step(state.params, state.opt_state, tensors, gen)))
+    busy = profile["device_ms"] / med["median_device_ms"]
+    log(f"distributed minibatch k=1: trainer built in {build_s:.2f} s; medians over "
+        f"{MB_TIMED} steps: sampling {med['median_sample_ms']:.1f} ms, partition + ladder "
+        f"{med['median_shard_ms']:.1f} ms, host-to-device {med['median_h2d_ms']:.2f} ms, device "
+        f"step {med['median_device_ms']:.2f} ms; peak {peak_gb:.2f} GB; busy "
+        f"{100 * busy:.1f}%; kernel launches {launches}")
+    del state, tensors
+    torch.cuda.empty_cache()
+    return dict(build_s=build_s, steps=steps, **med, peak_memory_gb=peak_gb,
+                device_busy_share=busy, launches=launches, profile=profile)
+
+
+def phase_experiments(dev) -> dict:
+    """The experiment scripts on the card, their lines sent to stderr:
+    ``train_linkpred`` on wn18rr-zeroshot at scale 1.0 (EXP_STEPS steps,
+    evaluating every EXP_EVAL_EVERY), ``sweep_zeroshot.run_one`` with K=8,
+    the cosine schedule and best-on-valid selection, and the port side of
+    ``parity_zeroshot`` at scale 0.1, one seed each: ms/step, MRR and
+    zero-shot MRR as readouts, no kernel launch (``grouped``)."""
+    t_start = time.perf_counter()
+    kernels.reset_launch_counts()
+    out = {}
+    with contextlib.redirect_stdout(sys.stderr):
+        r = train_linkpred.run(train_linkpred.parse_args([
+            "--dataset", "wn18rr-zeroshot", "--scale", str(EXP_SCALE), "--steps", str(EXP_STEPS),
+            "--eval-every", str(EXP_EVAL_EVERY), "--device", str(dev)]))
+    out["train_linkpred"] = dict(
+        steps=r["steps"], ms_per_step=r["train_s"] * 1e3 / r["steps"], eval_s=r["eval_s"],
+        final_loss=r["final_loss"], mrr=r["metrics"]["mrr"],
+        zero_shot_mrr=r["metrics"].get("zero_shot_mrr"))
+    kg = wn18rr_zero_shot_like(seed=0, scale=EXP_SCALE)
+    config = HyperGNNConfig(text_dim=TEXT_DIM, node_feat_dim=kg.node_features.shape[1],
+                            hidden_dim=WIDTH, num_layers=LAYERS, rel_sorted=True)
+    t0 = time.perf_counter()
+    row = sweep_zeroshot.run_one(kg, config, EXP_SWEEP_K, EXP_STEPS, LEARNING_RATE, 0,
+                                 lr_schedule="cosine", eval_every=EXP_EVAL_EVERY, device=dev)
+    out["sweep_zeroshot"] = dict(
+        num_negatives=EXP_SWEEP_K, steps=EXP_STEPS, wall_s=time.perf_counter() - t0,
+        train_s=row["train_s"], ms_per_step=row["train_s"] * 1e3 / EXP_STEPS,
+        final_loss=row["final_loss"], mrr=row["mrr"], zero_shot_mrr=row.get("zero_shot_mrr"),
+        sel_mrr=row.get("sel_mrr"), sel_zero_shot_mrr=row.get("sel_zero_shot_mrr"),
+        best_step=row.get("best_step"))
+    t0 = time.perf_counter()
+    row = parity_zeroshot.run_port(wn18rr_zero_shot_like(seed=0, scale=EXP_PARITY_SCALE),
+                                   EXP_STEPS, LEARNING_RATE, 0, 1, device=dev)
+    out["parity_zeroshot"] = dict(
+        scale=EXP_PARITY_SCALE, steps=EXP_STEPS, wall_s=time.perf_counter() - t0,
+        train_s=row["train_s"], ms_per_step=row["train_s"] * 1e3 / EXP_STEPS,
+        final_loss=row["final_loss"], mrr=row["mrr"], zero_shot_mrr=row.get("zero_shot_mrr"))
+    out["launches"] = launch_counts()
+    out["seconds"] = time.perf_counter() - t_start
+    for name in ("train_linkpred", "sweep_zeroshot", "parity_zeroshot"):
+        e = out[name]
+        log(f"experiments {name}: {e['ms_per_step']:.2f} ms/step, final loss "
+            f"{e['final_loss']:.4f}, MRR {e['mrr']:.4f}, zero-shot MRR {e['zero_shot_mrr']}")
+        check(np.isfinite(e["final_loss"]) and 0.0 < e["mrr"] <= 1.0
+              and e["zero_shot_mrr"] is not None,
+              f"experiments {name}: a loss is not finite or a metric is missing")
+    check(not any(out["launches"].values()),
+          f"experiments: kernels launched: {out['launches']}")
+    log(f"experiments: phase in {out['seconds']:.1f} s (train_linkpred's ms/step without "
+        "its evaluations; the sweep's and the parity run's from their rows' train_s, "
+        "0.1 s resolution, the sweep's with its two valid evaluations)")
     return out
 
 
@@ -3162,8 +3378,13 @@ def main() -> int:
     grouped = phase_grouped(dev)
     dense_chunked = phase_dense_chunked(dev)
     linkpred = phase_linkpred(dev)
-    minibatch = dict(parity=phase_minibatch_parity(dev), xxl=phase_minibatch(dev))
-    parallel = phase_parallel(dev)
+    t0 = time.perf_counter()
+    mb = mb_graph(MB_N, MB_E, MB_U)
+    minibatch = dict(parity=phase_minibatch_parity(dev),
+                     xxl=phase_minibatch(dev, mb, time.perf_counter() - t0))
+    parallel = phase_parallel(dev, mb)
+    del mb
+    experiments = phase_experiments(dev)
     if FAILURES:
         log(f"chip_smoke.py: {len(FAILURES)} check(s) failed: {FAILURES}")
         return 1
@@ -3231,6 +3452,7 @@ def main() -> int:
     print(json.dumps({"native": native, "encode_stages": served["encode_stages"],
                       "linkpred": linkpred, "minibatch": minibatch}))
     print(json.dumps({"parallel": parallel}))
+    print(json.dumps({"experiments": experiments}))
     log(f"chip_smoke.py: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(line))
     print(card_line())

@@ -9,8 +9,10 @@ from graph_hypernetwork_forge_tpu_torch.training.checkpoint import (
 )
 from graph_hypernetwork_forge_tpu_torch.training.evaluate import evaluate_link_prediction
 from graph_hypernetwork_forge_tpu_torch.training.minibatch import (
+    DistributedMinibatchTrainer,
     MinibatchSpec,
     MinibatchTrainer,
+    make_composed_minibatch_step,
 )
 from graph_hypernetwork_forge_tpu_torch.training.objectives import (
     link_prediction_loss,
@@ -21,22 +23,27 @@ from graph_hypernetwork_forge_tpu_torch.training.objectives import (
 from graph_hypernetwork_forge_tpu_torch.training.train import (
     TrainState,
     adam,
+    adamw,
     create_train_state,
     make_multi_step,
     make_train_step,
     train,
+    warmup_cosine_decay_schedule,
 )
 
 __all__ = [
+    "DistributedMinibatchTrainer",
     "MinibatchSpec",
     "MinibatchTrainer",
     "TrainState",
     "adam",
+    "adamw",
     "create_train_state",
     "evaluate_link_prediction",
     "latest_checkpoint",
     "link_prediction_loss",
     "link_prediction_loss_sorted",
+    "make_composed_minibatch_step",
     "make_multi_step",
     "make_train_step",
     "margin_ranking_loss",
@@ -45,4 +52,5 @@ __all__ = [
     "save_checkpoint",
     "train",
     "wait_for_checkpoints",
+    "warmup_cosine_decay_schedule",
 ]

@@ -17,7 +17,8 @@ can be handed in, which is how the tests give both the same negatives.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, List, Optional, Tuple
+import math
+from typing import Any, Callable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -37,15 +38,86 @@ from graph_hypernetwork_forge_tpu_torch.training.objectives import (
 from graph_hypernetwork_forge_tpu_torch.utils.initializers import tree_leaves, tree_map
 
 Optimizer = Callable[[List[torch.Tensor]], torch.optim.Optimizer]
+# A learning rate by update count, as optax's schedules: update i (from 0)
+# uses schedule(i).
+Schedule = Callable[[int], float]
+
+
+def warmup_cosine_decay_schedule(
+    init_value: float,
+    peak_value: float,
+    warmup_steps: int,
+    decay_steps: int,
+    end_value: float = 0.0,
+) -> Schedule:
+    """``optax.warmup_cosine_decay_schedule``'s counterpart: a linear warmup
+    from ``init_value`` to ``peak_value`` over ``warmup_steps`` updates,
+    then a cosine decay to ``end_value`` at ``decay_steps`` (which counts
+    the warmup), held there after."""
+    cosine_steps = decay_steps - warmup_steps
+    if cosine_steps <= 0:
+        raise ValueError(
+            f"decay_steps ({decay_steps}) must exceed warmup_steps ({warmup_steps})"
+        )
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+
+    def schedule(count: int) -> float:
+        if count < warmup_steps:
+            return (init_value - peak_value) * (1.0 - count / warmup_steps) + peak_value
+        t = min(count - warmup_steps, cosine_steps)
+        cosine = 0.5 * (1.0 + math.cos(math.pi * t / cosine_steps))
+        return peak_value * ((1.0 - alpha) * cosine + alpha)
+
+    return schedule
+
+
+def _scheduled(opt: torch.optim.Optimizer, schedule: Schedule) -> torch.optim.Optimizer:
+    """``opt`` (made with lr 1) driven by ``schedule`` through ``LambdaLR``:
+    the first update at ``schedule(0)``, the scheduler stepped after every
+    update, and its count taken from the optimizer's step count when a
+    state dict is loaded, so a resumed run goes on where it stopped."""
+    sched = torch.optim.lr_scheduler.LambdaLR(opt, lambda count: float(schedule(count)))
+    opt.register_step_post_hook(lambda *_: sched.step())
+
+    def resync(o: torch.optim.Optimizer) -> None:
+        counts = [int(st["step"]) for st in o.state.values() if "step" in st]
+        sched.last_epoch = counts[0] if counts else 0
+        for group in o.param_groups:
+            group["lr"] = float(schedule(sched.last_epoch))
+
+    opt.register_load_state_dict_post_hook(resync)
+    return opt
 
 
 def adam(
-    learning_rate: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8
+    learning_rate: Union[float, Schedule], b1: float = 0.9, b2: float = 0.999,
+    eps: float = 1e-8,
 ) -> Optimizer:
     """``optax.adam``'s counterpart: makes a ``torch.optim.Adam`` over a
-    list of parameter leaves, with optax's defaults."""
+    list of parameter leaves, with optax's defaults. ``learning_rate`` is a
+    float or a :data:`Schedule` (e.g. :func:`warmup_cosine_decay_schedule`)."""
+    if callable(learning_rate):
+        return lambda leaves: _scheduled(
+            torch.optim.Adam(leaves, lr=1.0, betas=(b1, b2), eps=eps), learning_rate)
     return lambda leaves: torch.optim.Adam(
         leaves, lr=learning_rate, betas=(b1, b2), eps=eps
+    )
+
+
+def adamw(
+    learning_rate: Union[float, Schedule], b1: float = 0.9, b2: float = 0.999,
+    eps: float = 1e-8, weight_decay: float = 1e-4,
+) -> Optimizer:
+    """``optax.adamw``'s counterpart, with optax's defaults: a
+    ``torch.optim.AdamW``, whose decay ``p · (1 - lr·wd)`` before the Adam
+    step is optax's decoupled ``-lr · (adam_update + wd · p)``.
+    ``learning_rate`` as :func:`adam`'s."""
+    if callable(learning_rate):
+        return lambda leaves: _scheduled(
+            torch.optim.AdamW(leaves, lr=1.0, betas=(b1, b2), eps=eps,
+                              weight_decay=weight_decay), learning_rate)
+    return lambda leaves: torch.optim.AdamW(
+        leaves, lr=learning_rate, betas=(b1, b2), eps=eps, weight_decay=weight_decay
     )
 
 

@@ -32,7 +32,15 @@ one):
   and the one-shard step in the same call; the 2D composed step on a
   (RANKS/2, 2) mesh against the 1D step on its edge axis; the pipeline
   over RANKS stages at xl widths with one layer a stage (num_layers =
-  RANKS) and 4 microbatches, against the sequential forward and step.
+  RANKS) and 4 microbatches, against the sequential forward and step;
+- the distributed minibatch trainer (BASELINE.json #4 at
+  benchmarks/minibatch_xxl.py's shapes: N=1M, E=10M, U=237, batch 1024,
+  fanouts (10, 10), cap_multiple 8192; ``chip_smoke.py``'s graph and
+  model): one step against the single-card ``MinibatchTrainer`` on the
+  same batch, negatives and weights (the Adam-step gate), then 1 warm-up
+  and 5 timed steps split into host sampling, partition and ladder,
+  host-to-device copies and the device step, and the dense v1's
+  all-gathers alone (a layer's h and banks).
 
 Rank 0 prints one JSON line. Exits non-zero if a check fails.
 """
@@ -373,6 +381,63 @@ def _pipeline(dev, k, feats_np, g) -> dict:
     return res
 
 
+def _distributed_minibatch(dev, mesh, k) -> dict:
+    """``DistributedMinibatchTrainer`` over k ranks at the xxl config: one
+    step against the single-card trainer's ``device_step`` on the same
+    batch and negatives (every rank computes it on its card), then the
+    timed steps split by stage, the dense v1's all-gathers alone, peak
+    memory and the kernel launches (none: ``grouped``)."""
+    t0 = time.perf_counter()
+    ei, etexts, feats = cs.mb_graph(cs.MB_N, cs.MB_E, cs.MB_U)
+    graph_s = time.perf_counter() - t0
+    config, spec = cs.mb_config(), cs.MinibatchSpec(**cs.MB_SPEC)
+    init = cs.init_hypergnn(config, torch.Generator().manual_seed(0))
+    trainer = cs.DistributedMinibatchTrainer(mesh, config, cs.adam(cs.LEARNING_RATE), ei,
+                                             etexts, feats, spec,
+                                             cap_multiple=cs.MB_CAP_MULTIPLE, device=dev)
+    single = cs.MinibatchTrainer(config, cs.adam(cs.LEARNING_RATE), ei, etexts, feats, spec,
+                                 device=dev)
+    batch = trainer.sample_batch(np.random.default_rng(3))
+    neg = torch.as_tensor(np.random.default_rng(4).integers(
+        0, batch[0].shape[0], spec.batch_size).astype(np.int32), device=dev)
+    ref = cs._fresh(init, dev)
+    _, _, ref_loss = single.device_step(ref.params, ref.opt_state, single.to_device(batch),
+                                        neg_dst=neg)
+    state = cs._fresh(init, dev)
+    _, _, loss = trainer.device_step(state.params, state.opt_state,
+                                     trainer.to_device(trainer.shard_batch(batch)),
+                                     neg_dst=neg)
+    res = dict(step=cs.adam_step_errors(
+        f"distributed minibatch k={k} vs the single-card MinibatchTrainer", loss,
+        state.params, ref_loss, ref.params))
+    del ref, state, single
+    torch.cuda.empty_cache()
+
+    state = cs._fresh(init, dev)
+    rng_np, gen = np.random.default_rng(1), torch.Generator(device=dev).manual_seed(2)
+    torch.cuda.reset_peak_memory_stats(dev)
+    cs.kernels.reset_launch_counts()
+    steps = cs.dist_minibatch_steps(f"distributed minibatch k={k} rank {dist.get_rank()}",
+                                    trainer, state, rng_np, gen, dev, cs.MB_TIMED)
+    res.update(cs.medians(steps[1:]), steps=steps, graph_s=graph_s,
+               peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               launches=cs.launch_counts())
+    # The dense v1's exchanges alone: a layer's all-gather of h and of the
+    # three banks' rows.
+    npp, u_loc = steps[-1]["nodes_per_shard"], steps[-1]["relations_padded"] // k
+    h = torch.randn(npp, cs.WIDTH, device=dev)
+    banks = [torch.randn(u_loc, cs.WIDTH, cs.WIDTH, device=dev),
+             torch.randn(u_loc, cs.WIDTH, cs.WIDTH, device=dev),
+             torch.randn(u_loc, cs.WIDTH, device=dev)]
+    res["exchange_ms"] = dict(
+        h_all_gather=cs.cuda_ms(lambda: coll.all_gather(h, mesh, "edge"), iters=10, warmup=2),
+        bank_all_gathers=cs.cuda_ms(lambda: [coll.all_gather(b, mesh, "edge") for b in banks],
+                                    iters=10, warmup=2))
+    del state, trainer
+    torch.cuda.empty_cache()
+    return res
+
+
 def run_rank(rank: int, world: int, tmp: str, backend: str = "nccl") -> None:
     if backend == "nccl":
         torch.cuda.set_device(rank)
@@ -420,6 +485,8 @@ def run_rank(rank: int, world: int, tmp: str, backend: str = "nccl") -> None:
         res["composed"] = _composed(dev, mesh, world, feats_np, g)
         res["composed_tp"] = _composed_tp(dev, world, feats_np, g)
         res["pipeline"] = _pipeline(dev, world, feats_np, g)
+        del feats_np, g
+        res["distributed_minibatch"] = _distributed_minibatch(dev, mesh, world)
         res["seconds"] = time.perf_counter() - t0
         everyone = [None] * world
         dist.all_gather_object(everyone, res)
@@ -495,6 +562,22 @@ def _report(world: int, results: list, path: Path) -> None:
             failures.append(name)
     if line["pipeline"]["forward_max_abs_err"] > ATOL:
         failures.append("pipeline_forward")
+    mbs = [r["distributed_minibatch"] for r in results]
+    line["distributed_minibatch"] = dict(
+        step={key: worst([m["step"] for m in mbs], key) for key in step_keys},
+        **{key: worst(mbs, key) for key in mbs[0] if key.startswith("median_")},
+        exchange_ms={key: worst([m["exchange_ms"] for m in mbs], key)
+                     for key in mbs[0]["exchange_ms"]},
+        peak_memory_gb=worst(mbs, "peak_memory_gb"), graph_s=worst(mbs, "graph_s"),
+        contribs=sorted({s["contrib"] for m in mbs for s in m["steps"]}),
+        launches={name: sum(m["launches"][name] for m in mbs) for name in mbs[0]["launches"]},
+        buckets=max(m["steps"][-1]["buckets"] for m in mbs),
+        per_rank=[{key: m[key] for key in m if key.startswith("median_")} for m in mbs],
+        rank0_steps=mbs[0]["steps"])
+    if any(line["distributed_minibatch"]["step"][key] > tol for key, tol in gates.items()):
+        failures.append("distributed_minibatch")
+    if any(line["distributed_minibatch"]["launches"].values()):
+        failures.append("distributed_minibatch_launches")
     local = line["composed"]["local_roll"]
     if not local["launches_as_counted"] or local["run_table_launches"]:
         failures.append("composed_launches")

@@ -47,5 +47,7 @@ def test_training_and_the_new_kernel_module_are_probed():
                 "utils.metrics", "utils.profiling", "parallel", "parallel.mesh",
                 "parallel.collectives", "parallel.edge_partition",
                 "parallel.relation_sharding", "parallel.sharding",
-                "parallel.data_parallel", "parallel.node_partition", "parallel.halo"):
+                "parallel.data_parallel", "parallel.node_partition", "parallel.halo",
+                "experiments", "experiments.protocol", "experiments.train_linkpred",
+                "experiments.sweep_zeroshot", "experiments.parity_zeroshot"):
         assert f"{port.__name__}.{mod}" in names, mod
