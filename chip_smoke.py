@@ -143,7 +143,10 @@ JAX, and fails (non-zero exit, no result line) on any failed phase:
    1e-6), ms per step and peak memory; the 2D composed step on a (1, 1)
    mesh against the 1D step; the sharded ``make_train_step`` over DTensors
    against the plain step; kernel 1 alone on each reduction of the first
-   shard's plan at k=4 (the segments and empty segments it runs over);
+   shard's plan at k=4, and kernel 7 on its cotangent pair, each against
+   its plain version, twice the same bits, every empty segment +0.0, with
+   its bound, torch.segment_reduce's and the plain version's times, and
+   the dst cotangent under 10x the aggregation (no walk of empty runs);
    ``DistributedMinibatchTrainer`` on the (1,) mesh: at the bench size one
    step in ``dense`` and in ``grouped`` against
    ``MinibatchTrainer.device_step`` on the same batch, negatives and
@@ -3011,25 +3014,84 @@ def _shard_stream_sums(dev, g, feats_np, k: int = 4) -> dict:
     at k ranks (the xl halo layout, group-padded per shard), one launch per
     stream as the step makes it: the aggregation over the shard's nodes,
     the dst and src gathers' cotangents over its [local ++ halo] rows, and
-    dbias; CUDA-event ms, beside the segments and how many are empty."""
+    dbias; and kernel 7 over that cotangent pair in one launch (on no path,
+    as in the JAX package). Each call against its plain version (the f32
+    gate, scaled), twice the same bits, every empty segment exactly +0.0;
+    CUDA-event ms beside the segments and how many are empty, the bytes
+    bound, the kernel's share of it (and the kernel alone by torch.profiler,
+    since the wrapper's host work can outlast so short a call), and
+    torch.segment_reduce's and the plain version's ms on the same rows and
+    bounds. The dst cotangent sums the aggregation's rows over a table whose
+    halo rows are all empty segments: the kernel alone must take under 10x
+    the aggregation's (a check of the structure, not of speed, that fails
+    where a group walks the empty run one segment at a time)."""
     inputs = prepare_composed_inputs(g, feats_np, k, halo=True, rel_sort_local=True,
                                      group_pad=256)
     cap, npp = inputs.src.shape[0] // k, inputs.nodes_per_shard
     rows = npp + k * inputs.halo_width
-    x = torch.randn(cap, WIDTH, generator=torch.Generator().manual_seed(13)).to(dev)
+    gen = torch.Generator().manual_seed(13)
+    x, x2 = (torch.randn(cap, WIDTH, generator=gen).to(dev) for _ in range(2))
+    src_sp, dst_sp = inputs.kernel_src_splits[0], inputs.kernel_dst_splits[0]
+
+    def measure(name, fn, plain_fn, library_fn, streams, n) -> dict:
+        """``streams``: the host splits of each output of ``fn``."""
+        got, again = fn(), fn()
+        plain = plain_fn()
+        torch.cuda.synchronize()
+        if torch.is_tensor(got):
+            got, again, plain = (got,), (again,), (plain,)
+        empty, err, summed = 0, 0.0, 0
+        for out, twice, want, splits in zip(got, again, plain, streams):
+            idx = np.flatnonzero(np.diff(splits[: n + 1]) == 0)
+            zeros = out[torch.as_tensor(idx, device=dev)]
+            check(torch.equal(out, twice), f"{name} on the composed shard: two runs differ")
+            check(not zeros.any() and not zeros.signbit().any(),
+                  f"{name} on the composed shard: an empty segment is not +0.0")
+            empty, err = empty + len(idx), max(err, scaled_err(out, want))
+            summed += int(splits[n] - splits[0])
+        check(err <= KERNEL_ATOL, f"{name} on the composed shard disagrees with its plain version")
+        outs = len(streams)
+        b_ms, b_by = bound((summed * WIDTH + outs * ((n + 1) + n * WIDTH)) * 4, summed * WIDTH)
+        r = dict(ms=cuda_ms(fn, iters=10, warmup=2), bound_ms=b_ms, bound_by=b_by,
+                 plain_ms=cuda_ms(plain_fn, iters=10, warmup=2),
+                 library_ms=cuda_ms(library_fn, iters=10, warmup=2),
+                 kernel_ms=kernel_ms(fn, "csr_segment_sum_kernel", calls=10),
+                 max_abs_err=err, rows=cap, segments=n, empty_segments=empty)
+        r["share_of_bound"] = b_ms / r["ms"]
+        log(f"{name} on the composed k={k} shard 0: {r['ms']:.4f} ms (kernel alone "
+            f"{r['kernel_ms']:.4f}) over {cap} rows, {n} segments, {empty} empty | bound "
+            f"{b_ms:.4f} ({b_by}), {r['share_of_bound']:.1%} of it | torch.segment_reduce "
+            f"{r['library_ms']:.4f} | plain {r['plain_ms']:.4f} | scaled err {err:.3e}")
+        return r
+
     out = {}
     for name, (splits, n) in {
-        "aggregation": (inputs.kernel_dst_splits[0], npp),
-        "dst_cotangent": (inputs.kernel_dst_splits[0], rows),
-        "src_cotangent": (inputs.kernel_src_splits[0], rows),
+        "aggregation": (dst_sp, npp),
+        "dst_cotangent": (dst_sp, rows),
+        "src_cotangent": (src_sp, rows),
         "dbias": (inputs.kernel_rel_splits[0], inputs.char_ids.shape[0]),
     }.items():
         sp = torch.as_tensor(splits, device=dev)
-        ms = cuda_ms(lambda: kernels.csr_segment_sum(x, sp, n), iters=10, warmup=2)
-        empty = int((np.diff(splits[: n + 1]) == 0).sum())
-        log(f"kernel 1 on the composed k={k} shard 0 {name}: {ms:.4f} ms over {cap} rows, "
-            f"{n} segments, {empty} empty")
-        out[name] = dict(ms=ms, rows=cap, segments=n, empty_segments=empty)
+        offsets = sp[: n + 1].long()
+        out[name] = measure(
+            f"kernel 1 {name}", functools.partial(kernels.csr_segment_sum, x, sp, n),
+            functools.partial(kernels.csr_segment_sum_plain, x, sp, n),
+            functools.partial(torch.segment_reduce, x, "sum", offsets=offsets, unsafe=True),
+            [splits], n)
+    sa, sb = (torch.as_tensor(sp, device=dev) for sp in (src_sp, dst_sp))
+    off_a, off_b = sa[: rows + 1].long(), sb[: rows + 1].long()
+    out["kernel_7"] = measure(
+        "kernel 7 src + dst cotangents",
+        functools.partial(kernels.dual_sorted_segment_sum, x, x2, rows, sa, sb),
+        functools.partial(kernels.dual_sorted_segment_sum_plain, x, x2, rows, sa, sb),
+        lambda: (torch.segment_reduce(x, "sum", offsets=off_a, unsafe=True),
+                 torch.segment_reduce(x2, "sum", offsets=off_b, unsafe=True)),
+        [src_sp, dst_sp], rows)
+    ratio = out["dst_cotangent"]["kernel_ms"] / out["aggregation"]["kernel_ms"]
+    log(f"kernel 1 on the composed k={k} shard 0: dst cotangent / aggregation, kernel alone, "
+        f"{ratio:.2f}x")
+    check(ratio < 10, f"kernel 1 on the composed shard: the dst cotangent takes {ratio:.1f}x "
+          "the aggregation's time: empty segments are walked, not zeroed in parallel")
     return out
 
 
@@ -3444,6 +3506,14 @@ def main() -> int:
         )
         for (name, form), replaces in FORM_REPLACES.items()
     ]}
+    # Kernels 1 and 7 on the composed step's k=4 shard (the parallel phase).
+    shard = parallel["composed"]["shard_streams_k4"]
+    for entry in line["kernels"]:
+        if entry["name"] == "csr_segment_sum":
+            entry["composed_shard_k4"] = {n: numbers(r) for n, r in shard.items()
+                                          if n != "kernel_7"}
+        elif entry["name"] == "dual_sorted_segment_sum":
+            entry["composed_shard_k4"] = numbers(shard["kernel_7"])
     print(json.dumps({"serving": served["latencies"], "profile": served["profile"]}))
     print(json.dumps({"training": trained, "training_xl_d128": xl_d128}))
     print(json.dumps({"speed_mode": speed}))

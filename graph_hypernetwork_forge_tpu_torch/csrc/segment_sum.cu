@@ -37,7 +37,11 @@
 //    flight, and the groups of a warp sum their segments at the same time.
 //    A group finds the segment of its first row once (a 32-way search of
 //    splits by the whole warp, then one ballot a group) and after that
-//    reads one split ahead per segment end.
+//    reads one split ahead per segment end. Where a segment ends on the
+//    span's last row the group stops; where empty segments follow it,
+//    it finds the segment of its next row with a search of its own
+//    (skip_empty: steps of 1, 2, 4, ..., then a bisection), so a run of m
+//    empty segments costs it about 2 log2(m) dependent loads, not m.
 // 2. A segment that starts and ends inside a span is written by its group.
 //    A span's first segment, if it began earlier (its head), and its last,
 //    if it runs on (its tail), go to shared memory. After a __syncthreads
@@ -52,22 +56,37 @@
 //    the pieces in block order and writes the segment; it resets the
 //    counter, so every launch leaves the counters at zero (run_reduce.cuh,
 //    the same ordered last-arriver as kernels 3 and 6).
-// 4. Empty segments are written as zeros by the group that ends the
-//    segment before them; leading ones (splits[0] == ... == splits[k]) by
-//    the group whose span holds row splits[0]; all of them, where no
-//    segment has a row, by block 0's first group.
+// 4. Empty segments have no row, so no span writes them. The grid ends in
+//    zero blocks, ceil(N / kZeroSegs) a stream after the row blocks of
+//    both streams, each owning kZeroSegs = 2048 consecutive segments: a
+//    warp reads the splits of its 256 with coalesced loads (one ballot of
+//    32 empty-or-not at a time) and its lane groups write the zero rows of
+//    the empty ones in the block's column window. Leading, interior and
+//    trailing runs, and a call where no segment has a row, are all the
+//    same case. No block and no group steps through empty segments one at
+//    a time: a launch costs its rows, one coalesced read of splits (N + 1
+//    int32) and the zero rows, in the one launch.
 //
 // There are no float atomics, and every sum is taken in an order fixed by
 // the splits and the shape alone (rows in order inside a span, spans in
 // order inside a block, blocks in order), so the result is bitwise
-// identical from run to run. No pass is sized by the number of segments.
+// identical from run to run. Every output row is written once: a segment
+// with rows by its group, its block's chain or its last ticket, an empty
+// one by its zero block. Only the zero blocks are sized by the number of
+// segments, and they run beside the row blocks.
 //
-// On an H100 80GB HBM3 at 700 W (chip_smoke.py, xl d=64 / 128, the kernel
-// alone by torch.profiler): f32 rows 0.106 / 0.203 ms, bf16 rows 0.059 /
-// 0.110, against bounds of 0.083 / 0.165 and 0.043 / 0.087. The design it
-// replaces (one warp per 256-row chunk walking its segments one after
-// another, then a second launch of one warp per segment) took 0.123 /
-// 0.220 and 0.098 / 0.147 a call in the same runs.
+// On an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py and
+// scripts/time_segment_sums.py, the kernel alone by torch.profiler), xl at
+// d=64 / 128: f32 rows 0.100-0.104 / 0.195-0.213 ms, bf16 rows 0.058-0.063
+// / 0.107-0.108, against bounds of 0.083 / 0.165 and 0.043 / 0.087; the
+// zero blocks left these times as they were. On the composed step's shard
+// at k = 4 (295,424 rows at d=64; the dst cotangent over 62,292 segments,
+// 49,792 of them empty after the last row): 0.032-0.047 ms against a bound
+// of 0.027, where the group that ended a segment zeroing the empty ones
+// after it one at a time took 4.68-4.69 ms. An earlier design (one warp
+// per 256-row chunk walking its segments one after another, then a second
+// launch of one warp per segment) took 0.123 / 0.220 and 0.098 / 0.147 a
+// call at xl.
 //
 // Kernel 1's bf16 form (the speed mode's rows: the TPU kernel's bf16
 // branch, one pass with f32 sums, segment_sum.py:69, :117-118) is the same
@@ -97,6 +116,7 @@ namespace {
 constexpr int kWarpsPerBlock = 8;
 constexpr int kThreads = kWarpsPerBlock * 32;
 constexpr int kBlockRows = 2048;  // rows of a block: 256 a warp
+constexpr int kZeroSegs = 2048;   // segments of a zero block: 256 a warp
 constexpr unsigned kFull = 0xffffffffu;
 
 // Rows a group loads before it adds them: 4 where a lane loads 16 bytes (8
@@ -205,11 +225,11 @@ struct Rows<4, Fast> {
   }
 };
 
-// Largest s in [0, n] with splits[s] <= r, given splits[0] <= r: a 32-way
+// Largest s in [lo, n] with splits[s] <= r, given splits[lo] <= r: a 32-way
 // search by the whole warp (about four dependent loads for n = 50k).
-__device__ int segment_of(const int32_t* __restrict__ splits, int n,
+__device__ int segment_of(const int32_t* __restrict__ splits, int lo, int n,
                           int64_t r, int lane) {
-  int lo = 0, hi = n + 1;  // splits[lo] <= r; the answer lies in [lo, hi)
+  int hi = n + 1;  // the answer lies in [lo, hi)
   while (hi - lo > 1) {
     const int step = (hi - lo + 31) >> 5;
     const int idx = lo + lane * step;
@@ -221,14 +241,63 @@ __device__ int segment_of(const int32_t* __restrict__ splits, int n,
   return lo;
 }
 
-// From s with splits[s] <= r, the largest s' >= s with splits[s'] <= r
-// (skips empty segments 31 at a time), by the whole warp.
+// From s with splits[s] <= r, the largest s' >= s with splits[s'] <= r, by
+// the whole warp: one ballot over the next 32 splits, and where all of them
+// are <= r (a run of empty segments), a search of the rest.
 __device__ int advance(const int32_t* __restrict__ splits, int n, int s,
                        int64_t r, int lane) {
-  for (;; s += 32) {
-    const int idx = s + 1 + lane;
-    const unsigned m = __ballot_sync(kFull, idx <= n && __ldg(splits + idx) <= r);
-    if (m != kFull) return s + __popc(m);
+  const int idx = s + 1 + lane;
+  const unsigned m = __ballot_sync(kFull, idx <= n && __ldg(splits + idx) <= r);
+  return m != kFull ? s + __popc(m) : segment_of(splits, s + 32, n, r, lane);
+}
+
+// Largest s >= lo with splits[s] <= r, given splits[lo] <= r < splits[n], by
+// one lane: steps of 1, 2, 4, ... from lo, then a bisection of the last
+// step, so a run of m empty segments costs about 2 log2(m) dependent loads.
+__device__ __forceinline__ int skip_empty(const int32_t* __restrict__ splits,
+                                          int lo, int n, int64_t r) {
+  int hi = n;
+  for (int step = 1; step < n - lo; step <<= 1) {
+    if (__ldg(splits + lo + step) > r) {
+      hi = lo + step;
+      break;
+    }
+    lo += step;
+  }
+  while (hi - lo > 1) {
+    const int mid = lo + ((hi - lo) >> 1);
+    if (__ldg(splits + mid) <= r) lo = mid;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// A zero block's work: the zero rows, in the block's column window, of the
+// empty segments among s0 .. s0 + kZeroSegs - 1. Each warp takes 256
+// consecutive segments: 8 ballots of 32 (coalesced loads of splits), then
+// its G groups write the empty ones' rows, G segments at a time.
+template <int VEC>
+__device__ void zero_empty_segments(const int32_t* __restrict__ splits,
+                                    typename Vec<VEC>::T* __restrict__ out,
+                                    int n, int s0, int chunks, int L) {
+  constexpr int kBallots = kZeroSegs / kThreads;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int base = s0 + warp * kBallots * 32;
+  unsigned empty[kBallots];
+#pragma unroll
+  for (int j = 0; j < kBallots; ++j) {
+    const int s = base + j * 32 + lane;
+    empty[j] = __ballot_sync(
+        kFull, s < n && __ldg(splits + s) == __ldg(splits + s + 1));
+  }
+  const int col = blockIdx.y * L + lane % L;
+  if (col >= chunks) return;
+#pragma unroll
+  for (int j = 0; j < kBallots; ++j) {
+    if (!empty[j]) continue;
+    for (int p = lane / L; p < 32; p += 32 / L)
+      if (empty[j] >> p & 1)
+        out[(int64_t)(base + j * 32 + p) * chunks + col] = Vec<VEC>::zero();
   }
 }
 
@@ -248,13 +317,23 @@ struct Stream {
 };
 
 // Block b of the grid sums the row block b of stream a, or, past a's
-// blocks, of stream b. Lanes form 32 / lanes_per_row groups of
-// lanes_per_row lanes (a power of two); blockIdx.y picks the window of
-// lanes_per_row vector columns.
+// blocks, of stream b; past the row blocks of both come the zero blocks of
+// stream a, ceil(num_segments / kZeroSegs) of them, then those of stream b.
+// Lanes form 32 / lanes_per_row groups of lanes_per_row lanes (a power of
+// two); blockIdx.y picks the window of lanes_per_row vector columns.
 template <int VEC, typename In>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 csr_segment_sum_kernel(Stream<VEC, In> a, Stream<VEC, In> b, int num_segments,
                        int chunks, int lanes_per_row) {
+  const int zero = (int)blockIdx.x - a.num_blocks - b.num_blocks;
+  if (zero >= 0) {
+    const int per_stream = (num_segments + kZeroSegs - 1) / kZeroSegs;
+    const Stream<VEC, In>& st = zero < per_stream ? a : b;
+    zero_empty_segments<VEC>(st.splits, st.out, num_segments,
+                             zero % per_stream * kZeroSegs, chunks,
+                             lanes_per_row);
+    return;
+  }
   using V = Vec<VEC>;
   using T = typename V::T;
   using R = Rows<VEC, In>;
@@ -311,7 +390,7 @@ csr_segment_sum_kernel(Stream<VEC, In> a, Stream<VEC, In> b, int num_segments,
     const int64_t w0 = max(brow0 + (int64_t)warp * G * S, row_begin);
     const int64_t w1 = min(brow0 + (int64_t)(warp + 1) * G * S, row_end);
     if (w0 < w1) {
-      const int sw = segment_of(splits, n, w0, lane);
+      const int sw = segment_of(splits, 0, n, w0, lane);
       for (int g = 0; g < G; ++g) {
         const int64_t g0 = max(brow0 + (int64_t)(warp * G + g) * S, row_begin);
         const int sg = advance(splits, n, sw, max(g0, w0), lane);
@@ -320,13 +399,6 @@ csr_segment_sum_kernel(Stream<VEC, In> a, Stream<VEC, In> b, int num_segments,
     }
   }
   const bool has_rows = r0 < r1;
-  // Zeros of the leading empty segments, or of all where none has a row.
-  if (col_ok) {
-    int zeros = 0;
-    if (has_rows && r0 == row_begin) zeros = s;
-    if (row_begin == row_end && blk == 0 && k == 0) zeros = n;
-    for (int z = 0; z < zeros; ++z) out[(int64_t)z * chunks + col] = V::zero();
-  }
 
   // The segmented sum of the span: seg_start, nb, nn: splits[s], s + 1,
   // s + 2 (INT64_MAX past splits[n]); head: segment s began before span0.
@@ -350,22 +422,24 @@ csr_segment_sum_kernel(Stream<VEC, In> a, Stream<VEC, In> b, int num_segments,
       V::add(acc, R::widen(raw[u]));
       if (row + 1 != nb) continue;
       // Segment s ends here: a head goes to shared memory, a whole segment
-      // to out; then the empty segments that follow get their zeros.
+      // to out. If the span has a next row, its segment is s + 1, or, past
+      // a run of empty segments (the zero blocks write those), the one
+      // skip_empty finds.
       T* dst = head ? heads + k * L + sub : out + (int64_t)s * chunks + col;
       if (col_ok) *dst = acc;
       if (head && sub == 0) head_seg[k] = s;
       acc = V::zero();
       head = false;
       seg_start = nb;
-      ++s;
-      nb = nn;
-      nn = split_at(s + 2);
-      while (s < n && nb == seg_start) {
-        if (col_ok) out[(int64_t)s * chunks + col] = V::zero();
+      if (nb >= r1) continue;  // no row of the span is left
+      if (nn > nb) {
         ++s;
         nb = nn;
-        nn = split_at(s + 2);
+      } else {
+        s = skip_empty(splits, s + 2, n, nb);
+        nb = split_at(s + 1);
       }
+      nn = split_at(s + 2);
     }
     base += kBatch;
     if (base >= r1) break;
@@ -450,7 +524,10 @@ void launch(Stream<VEC, In> a, Stream<VEC, In> b, int num_streams,
   const int windows = (chunks + lanes - 1) / lanes;
   b.num_blocks = num_streams == 2 ? b.num_blocks : 0;
   b.counters = a.counters + (int64_t)a.num_blocks * windows;
-  const dim3 grid((unsigned)(a.num_blocks + b.num_blocks), windows);
+  const int zero_blocks =
+      num_streams * ((num_segments + kZeroSegs - 1) / kZeroSegs);
+  const dim3 grid((unsigned)(a.num_blocks + b.num_blocks + zero_blocks),
+                  windows);
   csr_segment_sum_kernel<VEC, In><<<grid, kThreads, 0, s>>>(
       a, b, num_segments, chunks, lanes);
 }

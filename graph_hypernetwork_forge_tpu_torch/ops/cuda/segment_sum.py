@@ -17,8 +17,10 @@ On the card each kernel is one launch. It splits the rows into fixed
 blocks, and each block's lane groups sum consecutive spans of rows as
 segmented sums; the pieces of segments that cross spans are joined in the
 block, and those that cross blocks by the block that draws a segment's last
-ticket (int32 counters, left at zero). So a segment of any length costs no
-more than its rows, and the sums are bitwise deterministic. Both kernels
+ticket (int32 counters, left at zero). Zero blocks at the end of the grid,
+2048 segments each, write the empty segments' zeros. So a segment of any
+length costs no more than its rows, a run of empty segments no more than
+its zero rows, and the sums are bitwise deterministic. Both kernels
 also take bf16 rows (the speed mode's, the TPU
 kernels' bf16 branch): read as bf16, summed and written in f32. And both
 take the TPU kernels' ``mode``: ``"exact"``, or ``"fast"``, in which f32
@@ -109,8 +111,7 @@ def _rows_per_block() -> int:
 
 
 def _blocks(rows: int) -> int:
-    """Row blocks of one stream: at least one, so that a call whose
-    segments are all empty still writes their zeros."""
+    """Row blocks of one stream, at least one (as the kernel counts them)."""
     return max(1, -(-rows // _rows_per_block()))
 
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """``parallel/`` across cards: one NCCL rank per card.
 
-    python3 scripts/parallel_ranks.py [RANKS]
+    python3 scripts/parallel_ranks.py [RANKS] [--only composed]
 
 Run from the root of a checkout on a machine with RANKS (default 4) CUDA
 cards joined by NVLink. It builds the kernels once, starts one process per
@@ -42,7 +42,9 @@ one):
   host-to-device copies and the device step, and the dense v1's
   all-gathers alone (a layer's h and banks).
 
-Rank 0 prints one JSON line. Exits non-zero if a check fails.
+Rank 0 prints one JSON line. Exits non-zero if a check fails. With
+``--only composed`` the ranks run the composed step's phase alone (its
+checks, its times and the k = 1 step beside it).
 """
 
 from __future__ import annotations
@@ -438,7 +440,8 @@ def _distributed_minibatch(dev, mesh, k) -> dict:
     return res
 
 
-def run_rank(rank: int, world: int, tmp: str, backend: str = "nccl") -> None:
+def run_rank(rank: int, world: int, tmp: str, backend: str = "nccl",
+             only: str | None = None) -> None:
     if backend == "nccl":
         torch.cuda.set_device(rank)
         dev = cs.resolve_device(torch.device("cuda", rank))
@@ -450,43 +453,46 @@ def run_rank(rank: int, world: int, tmp: str, backend: str = "nccl") -> None:
         mesh = cs.make_mesh((world,), ("edge",), device_type=dev.type)
         t0 = time.perf_counter()
         feats_np, g = cs.xl_graph()
-        config = cs.train_config()
-        params = cs.tree_map(lambda t: t.to(dev), cs._scale_one(
-            cs.init_hypergnn(config, torch.Generator().manual_seed(0))))
-        chars, lens = (torch.as_tensor(a, device=dev) for a in g.arrays[4:6])
-        te, wg = params["text_encoder"], params["weight_generators"][0]
-        single = cs.apply_weight_generator(config.weight_generator, wg,
-                                           cs.apply_text_encoder(te, chars, lens))
-        banks = cs.relation_sharded_generate(
-            mesh, config.weight_generator, te, wg, _rank_rows(chars, mesh),
-            _rank_rows(lens, mesh), axis="edge")
-        gen_err = max((banks[n] - single[n]).abs().max().item() for n in single)
-        res = dict(relation_sharded=dict(
-            bitwise=all(torch.equal(banks[n], single[n]) for n in single),
-            max_abs_err=gen_err,
-            ms=cs.cuda_ms(lambda: cs.relation_sharded_generate(
+        res = {}
+        if only != "composed":
+            config = cs.train_config()
+            params = cs.tree_map(lambda t: t.to(dev), cs._scale_one(
+                cs.init_hypergnn(config, torch.Generator().manual_seed(0))))
+            chars, lens = (torch.as_tensor(a, device=dev) for a in g.arrays[4:6])
+            te, wg = params["text_encoder"], params["weight_generators"][0]
+            single = cs.apply_weight_generator(config.weight_generator, wg,
+                                               cs.apply_text_encoder(te, chars, lens))
+            banks = cs.relation_sharded_generate(
                 mesh, config.weight_generator, te, wg, _rank_rows(chars, mesh),
-                _rank_rows(lens, mesh), axis="edge"), iters=5, warmup=1)))
-        rgen = torch.Generator().manual_seed(1)
-        h = torch.randn(cs.XL_N, cs.WIDTH, generator=rgen).to(dev)
-        r = torch.randn(cs.XL_N, cs.WIDTH, generator=rgen).to(dev)
-        inputs = [h, banks["W_msg"].detach(), banks["W_self"].detach(),
-                  banks["bias"].detach()]
-        src, dst, rel, mask = (torch.as_tensor(a, device=dev) for a in g.arrays[:4])
-        plan = g.sort_plan.to(dev)
-        ref = cs._grad_run(lambda h, wm, ws, b: cs.relational_message_passing(
-            h, src, dst, rel, wm, ws, b, num_nodes=cs.XL_N, edge_mask=mask,
-            backend="cuda", rel_sorted=True, group_padded=True, sort_plan=plan), inputs, r)
-        res.update(_forms(dev, mesh, world, g, inputs, r, ref))
-        del ref, banks, inputs
-        torch.cuda.empty_cache()
-        res["data_parallel"] = _dp(dev, mesh, world, feats_np, g)
-        torch.cuda.empty_cache()
+                _rank_rows(lens, mesh), axis="edge")
+            gen_err = max((banks[n] - single[n]).abs().max().item() for n in single)
+            res["relation_sharded"] = dict(
+                bitwise=all(torch.equal(banks[n], single[n]) for n in single),
+                max_abs_err=gen_err,
+                ms=cs.cuda_ms(lambda: cs.relation_sharded_generate(
+                    mesh, config.weight_generator, te, wg, _rank_rows(chars, mesh),
+                    _rank_rows(lens, mesh), axis="edge"), iters=5, warmup=1))
+            rgen = torch.Generator().manual_seed(1)
+            h = torch.randn(cs.XL_N, cs.WIDTH, generator=rgen).to(dev)
+            r = torch.randn(cs.XL_N, cs.WIDTH, generator=rgen).to(dev)
+            inputs = [h, banks["W_msg"].detach(), banks["W_self"].detach(),
+                      banks["bias"].detach()]
+            src, dst, rel, mask = (torch.as_tensor(a, device=dev) for a in g.arrays[:4])
+            plan = g.sort_plan.to(dev)
+            ref = cs._grad_run(lambda h, wm, ws, b: cs.relational_message_passing(
+                h, src, dst, rel, wm, ws, b, num_nodes=cs.XL_N, edge_mask=mask,
+                backend="cuda", rel_sorted=True, group_padded=True, sort_plan=plan), inputs, r)
+            res.update(_forms(dev, mesh, world, g, inputs, r, ref))
+            del ref, banks, inputs
+            torch.cuda.empty_cache()
+            res["data_parallel"] = _dp(dev, mesh, world, feats_np, g)
+            torch.cuda.empty_cache()
         res["composed"] = _composed(dev, mesh, world, feats_np, g)
-        res["composed_tp"] = _composed_tp(dev, world, feats_np, g)
-        res["pipeline"] = _pipeline(dev, world, feats_np, g)
-        del feats_np, g
-        res["distributed_minibatch"] = _distributed_minibatch(dev, mesh, world)
+        if only != "composed":
+            res["composed_tp"] = _composed_tp(dev, world, feats_np, g)
+            res["pipeline"] = _pipeline(dev, world, feats_np, g)
+            del feats_np, g
+            res["distributed_minibatch"] = _distributed_minibatch(dev, mesh, world)
         res["seconds"] = time.perf_counter() - t0
         everyone = [None] * world
         dist.all_gather_object(everyone, res)
@@ -498,10 +504,50 @@ def run_rank(rank: int, world: int, tmp: str, backend: str = "nccl") -> None:
 
 def _report(world: int, results: list, path: Path) -> None:
     """The slowest rank's times and the largest errors over ranks, printed
-    and written to ``path`` for the parent process."""
-    forms = ("edge_partitioned", "node_partitioned", "halo", "scheduled_halo")
-    line = dict(ranks=world, card=cs.card_line(), plans=results[0]["plans"])
+    and written to ``path`` for the parent process (the composed step's
+    alone where the ranks ran only it)."""
+    line = dict(ranks=world, card=cs.card_line())
     failures = []
+
+    def worst(entries, key):
+        return max(e[key] for e in entries)
+
+    step_keys = ("loss_err", "grad_scaled_err", "param_scaled_err", "param_max_err")
+    gates = dict(loss_err=cs.STEP_LOSS_ATOL, grad_scaled_err=ATOL, param_scaled_err=ATOL,
+                 param_max_err=2 * cs.LEARNING_RATE)
+    if "data_parallel" in results[0]:
+        _report_other_phases(results, line, failures, worst, step_keys, gates)
+    comp = [r["composed"] for r in results]
+    line["composed"] = dict(
+        uniform={key: worst([c["uniform"] for c in comp], key) for key in step_keys},
+        local_roll=dict(
+            ms=worst([c["local_roll"] for c in comp], "ms"),
+            peak_memory_gb=worst([c["local_roll"] for c in comp], "peak_memory_gb"),
+            launches_per_step=comp[0]["local_roll"]["launches_per_step"],
+            launches_as_counted=all(c["local_roll"]["launches_as_counted"] for c in comp),
+            run_table_launches=worst([c["local_roll"] for c in comp], "run_table_launches")),
+        exchange_ms={key: worst([c["exchange_ms"] for c in comp], key)
+                     for key in comp[0]["exchange_ms"]},
+        k1_ms=worst(comp, "k1_ms"), prepare_ms=worst(comp, "prepare_ms"),
+        profile=comp[0]["profile"], k1_profile=comp[0]["k1_profile"],
+        cap=comp[0]["cap"], halo_width=comp[0]["halo_width"])
+    if any(line["composed"]["uniform"][key] > tol for key, tol in gates.items()):
+        failures.append("composed")
+    local = line["composed"]["local_roll"]
+    if not local["launches_as_counted"] or local["run_table_launches"]:
+        failures.append("composed_launches")
+    line["seconds"] = max(r["seconds"] for r in results)
+    line["failures"] = failures
+    text = json.dumps(line)
+    print(text, flush=True)
+    path.write_text(text)
+
+
+def _report_other_phases(results, line, failures, worst, step_keys, gates) -> None:
+    """Every phase but the composed step's into ``line``, and the names of
+    those that failed their gates into ``failures``."""
+    forms = ("edge_partitioned", "node_partitioned", "halo", "scheduled_halo")
+    line["plans"] = results[0]["plans"]
     for name in forms:
         rs = [r[name] for r in results]
         entry = dict(
@@ -528,24 +574,6 @@ def _report(world: int, results: list, path: Path) -> None:
         ms=max(d["ms"] for d in dps), peak_memory_gb=max(d["peak_memory_gb"] for d in dps))
     if line["data_parallel"]["loss_err"] > 1e-5 or line["data_parallel"]["grad_scaled_err"] > ATOL:
         failures.append("data_parallel")
-    def worst(entries, key):
-        return max(e[key] for e in entries)
-
-    step_keys = ("loss_err", "grad_scaled_err", "param_scaled_err", "param_max_err")
-    comp = [r["composed"] for r in results]
-    line["composed"] = dict(
-        uniform={key: worst([c["uniform"] for c in comp], key) for key in step_keys},
-        local_roll=dict(
-            ms=worst([c["local_roll"] for c in comp], "ms"),
-            peak_memory_gb=worst([c["local_roll"] for c in comp], "peak_memory_gb"),
-            launches_per_step=comp[0]["local_roll"]["launches_per_step"],
-            launches_as_counted=all(c["local_roll"]["launches_as_counted"] for c in comp),
-            run_table_launches=worst([c["local_roll"] for c in comp], "run_table_launches")),
-        exchange_ms={key: worst([c["exchange_ms"] for c in comp], key)
-                     for key in comp[0]["exchange_ms"]},
-        k1_ms=worst(comp, "k1_ms"), prepare_ms=worst(comp, "prepare_ms"),
-        profile=comp[0]["profile"], k1_profile=comp[0]["k1_profile"],
-        cap=comp[0]["cap"], halo_width=comp[0]["halo_width"])
     tps = [r["composed_tp"] for r in results]
     line["composed_tp"] = {key: worst(tps, key)
                            for key in step_keys + ("ms_2d", "ms_1d", "peak_memory_gb")}
@@ -553,12 +581,9 @@ def _report(world: int, results: list, path: Path) -> None:
     line["pipeline"] = {key: worst(pipes, key) for key in step_keys + (
         "forward_max_abs_err", "forward_ms", "sequential_forward_ms", "step_ms", "ring_hop_ms",
         "peak_memory_gb")}
-    line["pipeline"].update(microbatches=PIPE_RANKS_MICRO, layers=world)
-    gates = dict(loss_err=cs.STEP_LOSS_ATOL, grad_scaled_err=ATOL, param_scaled_err=ATOL,
-                 param_max_err=2 * cs.LEARNING_RATE)
-    for name, entry in (("composed", line["composed"]["uniform"]),
-                        ("composed_tp", line["composed_tp"]), ("pipeline", line["pipeline"])):
-        if any(entry[key] > tol for key, tol in gates.items()):
+    line["pipeline"].update(microbatches=PIPE_RANKS_MICRO, layers=len(results))
+    for name in ("composed_tp", "pipeline"):
+        if any(line[name][key] > tol for key, tol in gates.items()):
             failures.append(name)
     if line["pipeline"]["forward_max_abs_err"] > ATOL:
         failures.append("pipeline_forward")
@@ -578,17 +603,9 @@ def _report(world: int, results: list, path: Path) -> None:
         failures.append("distributed_minibatch")
     if any(line["distributed_minibatch"]["launches"].values()):
         failures.append("distributed_minibatch_launches")
-    local = line["composed"]["local_roll"]
-    if not local["launches_as_counted"] or local["run_table_launches"]:
-        failures.append("composed_launches")
-    line["seconds"] = max(r["seconds"] for r in results)
-    line["failures"] = failures
-    text = json.dumps(line)
-    print(text, flush=True)
-    path.write_text(text)
 
 
-def main(world: int) -> int:
+def main(world: int, only: str | None = None) -> int:
     if torch.cuda.device_count() < world:
         raise SystemExit(f"parallel_ranks.py: needs {world} CUDA cards, "
                          f"found {torch.cuda.device_count()}")
@@ -596,11 +613,19 @@ def main(world: int) -> int:
     cs.native_bridge.get_native()
     cs.phase_build()
     with tempfile.TemporaryDirectory() as tmp:
-        mp.start_processes(run_rank, args=(world, tmp), nprocs=world, join=True,
-                           start_method="spawn")
+        mp.start_processes(run_rank, args=(world, tmp, "nccl", only), nprocs=world,
+                           join=True, start_method="spawn")
         line = json.loads((Path(tmp) / "report.json").read_text())
     return 1 if line["failures"] else 0
 
 
 if __name__ == "__main__":
-    sys.exit(main(int(sys.argv[1]) if len(sys.argv) > 1 else DEFAULT_RANKS))
+    args = sys.argv[1:]
+    only = None
+    if "--only" in args:
+        i = args.index("--only")
+        only = args[i + 1]
+        if only != "composed":
+            raise SystemExit(f"parallel_ranks.py: --only takes 'composed', not {only!r}")
+        del args[i: i + 2]
+    sys.exit(main(int(args[0]) if args else DEFAULT_RANKS, only))

@@ -183,7 +183,8 @@ def test_csr_kernels_over_two_layouts_in_turn(dev, form):
 
 
 @pytest.mark.parametrize("form", ["f32", "bf16", "fast"])
-@pytest.mark.parametrize("name", ["pad_segment", "dbias_like", "splits0_positive", "all_empty"])
+@pytest.mark.parametrize("name", ["pad_segment", "dbias_like", "splits0_positive", "all_empty",
+                                  "long_empty_runs"])
 def test_dual_kernel_is_bitwise_two_partition_emulations(dev, name, form):
     # Stream a at the named layout, stream b at random bounds over as many
     # rows: each stream is summed as kernel 1 sums it alone.
@@ -201,6 +202,34 @@ def test_dual_kernel_is_bitwise_two_partition_emulations(dev, name, form):
         want, _ = emulate_csr_segment_sum(x, splits, n, lanes)
         assert torch.equal(out.cpu(), torch.from_numpy(want)), "not the emulation's bits"
         _check_sums(out, x, splits, n)
+
+
+@pytest.mark.parametrize("form", ["f32", "bf16", "fast"])
+def test_csr_kernel_over_a_million_segments_and_ten_rows(dev, form):
+    # Ten rows in eight of a million segments (two hold two rows): the zero
+    # blocks write 999,992 zero rows beside one row block. Exact against
+    # the plain version on the CPU (a sum of at most two rows has one
+    # order), every empty segment +0.0, twice the same bits.
+    rng = np.random.default_rng(14)
+    n = 1_000_000
+    ids = np.sort(rng.choice(n, 8, replace=False))
+    ids = np.sort(np.concatenate([ids, ids[[2, 5]]]))
+    splits = np.searchsorted(ids, np.arange(n + 1)).astype(np.int32)
+    x = torch.from_numpy(rng.standard_normal((10, 64)).astype(np.float32))
+    if form == "bf16":
+        x = x.bfloat16()
+    mode = "fast" if form == "fast" else "exact"
+    xt, st = x.to(dev), torch.from_numpy(splits).to(dev)
+    kernels.reset_launch_counts()
+    a, b = csr_segment_sum(xt, st, n, mode), csr_segment_sum(xt, st, n, mode)
+    torch.cuda.synchronize()
+    assert csr_segment_sum.launches_by_form[form] == 2
+    assert torch.equal(a, b), "two runs differ"
+    want = kernels.csr_segment_sum_plain(x, torch.from_numpy(splits), n, mode)
+    assert torch.equal(a.cpu(), want), "not the plain version's sums"
+    empty = torch.from_numpy(np.diff(splits) == 0).to(dev)
+    assert int(empty.sum()) == n - 8
+    assert not a[empty].any() and not a[empty].signbit().any()
 
 
 @pytest.mark.parametrize("d", [40, 64, 128])
