@@ -1,0 +1,8 @@
+"""Kernel `csr_segment_sum_kernel`'s share of its roofline over a traced training
+step's launches (`_kernels.roofline`)."""
+
+from gpubench.layer_metrics._kernels import roofline
+
+
+def read(ctx):
+    return roofline(ctx, "csr_segment_sum_kernel")
