@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from graph_hypernetwork_forge_tpu_torch import native_bridge
+from graph_hypernetwork_forge_tpu_torch.utils.profiling import count, enabled, span
 from graph_hypernetwork_forge_tpu_torch.utils.shapes import (
     pad_bucket_edges,
     pad_bucket_relations,
@@ -76,7 +77,17 @@ class SortPlan:
 
     def to(self, device) -> "SortPlan":
         """The same plan with every array a torch tensor on ``device``
-        (dtypes kept: int32 ids and bounds, float32 degrees)."""
+        (dtypes kept: int32 ids and bounds, float32 degrees).
+
+        One ``torch.as_tensor`` copy per array, from pageable host memory:
+        the ``nbytes`` of every array, 24 bytes a layout row (six int32
+        arrays), 12 a node (the degree and two CSR bounds) and 16 a padded
+        relation, which the ``to_device_bytes`` counter adds while recording.
+        """
+        if enabled():
+            count("to_device_bytes", sum(
+                a.nbytes for f in dataclasses.fields(self)
+                if (a := getattr(self, f.name)) is not None))
         return SortPlan(**{
             f.name: None if (a := getattr(self, f.name)) is None
             else torch.as_tensor(a, device=device)
@@ -288,86 +299,93 @@ def encode_graph(
     relation id to a multiple of ``T``, so every ``T``-row tile holds one
     relation: the layout the edge transform kernel needs. It replaces the
     edge bucket padding.
+
+    It is span ``encode``, whose stages ``encode.dedup``, ``encode.tokenize``,
+    ``encode.layout`` and ``encode.sort_plan`` partition its work
+    (``utils/profiling.py``).
     """
-    edge_index = np.asarray(edge_index)
-    if edge_index.ndim != 2 or edge_index.shape[0] != 2:
-        raise ValueError(f"edge_index must be [2, E], got {edge_index.shape}")
-    e = edge_index.shape[1]
-    if e != len(edge_texts):
-        raise ValueError(
-            f"edge_index has {e} edges but edge_texts has {len(edge_texts)} entries"
+    with span("encode"):
+        edge_index = np.asarray(edge_index)
+        if edge_index.ndim != 2 or edge_index.shape[0] != 2:
+            raise ValueError(f"edge_index must be [2, E], got {edge_index.shape}")
+        e = edge_index.shape[1]
+        if e != len(edge_texts):
+            raise ValueError(
+                f"edge_index has {e} edges but edge_texts has {len(edge_texts)} entries"
+            )
+
+        if group_pad and not sort_by_relation:
+            raise ValueError("group_pad requires sort_by_relation=True")
+
+        with span("encode.dedup"):
+            unique_texts, rel_ids = dedup_texts(edge_texts)
+            u = len(unique_texts)
+        with span("encode.tokenize"):
+            char_ids, lengths = tokenize_texts(unique_texts)
+
+        with span("encode.layout"):
+            u_pad = pad_bucket_relations(u) if pad else max(u, 1)
+
+            if group_pad:
+                g = int(group_pad)
+                counts = np.bincount(rel_ids, minlength=u_pad) if e else np.zeros(
+                    u_pad, dtype=np.int64
+                )
+                padded = ((counts + g - 1) // g) * g
+                if padded.sum() == 0:
+                    # An empty graph still gets one all-masked tile.
+                    padded[u_pad - 1] = g
+                offsets = np.concatenate([[0], np.cumsum(padded)[:-1]])
+                e_pad = int(padded.sum())
+                src = np.zeros(e_pad, dtype=np.int32)
+                dst = np.zeros(e_pad, dtype=np.int32)
+                mask = np.zeros(e_pad, dtype=np.float32)
+                rids = np.repeat(np.arange(u_pad, dtype=np.int32), padded)
+                if e:
+                    order = relation_order(rel_ids, u_pad)
+                    sorted_rel = rel_ids[order]
+                    group_start = np.concatenate([[0], np.cumsum(counts)[:-1]])
+                    within = np.arange(e) - group_start[sorted_rel]
+                    pos = offsets[sorted_rel] + within
+                    src[pos] = edge_index[0][order]
+                    dst[pos] = edge_index[1][order]
+                    mask[pos] = 1.0
+            else:
+                e_pad = pad_bucket_edges(e) if pad else max(e, 1)
+                src = np.zeros(e_pad, dtype=np.int32)
+                dst = np.zeros(e_pad, dtype=np.int32)
+                rids = np.zeros(e_pad, dtype=np.int32)
+                mask = np.zeros(e_pad, dtype=np.float32)
+                src[:e] = edge_index[0]
+                dst[:e] = edge_index[1]
+                rids[:e] = rel_ids
+                mask[:e] = 1.0
+                if sort_by_relation:
+                    order = relation_order(rids, u_pad)
+                    src, dst, rids, mask = src[order], dst[order], rids[order], mask[order]
+
+            cid = np.zeros((u_pad, char_ids.shape[1]), dtype=np.int32)
+            lens = np.ones(u_pad, dtype=np.int32)  # padding rows behave like ""
+            cid[:u] = char_ids
+            lens[:u] = lengths
+
+        plan = None
+        if with_sort_plan:
+            with span("encode.sort_plan"):
+                plan = build_sort_plan(src, dst, rids, mask, int(num_nodes), u_pad)
+
+        return EncodedGraph(
+            src=src,
+            dst=dst,
+            rel_ids=rids,
+            edge_mask=mask,
+            char_ids=cid,
+            text_lengths=lens,
+            num_nodes=int(num_nodes),
+            num_edges=e,
+            num_relations=u,
+            unique_texts=tuple(unique_texts),
+            rel_sorted=sort_by_relation,
+            sort_plan=plan,
+            group_pad=int(group_pad),
         )
-
-    if group_pad and not sort_by_relation:
-        raise ValueError("group_pad requires sort_by_relation=True")
-
-    unique_texts, rel_ids = dedup_texts(edge_texts)
-    u = len(unique_texts)
-    char_ids, lengths = tokenize_texts(unique_texts)
-
-    u_pad = pad_bucket_relations(u) if pad else max(u, 1)
-
-    if group_pad:
-        g = int(group_pad)
-        counts = np.bincount(rel_ids, minlength=u_pad) if e else np.zeros(
-            u_pad, dtype=np.int64
-        )
-        padded = ((counts + g - 1) // g) * g
-        if padded.sum() == 0:
-            # An empty graph still gets one all-masked tile.
-            padded[u_pad - 1] = g
-        offsets = np.concatenate([[0], np.cumsum(padded)[:-1]])
-        e_pad = int(padded.sum())
-        src = np.zeros(e_pad, dtype=np.int32)
-        dst = np.zeros(e_pad, dtype=np.int32)
-        mask = np.zeros(e_pad, dtype=np.float32)
-        rids = np.repeat(np.arange(u_pad, dtype=np.int32), padded)
-        if e:
-            order = relation_order(rel_ids, u_pad)
-            sorted_rel = rel_ids[order]
-            group_start = np.concatenate([[0], np.cumsum(counts)[:-1]])
-            within = np.arange(e) - group_start[sorted_rel]
-            pos = offsets[sorted_rel] + within
-            src[pos] = edge_index[0][order]
-            dst[pos] = edge_index[1][order]
-            mask[pos] = 1.0
-    else:
-        e_pad = pad_bucket_edges(e) if pad else max(e, 1)
-        src = np.zeros(e_pad, dtype=np.int32)
-        dst = np.zeros(e_pad, dtype=np.int32)
-        rids = np.zeros(e_pad, dtype=np.int32)
-        mask = np.zeros(e_pad, dtype=np.float32)
-        src[:e] = edge_index[0]
-        dst[:e] = edge_index[1]
-        rids[:e] = rel_ids
-        mask[:e] = 1.0
-        if sort_by_relation:
-            order = relation_order(rids, u_pad)
-            src, dst, rids, mask = src[order], dst[order], rids[order], mask[order]
-
-    cid = np.zeros((u_pad, char_ids.shape[1]), dtype=np.int32)
-    lens = np.ones(u_pad, dtype=np.int32)  # padding rows behave like ""
-    cid[:u] = char_ids
-    lens[:u] = lengths
-
-    plan = (
-        build_sort_plan(src, dst, rids, mask, int(num_nodes), u_pad)
-        if with_sort_plan
-        else None
-    )
-
-    return EncodedGraph(
-        src=src,
-        dst=dst,
-        rel_ids=rids,
-        edge_mask=mask,
-        char_ids=cid,
-        text_lengths=lens,
-        num_nodes=int(num_nodes),
-        num_edges=e,
-        num_relations=u,
-        unique_texts=tuple(unique_texts),
-        rel_sorted=sort_by_relation,
-        sort_plan=plan,
-        group_pad=int(group_pad),
-    )

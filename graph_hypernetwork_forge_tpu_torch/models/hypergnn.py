@@ -63,6 +63,7 @@ from graph_hypernetwork_forge_tpu_torch.utils.initializers import (
     tree_leaves,
     tree_map,
 )
+from graph_hypernetwork_forge_tpu_torch.utils.profiling import count, enabled, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,73 +164,79 @@ def apply_hypergnn(
     With ``return_all_layers=True``, the list of per-layer outputs
     (post-norm). ``sort_plan`` is the layout's SortPlan with tensors on the
     arrays' device. Dropout is active when ``train`` and ``config.dropout >
-    0``, and then needs ``gen``, a generator on the arrays' device.
+    0``, and then needs ``gen``, a generator on the arrays' device. It is
+    span ``forward``, with ``text_encoder`` and, per layer, ``generator``
+    and ``message_passing`` inside it (``utils/profiling.py``).
     """
-    use_dropout = train and config.dropout > 0.0
-    if use_dropout and gen is None:
-        raise ValueError("dropout requires a torch.Generator in training mode")
-    h = torch.relu(
-        linear_apply(params["input_proj"], node_features, precision=config.precision)
-    )
-    text_embs = apply_text_encoder(
-        params["text_encoder"], char_ids, text_lengths, precision=config.precision
-    )
-    n = node_features.shape[0]
-    p = config.dropout
-
-    def layer_fn(h, gen_params, norm_params, wg_keep, h_keep):
-        weights = apply_weight_generator(
-            config.weight_generator, gen_params, text_embs, train=train,
-            keep=wg_keep,
+    with span("forward"):
+        use_dropout = train and config.dropout > 0.0
+        if use_dropout and gen is None:
+            raise ValueError("dropout requires a torch.Generator in training mode")
+        h = torch.relu(
+            linear_apply(params["input_proj"], node_features, precision=config.precision)
         )
-        h_new = relational_message_passing(
-            h,
-            src,
-            dst,
-            rel_ids,
-            weights["W_msg"],
-            weights["W_self"],
-            weights["bias"],
-            num_nodes=n,
-            edge_mask=edge_mask,
-            backend=config.backend,
-            rel_sorted=config.rel_sorted,
-            sort_plan=sort_plan,
-            group_padded=config.group_padded,
-            precision=config.precision,
-            compute_dtype=config.compute_dtype,
-        )
-        # residual (hidden → hidden) → ReLU → dropout → LayerNorm, in f32
-        h_new = torch.relu(h_new + h)
-        if h_keep is not None:
-            h_new = torch.where(h_keep, h_new / (1.0 - p), 0.0)
-        return layer_norm_apply(norm_params, h_new)
+        with span("text_encoder"):
+            text_embs = apply_text_encoder(
+                params["text_encoder"], char_ids, text_lengths, precision=config.precision
+            )
+        n = node_features.shape[0]
+        p = config.dropout
 
-    per_layer: List[torch.Tensor] = []
-    for gen_params, norm_params in zip(
-        params["weight_generators"], params["layer_norms"]
-    ):
-        wg_keep = h_keep = None
-        if use_dropout:
-            # Drawn here, outside the checkpointed layer: the recompute of
-            # a remat layer restores the global RNG state, not gen's, and
-            # would otherwise draw other masks than the forward used.
-            wg_keep = draw_dropout_masks(
-                config.weight_generator, text_embs.shape[0], gen
-            )
-            h_keep = (
-                torch.rand((n, config.hidden_dim), generator=gen, device=gen.device)
-                < 1.0 - p
-            )
-        if config.remat:
-            h = checkpoint(
-                layer_fn, h, gen_params, norm_params, wg_keep, h_keep,
-                use_reentrant=False,
-            )
-        else:
-            h = layer_fn(h, gen_params, norm_params, wg_keep, h_keep)
-        per_layer.append(h)
-    return per_layer if return_all_layers else h
+        def layer_fn(h, gen_params, norm_params, wg_keep, h_keep):
+            with span("generator"):
+                weights = apply_weight_generator(
+                    config.weight_generator, gen_params, text_embs, train=train,
+                    keep=wg_keep,
+                )
+            with span("message_passing"):
+                h_new = relational_message_passing(
+                    h,
+                    src,
+                    dst,
+                    rel_ids,
+                    weights["W_msg"],
+                    weights["W_self"],
+                    weights["bias"],
+                    num_nodes=n,
+                    edge_mask=edge_mask,
+                    backend=config.backend,
+                    rel_sorted=config.rel_sorted,
+                    sort_plan=sort_plan,
+                    group_padded=config.group_padded,
+                    precision=config.precision,
+                    compute_dtype=config.compute_dtype,
+                )
+            # residual (hidden → hidden) → ReLU → dropout → LayerNorm, in f32
+            h_new = torch.relu(h_new + h)
+            if h_keep is not None:
+                h_new = torch.where(h_keep, h_new / (1.0 - p), 0.0)
+            return layer_norm_apply(norm_params, h_new)
+
+        per_layer: List[torch.Tensor] = []
+        for gen_params, norm_params in zip(
+            params["weight_generators"], params["layer_norms"]
+        ):
+            wg_keep = h_keep = None
+            if use_dropout:
+                # Drawn here, outside the checkpointed layer: the recompute of
+                # a remat layer restores the global RNG state, not gen's, and
+                # would otherwise draw other masks than the forward used.
+                wg_keep = draw_dropout_masks(
+                    config.weight_generator, text_embs.shape[0], gen
+                )
+                h_keep = (
+                    torch.rand((n, config.hidden_dim), generator=gen, device=gen.device)
+                    < 1.0 - p
+                )
+            if config.remat:
+                h = checkpoint(
+                    layer_fn, h, gen_params, norm_params, wg_keep, h_keep,
+                    use_reentrant=False,
+                )
+            else:
+                h = layer_fn(h, gen_params, norm_params, wg_keep, h_keep)
+            per_layer.append(h)
+        return per_layer if return_all_layers else h
 
 
 def score_triple(head_emb, tail_emb) -> torch.Tensor:
@@ -322,19 +329,25 @@ class HyperGNN(nn.Module):
         gen: torch.Generator | None = None,
     ) -> torch.Tensor:
         """The forward of an encoded graph; ``train`` (default: the
-        module's mode) turns on dropout and the recording for a backward."""
+        module's mode) turns on dropout and the recording for a backward.
+        The copies of the graph's host arrays and its plan to the device are
+        span ``forward.to_device``, their bytes counter ``to_device_bytes``
+        (``utils/profiling.py``)."""
         validate_graph_for_config(graph, self.config)
         if train is None:
             train = self.training
         mode = contextlib.nullcontext() if train else torch.inference_mode()
         with mode:
-            feats = torch.as_tensor(
-                node_features, dtype=torch.float32, device=self.device
-            )
-            src, dst, rel_ids, edge_mask, char_ids, lengths = (
-                torch.as_tensor(a, device=self.device) for a in graph.arrays
-            )
-            plan = None if graph.sort_plan is None else graph.sort_plan.to(self.device)
+            with span("forward.to_device"):
+                if enabled():
+                    count("to_device_bytes", sum(a.nbytes for a in graph.arrays))
+                feats = torch.as_tensor(
+                    node_features, dtype=torch.float32, device=self.device
+                )
+                src, dst, rel_ids, edge_mask, char_ids, lengths = (
+                    torch.as_tensor(a, device=self.device) for a in graph.arrays
+                )
+                plan = None if graph.sort_plan is None else graph.sort_plan.to(self.device)
             return apply_hypergnn(
                 self.config, self.params, feats, src, dst, rel_ids, edge_mask,
                 char_ids, lengths, train=train,

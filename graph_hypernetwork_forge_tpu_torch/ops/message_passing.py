@@ -68,6 +68,11 @@ output is f32. ``precision`` reaches the hand-written matrix kernels only:
 data. PyTorch's own products run in full float32 whatever it says: the
 port's entry points turn TF32 off when they choose the card
 (``device.resolve_device``).
+
+While spans record (``utils/profiling.py``), the ``gather`` and ``grouped``
+backends' row gathers of ``h`` add their least bytes, and their backwards',
+to the ``gather_bytes`` counter; those of the plan's Functions count
+themselves in ``ops/segment.py``.
 """
 
 from __future__ import annotations
@@ -85,6 +90,7 @@ from graph_hypernetwork_forge_tpu_torch.ops.cuda.edge_transform import (
     edge_transform_sorted_combined,
 )
 from graph_hypernetwork_forge_tpu_torch.ops.segment import (
+    count_gather,
     segment_count,
     segment_sum,
     sorted_segment_sum_by_plan,
@@ -196,6 +202,8 @@ def _check_cuda_layout(backend, rel_sorted, group_padded, sort_plan) -> None:
 
 def _gather_chunk(h, src, dst, rel_ids, w_msg, w_self, bias):
     """``(msg, self)`` of one chunk of edges via per-edge weight gather."""
+    count_gather(h, src, plain=True)
+    count_gather(h, dst, plain=True)
     msg = torch.bmm(h[src].unsqueeze(1), w_msg[rel_ids]).squeeze(1) + bias[rel_ids]
     self_c = torch.bmm(h[dst].unsqueeze(1), w_self[rel_ids]).squeeze(1)
     return msg, self_c
@@ -287,6 +295,8 @@ def _edge_contributions_grouped(h, src, dst, rel_ids, w_msg, w_self, bias,
         msg = _RaggedTransform.apply(h_src, w_msg, sizes) + bias_e
         return msg, _RaggedTransform.apply(h_dst, w_self, sizes)
     sizes = torch.bincount(rel_ids, minlength=u)[:u].tolist()
+    count_gather(h, src, plain=True)
+    count_gather(h, dst, plain=True)
     if rel_sorted:
         msg = (
             _RaggedTransform.apply(h.index_select(0, src), w_msg, sizes)

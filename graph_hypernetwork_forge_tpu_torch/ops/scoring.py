@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from graph_hypernetwork_forge_tpu_torch.utils.profiling import span
+
 
 def score_pairs(head: torch.Tensor, tail: torch.Tensor) -> torch.Tensor:
     """Dot-product score; ``[d] → scalar`` or ``[B, d] → [B]``."""
@@ -32,5 +34,6 @@ def score_candidate_sets(
 
 
 def score_all_tails(embs: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    """Scores against every node as tail: ``[B, N]``."""
-    return torch.matmul(embs[src], embs.T)
+    """Scores against every node as tail: ``[B, N]`` (span ``score``)."""
+    with span("score"):
+        return torch.matmul(embs[src], embs.T)

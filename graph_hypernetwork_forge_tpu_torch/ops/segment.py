@@ -12,14 +12,41 @@ package's gather-only backwards (its ``ops/segment.py:197-382``): no
 backward scatters with unsorted indices. A gather's cotangent is permuted
 into sorted order by the plan and reduced through the CSR segment-sum; a
 segment-sum's cotangent is one row gather.
+
+While spans record (``utils/profiling.py``), every row gather here, forward
+and backward, adds its least bytes to the ``gather_bytes`` counter
+(:func:`count_gather`).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from graph_hypernetwork_forge_tpu_torch.ops.cuda.segment_sum import csr_segment_sum
+from graph_hypernetwork_forge_tpu_torch.utils.profiling import count, enabled
+
+
+def gather_bytes(table: torch.Tensor, idx: torch.Tensor) -> int:
+    """The least bytes of ``table[idx]`` on axis 0: each output row written
+    once, each index read once, and each table row read once, or the whole
+    table once where it has fewer rows than the output. The scatter-add of
+    the output's cotangent back into the table moves the same bytes."""
+    n = idx.numel()
+    row = math.prod(table.shape[1:]) * table.element_size()
+    return n * row + n * idx.element_size() + min(n, table.shape[0]) * row
+
+
+def count_gather(table: torch.Tensor, idx: torch.Tensor, plain: bool = False) -> None:
+    """Add :func:`gather_bytes` of ``table[idx]`` to ``gather_bytes`` while
+    recording. ``plain=True`` marks a gather whose backward autograd runs
+    (a plain ``table[idx]`` or ``index_select``): where autograd records it,
+    its backward is counted here too, where its shapes are known."""
+    if enabled():
+        times = 2 if plain and table.requires_grad and torch.is_grad_enabled() else 1
+        count("gather_bytes", times * gather_bytes(table, idx))
 
 
 def segment_sum(
@@ -87,6 +114,7 @@ class _SortedSegmentSum(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         (ids_sorted,) = ctx.saved_tensors
+        count_gather(g, ids_sorted)
         return g.index_select(0, ids_sorted).to(ctx.dtype), None, None, None
 
 
@@ -111,12 +139,14 @@ class _PermuteRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, perm, inv_perm):
         ctx.save_for_backward(inv_perm)
+        count_gather(x, perm)
         return x.index_select(0, perm)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         (inv_perm,) = ctx.saved_tensors
+        count_gather(g, inv_perm)
         return g.index_select(0, inv_perm), None, None
 
 
@@ -132,6 +162,7 @@ def _reduce_sorted(g, perm_to_sorted, idx_sorted, splits, num_rows):
     """A gather's cotangent summed into table rows: permute to sorted order
     (``perm_to_sorted`` None means already sorted), then segment-sum."""
     if perm_to_sorted is not None:
+        count_gather(g, perm_to_sorted)
         g = g.index_select(0, perm_to_sorted)
     return _sorted_sum(g, idx_sorted, num_rows, splits)
 
@@ -141,6 +172,7 @@ class _TakeRowsSorted(torch.autograd.Function):
     def forward(ctx, table, idx, perm_to_sorted, idx_sorted, splits):
         ctx.save_for_backward(perm_to_sorted, idx_sorted, splits)
         ctx.num_rows, ctx.dtype = table.shape[0], table.dtype
+        count_gather(table, idx)
         return table.index_select(0, idx)
 
     @staticmethod
@@ -175,6 +207,8 @@ class _TakeRowsPair(torch.autograd.Function):
                 perm_b, sorted_b, splits_b):
         ctx.save_for_backward(perm_a, sorted_a, splits_a, perm_b, sorted_b, splits_b)
         ctx.num_rows, ctx.dtype = table.shape[0], table.dtype
+        count_gather(table, idx_a)
+        count_gather(table, idx_b)
         return table.index_select(0, idx_a), table.index_select(0, idx_b)
 
     @staticmethod
@@ -214,6 +248,7 @@ class _SortedSegmentSumByPlan(torch.autograd.Function):
                 splits):
         ctx.save_for_backward(inv_perm, ids_sorted)
         ctx.dtype = values.dtype
+        count_gather(values, perm_to_sorted)
         values_sorted = values.index_select(0, perm_to_sorted)
         return _sorted_sum(values_sorted, ids_sorted, num_segments, splits)
 
@@ -224,6 +259,8 @@ class _SortedSegmentSumByPlan(torch.autograd.Function):
         # One [E] index gather composes the two row gathers into one
         # (JAX ops/segment.py:373-379): dvalues[i] = g[ids_sorted[inv_perm[i]]].
         idx = ids_sorted.index_select(0, inv_perm)
+        count_gather(ids_sorted, inv_perm)
+        count_gather(g, idx)
         return g.index_select(0, idx).to(ctx.dtype), None, None, None, None, None
 
 

@@ -36,6 +36,13 @@ on every rank; a loss on per-rank blocks is each rank's part of the whole
 rank's gradients are the single-process ones. ``torch.distributed.nn``'s
 collectives are not used: their ``all_gather`` sums every rank's cotangent
 in the backward, which gives a replicated loss k times the gradient.
+
+**Tracing.** While spans record (``utils/profiling.py``), every collective
+this module issues, forward or backward, is a span ``collective.<op>``
+(``all_reduce``, ``all_gather``, ``all_to_all``, ``ppermute``) and adds 1
+to ``collective_calls`` and its payload to ``collective_bytes``: the bytes
+of the tensor this rank hands to the collective (its block for a gather,
+what it sends for a ``ppermute``).
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from graph_hypernetwork_forge_tpu_torch.parallel.mesh import mesh_axis_size
+from graph_hypernetwork_forge_tpu_torch.utils.profiling import count, span
 
 
 def axis_index(mesh: DeviceMesh, axis: str) -> int:
@@ -64,9 +72,17 @@ def local_block(x: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor:
     return x[axis_index(mesh, axis) * rows:][:rows]
 
 
+def _counted(name: str, nbytes: int):
+    """The span ``name`` of one collective, counted with its payload."""
+    count("collective_calls", 1)
+    count("collective_bytes", nbytes)
+    return span(name)
+
+
 def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     out = x.contiguous().clone()
-    dist.all_reduce(out, group=group)
+    with _counted("collective.all_reduce", out.nbytes):
+        dist.all_reduce(out, group=group)
     return out
 
 
@@ -98,7 +114,8 @@ class _AllGather(torch.autograd.Function):
         k = dist.get_world_size(group)
         x = x.contiguous()
         out = x.new_empty((k * x.shape[0],) + tuple(x.shape[1:]))
-        getattr(dist, "all_gather_single", dist.all_gather_into_tensor)(out, x, group=group)
+        with _counted("collective.all_gather", x.nbytes):
+            getattr(dist, "all_gather_single", dist.all_gather_into_tensor)(out, x, group=group)
         return out
 
     @staticmethod
@@ -109,7 +126,8 @@ class _AllGather(torch.autograd.Function):
 def _exchange(x: torch.Tensor, group) -> torch.Tensor:
     x = x.contiguous()
     out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=group)
+    with _counted("collective.all_to_all", x.nbytes):
+        dist.all_to_all_single(out, x, group=group)
     return out
 
 
@@ -127,17 +145,19 @@ class _AllToAll(torch.autograd.Function):
 def _permute(x: torch.Tensor, group, index: int, perm) -> torch.Tensor:
     x = x.contiguous()
     out = torch.zeros_like(x)
-    ops = []
+    ops, sends = [], 0
     for src, dst in perm:
         if src == index and dst == index:
             out.copy_(x)
         elif src == index:
             ops.append(dist.P2POp(dist.isend, x, dist.get_global_rank(group, dst), group))
+            sends += 1
         elif dst == index:
             ops.append(dist.P2POp(dist.irecv, out, dist.get_global_rank(group, src), group))
-    if ops:
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
+    with _counted("collective.ppermute", sends * x.nbytes):
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
     return out
 
 

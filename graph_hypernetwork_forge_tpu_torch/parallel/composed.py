@@ -81,6 +81,7 @@ from graph_hypernetwork_forge_tpu_torch.utils.initializers import (
     linear_apply,
     tree_map,
 )
+from graph_hypernetwork_forge_tpu_torch.utils.profiling import count
 from graph_hypernetwork_forge_tpu_torch.utils.shapes import round_up_to_multiple
 
 KERNEL_CONTRIBS = ("pallas", "pallas_packed", "cuda")
@@ -447,7 +448,9 @@ def _composed_layers(mesh, config, params, npp, axis, feats_l, src_rows, dst_l, 
 
 def _halo_exchange(mesh, axis, send_l, halo_width, scheduled_rounds) -> Callable:
     """``h → [h ++ halo]`` of the halo plan: one ``all_to_all`` of the
-    ``[1, k, B]`` send table, or the scheduled rounds' ``ppermute``s."""
+    ``[1, k, B]`` send table, or the scheduled rounds' ``ppermute``s. Each
+    exchange adds the halo rows it receives to ``halo_rows`` while spans
+    record (``parallel/halo.py``)."""
     if scheduled_rounds is not None:
         return lambda h: torch.cat(
             [h, scheduled_halo_exchange(mesh, h, send_l, scheduled_rounds, axis)])
@@ -455,6 +458,7 @@ def _halo_exchange(mesh, axis, send_l, halo_width, scheduled_rounds) -> Callable
     def exchange(h):
         k, d = send_l.shape[1], h.shape[1]
         buf = h.index_select(0, send_l[0].reshape(-1)).reshape(k, halo_width, d)
+        count("halo_rows", k * halo_width)
         return torch.cat([h, all_to_all(buf, mesh, axis).reshape(k * halo_width, d)])
 
     return exchange

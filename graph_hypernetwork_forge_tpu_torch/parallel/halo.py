@@ -19,6 +19,11 @@ Rows are copied verbatim and each dst's in-edges all live on its owner, so
 the mean (count clamp, averaged W_self, isolated nodes exactly zero) is
 the single-process one per node. The plans are numpy, built on the host,
 and equal the JAX package's array for array.
+
+While spans record (``utils/profiling.py``), each exchange adds the rows of
+the halo buffer this rank receives, padding included, to the ``halo_rows``
+counter; its collectives count their calls and bytes themselves
+(``parallel/collectives.py``).
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from graph_hypernetwork_forge_tpu_torch.parallel.node_partition import (
     partition_edges_by_dst,
 )
 from graph_hypernetwork_forge_tpu_torch.utils.initializers import check_precision
+from graph_hypernetwork_forge_tpu_torch.utils.profiling import count, enabled
 from graph_hypernetwork_forge_tpu_torch.utils.shapes import round_up_to_multiple
 
 
@@ -220,6 +226,7 @@ def halo_message_passing(
     # after the exchange, block i holds what this rank reads from rank i.
     send_buf = h[send_idx[0].reshape(-1).long()].reshape(k, halo_width, d)
     halo = all_to_all(send_buf, mesh, axis).reshape(k * halo_width, d)
+    count("halo_rows", k * halo_width)
     return _owner_computes(mesh, axis, torch.cat([h, halo]), src_l, dst_l, rel_l,
                            mask_l, w_msg, w_self, bias, nodes_per_shard)
 
@@ -412,6 +419,8 @@ def scheduled_halo_exchange(
         ppermute(h_local[tbl[0].long()], mesh, axis, perm)
         for tbl, perm in zip(send_tables_l, round_perms)
     ]
+    if enabled():
+        count("halo_rows", sum(b.shape[0] for b in blocks))
     if not blocks:
         return h_local.new_zeros((0, h_local.shape[1]))
     return torch.cat(blocks)

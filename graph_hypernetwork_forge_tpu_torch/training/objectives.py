@@ -6,7 +6,9 @@ The margin-ranking link-prediction loss of the reference training loop::
 
 with positives scored on real edges and negatives on corrupted tails.
 Padded edges are excluded through ``edge_mask`` (the mask-weighted mean
-equals the plain mean over real edges).
+equals the plain mean over real edges). While spans record, each loss adds
+the least bytes of its row gathers, forward and backward, to the
+``gather_bytes`` counter (``ops/segment.py`` :func:`count_gather`).
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from graph_hypernetwork_forge_tpu_torch.ops.scoring import (
     score_candidate_sets,
     score_pairs,
 )
-from graph_hypernetwork_forge_tpu_torch.ops.segment import sorted_segment_sum
+from graph_hypernetwork_forge_tpu_torch.ops.segment import count_gather, sorted_segment_sum
 
 
 def _masked_mean(per_edge: torch.Tensor, edge_mask: torch.Tensor | None) -> torch.Tensor:
@@ -46,6 +48,8 @@ def link_prediction_loss(
     edge_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Margin-ranking loss over (src→dst) positives vs (src→neg_dst) negatives."""
+    for idx in (src, dst, src, neg_dst):
+        count_gather(embs, idx, plain=True)
     pos = score_pairs(embs[src], embs[dst])
     neg = score_pairs(embs[src], embs[neg_dst])
     return margin_ranking_loss(pos, neg, margin=margin, edge_mask=edge_mask)
@@ -68,6 +72,8 @@ def multi_negative_loss(
     candidates, the weights detached from the graph (self-adversarial
     sampling); T = 0 is the uniform mean.
     """
+    for idx in (src, dst, src, neg_dst):
+        count_gather(embs, idx, plain=True)
     pos = score_pairs(embs[src], embs[dst])  # [B]
     neg = score_candidate_sets(embs, src, neg_dst)  # [B, K]
     hinge = (margin - pos[:, None] + neg).clamp(min=0.0)
@@ -101,6 +107,8 @@ class _LinkPredictionLossSorted(torch.autograd.Function):
         pos_h = embs.index_select(0, src)
         pos_t = embs.index_select(0, dst)
         neg_t = pos_t.index_select(0, fwd)
+        for table, idx in ((embs, src), (embs, dst), (pos_t, fwd)):
+            count_gather(table, idx)
         hinge = margin - (pos_h * pos_t).sum(-1) + (pos_h * neg_t).sum(-1)
         denom = edge_mask.sum().clamp(min=1.0)
         loss = (hinge.clamp(min=0.0) * edge_mask).sum() / denom
@@ -118,14 +126,18 @@ class _LinkPredictionLossSorted(torch.autograd.Function):
          dst_splits, shift, edge_mask, active, denom) = ctx.saved_tensors
         e, dev = pos_h.shape[0], pos_h.device
         a = (g / denom * edge_mask * active)[:, None]  # [E, 1]
+        fwd, back = _roll_index(e, shift, dev), _roll_index(e, -shift, dev)
         # Stream 1 (src-sorted): dh_e = a_e · (t_{e+k} − t_e).
-        t1 = a * (pos_t.index_select(0, _roll_index(e, shift, dev)) - pos_t)
+        t1 = a * (pos_t.index_select(0, fwd) - pos_t)
         # Stream 2 (dst-sorted): dt_e = a_{e−k}·h_{e−k} − a_e·h_e.
         t2 = a * pos_h
-        t3 = t2.index_select(0, _roll_index(e, -shift, dev)) - t2
+        t3 = t2.index_select(0, back) - t2
         n = ctx.num_nodes
         stream_src = t1 if src_perm is None else t1.index_select(0, src_perm)
         stream_dst = t3 if dst_perm is None else t3.index_select(0, dst_perm)
+        for table, idx in ((pos_t, fwd), (t2, back), (t1, src_perm), (t3, dst_perm)):
+            if idx is not None:
+                count_gather(table, idx)
         dembs = sorted_segment_sum(
             stream_src, src_sorted, n, src_splits
         ) + sorted_segment_sum(stream_dst, dst_sorted, n, dst_splits)

@@ -36,6 +36,7 @@ from graph_hypernetwork_forge_tpu_torch.training.objectives import (
     multi_negative_loss,
 )
 from graph_hypernetwork_forge_tpu_torch.utils.initializers import tree_leaves, tree_map
+from graph_hypernetwork_forge_tpu_torch.utils.profiling import span
 
 Optimizer = Callable[[List[torch.Tensor]], torch.optim.Optimizer]
 # A learning rate by update count, as optax's schedules: update i (from 0)
@@ -192,6 +193,9 @@ def make_train_step(
     parameter's own shards, and Adam updates them in place, so the
     parameters keep their placements. Every rank computes the whole step,
     so every rank passes the same ``gen`` state (or ``neg_dst``).
+
+    A step is span ``train_step``, with ``loss`` (the forward and the
+    loss), ``backward`` and ``optimizer`` inside it (``utils/profiling.py``).
     """
     _check_modes(neg_mode, num_pos_samples)
     if num_negatives < 1:
@@ -239,42 +243,46 @@ def make_train_step(
         neg_dst=None,
         sort_plan=None,
     ) -> Tuple[Any, torch.optim.Optimizer, torch.Tensor]:
-        whole = tree_map(_whole, params)
-        node_features, src, dst, rel_ids, edge_mask, char_ids, text_lengths = (
-            _whole(t) for t in (node_features, src, dst, rel_ids, edge_mask, char_ids,
-                                text_lengths))
-        dev = node_features.device
-        if num_pos_samples is None:
-            pos_src, pos_dst, pos_mask = src, dst, edge_mask
-        else:
-            idx = torch.randint(
-                0, src.shape[0], (num_pos_samples,), generator=gen, device=dev
-            )
-            pos_src, pos_dst, pos_mask = src[idx], dst[idx], edge_mask[idx]
-        if neg_mode == "roll":
-            if sort_plan is None:
-                raise ValueError("neg_mode='roll' requires sort_plan")
-            if neg_dst is None:
-                neg_dst = torch.randint(
-                    1, pos_src.shape[0], (), generator=gen, device=dev
+        with span("train_step"):
+            whole = tree_map(_whole, params)
+            node_features, src, dst, rel_ids, edge_mask, char_ids, text_lengths = (
+                _whole(t) for t in (node_features, src, dst, rel_ids, edge_mask, char_ids,
+                                    text_lengths))
+            dev = node_features.device
+            if num_pos_samples is None:
+                pos_src, pos_dst, pos_mask = src, dst, edge_mask
+            else:
+                idx = torch.randint(
+                    0, src.shape[0], (num_pos_samples,), generator=gen, device=dev
                 )
-        elif neg_dst is None:
-            neg_shape = (
-                pos_src.shape if num_negatives == 1
-                else (pos_src.shape[0], num_negatives)
-            )
-            neg_dst = torch.randint(
-                0, node_features.shape[0], neg_shape, generator=gen,
-                device=dev, dtype=pos_src.dtype,
-            )
-        opt_state.zero_grad(set_to_none=True)
-        loss = loss_fn(
-            whole, node_features, src, dst, rel_ids, edge_mask, char_ids,
-            text_lengths, pos_src, pos_dst, pos_mask, neg_dst, gen, sort_plan,
-        )
-        loss.backward()
-        opt_state.step()
-        return params, opt_state, loss.detach()
+                pos_src, pos_dst, pos_mask = src[idx], dst[idx], edge_mask[idx]
+            if neg_mode == "roll":
+                if sort_plan is None:
+                    raise ValueError("neg_mode='roll' requires sort_plan")
+                if neg_dst is None:
+                    neg_dst = torch.randint(
+                        1, pos_src.shape[0], (), generator=gen, device=dev
+                    )
+            elif neg_dst is None:
+                neg_shape = (
+                    pos_src.shape if num_negatives == 1
+                    else (pos_src.shape[0], num_negatives)
+                )
+                neg_dst = torch.randint(
+                    0, node_features.shape[0], neg_shape, generator=gen,
+                    device=dev, dtype=pos_src.dtype,
+                )
+            opt_state.zero_grad(set_to_none=True)
+            with span("loss"):
+                loss = loss_fn(
+                    whole, node_features, src, dst, rel_ids, edge_mask, char_ids,
+                    text_lengths, pos_src, pos_dst, pos_mask, neg_dst, gen, sort_plan,
+                )
+            with span("backward"):
+                loss.backward()
+            with span("optimizer"):
+                opt_state.step()
+            return params, opt_state, loss.detach()
 
     return train_step
 

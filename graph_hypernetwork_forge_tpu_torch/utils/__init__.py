@@ -13,12 +13,16 @@ from graph_hypernetwork_forge_tpu_torch.utils.metrics import (
     JsonlWriter,
     MetricsLogger,
     StdoutWriter,
-    Throughput,
 )
 from graph_hypernetwork_forge_tpu_torch.utils.profiling import (
     PhaseTimer,
-    annotate,
+    count,
     device_trace,
+    record,
+    reset,
+    snapshot,
+    span,
+    stop,
 )
 from graph_hypernetwork_forge_tpu_torch.utils.shapes import round_up_to_multiple
 
@@ -28,8 +32,7 @@ __all__ = [
     "MetricsLogger",
     "PhaseTimer",
     "StdoutWriter",
-    "Throughput",
-    "annotate",
+    "count",
     "device_trace",
     "embedding_params",
     "layer_norm_apply",
@@ -37,5 +40,10 @@ __all__ = [
     "linear_apply",
     "linear_params",
     "linear_params_normal",
+    "record",
+    "reset",
     "round_up_to_multiple",
+    "snapshot",
+    "span",
+    "stop",
 ]

@@ -4,6 +4,9 @@ A copy of the JAX package's ``utils/metrics.py`` (pure Python): a
 :class:`MetricsLogger` records step-keyed scalar dicts (loss, edges/s, ...)
 and forwards them to writers: in-memory history, stdout and a JSONL file
 are built in, and anything with a ``write(step, metrics)`` method plugs in.
+The JAX module's ``Throughput`` has no copy here: it counted the rate at
+which work was enqueued, not completed; the port's work counters are in
+``utils/profiling.py``.
 """
 
 from __future__ import annotations
@@ -59,23 +62,3 @@ class MetricsLogger:
         for w in self.writers:
             w.write(step, metrics)
 
-
-class Throughput:
-    """Edges/s (or any unit/s) counter over a sliding window."""
-
-    def __init__(self) -> None:
-        self._t0: Optional[float] = None
-        self._units = 0.0
-
-    def start(self) -> None:
-        self._t0 = time.perf_counter()
-        self._units = 0.0
-
-    def add(self, units: float) -> None:
-        self._units += units
-
-    def rate(self) -> float:
-        if self._t0 is None:
-            return 0.0
-        dt = time.perf_counter() - self._t0
-        return self._units / dt if dt > 0 else 0.0

@@ -1,9 +1,50 @@
-"""Profiling hooks: torch.profiler traces and blocking phase timers.
+"""Profiling hooks: spans and work counters, torch.profiler traces and
+blocking phase timers.
 
-The counterpart of the JAX package's ``utils/profiling.py``:
-:func:`device_trace` records a Chrome trace (Perfetto opens it) with
-``torch.profiler``, and :class:`PhaseTimer` waits for the device at the end
-of a phase, so the device work of the phase is counted in it.
+The counterpart of the JAX package's ``utils/profiling.py``, with the
+port's own spans and counters beside it.
+
+**Spans and counters.** The port wraps each stage of its work in
+:func:`span` (``encode.tokenize``, ``forward``, ``train_step``,
+``collective.all_reduce``, ...) and adds the work a stage does to a counter
+with :func:`count` (``to_device_bytes``, ``gather_bytes``,
+``collective_bytes``, ...). Both feed one registry in this module: per
+span, its entries and their total host seconds; per counter, its total.
+:func:`snapshot` reads it and :func:`reset` empties it.
+
+Recording is on only while ``torch.profiler`` records, or between
+:func:`record` and :func:`stop` for an operator who wants the totals
+without a profiler. Off, :func:`span` returns one shared no-op context
+(no profiler range, no clock read) and :func:`count` adds nothing; a call
+site whose counter argument costs work (a sum of ``nbytes``, a product of
+shapes) computes it only behind :func:`enabled`. While the profiler
+records, each span also opens a ``record_function`` range named
+``ghf.<name>``, so a span sits on the profiler's timeline beside the
+kernels it launched and the device's idle gaps; its host seconds are read
+with ``time.perf_counter_ns`` at the same entry and exit.
+
+The port's spans: ``encode`` and its stages ``encode.dedup``,
+``encode.tokenize``, ``encode.layout``, ``encode.sort_plan``
+(``data/encoding.py``); ``forward.to_device`` (``HyperGNN.forward_encoded``);
+``forward`` with ``text_encoder``, then ``generator`` and
+``message_passing`` once a layer (``apply_hypergnn``); ``train_step`` with
+``loss`` (the forward and the loss), ``backward``, ``optimizer``;
+``score`` (``score_all_tails``); ``collective.<op>`` (``parallel/``). Its
+counters: ``to_device_bytes`` (host arrays copied to the model's device),
+``gather_bytes`` (the least bytes of every row gather and its backward,
+``ops/segment.py``), ``collective_calls``, ``collective_bytes`` and
+``halo_rows`` (``parallel/``). A span's seconds are the host's: the device
+work it enqueued may run later, which a trace's ``ghf.*`` ranges show.
+
+The kernel wrappers' launch counters (``ops/cuda/_common.count_launch``)
+are another thing: they count every launch of each kernel, always, so
+tests can check which kernels a path routes to. The counters here count
+work (bytes, calls, rows) and only while recording.
+
+**Traces and timers.** :func:`device_trace` records a Chrome trace
+(Perfetto opens it) with ``torch.profiler``, and :class:`PhaseTimer` waits
+for the device at the end of a phase, so the device work of the phase is
+counted in it: sound for scripts, not for a hot path.
 """
 
 from __future__ import annotations
@@ -14,7 +55,95 @@ import time
 from typing import Dict, Iterator
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 from torch.profiler import ProfilerActivity, profile, record_function
+
+# The prefix of every span's profiler range.
+RANGE_PREFIX = "ghf."
+
+_recording = False
+# name -> [entries, total host nanoseconds]
+_spans: Dict[str, list] = {}
+_counters: Dict[str, int] = {}
+
+
+def enabled() -> bool:
+    """Whether spans and counters record: under :func:`record`, or while
+    ``torch.profiler`` records (a module attribute it sets)."""
+    return _recording or _autograd_profiler._is_profiler_enabled
+
+
+# What span() returns while recording is off.
+_NO_SPAN = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "range", "t0")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.range = None
+
+    def __enter__(self):
+        if _autograd_profiler._is_profiler_enabled:
+            self.range = record_function(RANGE_PREFIX + self.name)
+            self.range.__enter__()
+        self.t0 = time.perf_counter_ns()
+        return None
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter_ns() - self.t0
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        entry = _spans.get(self.name)
+        if entry is None:
+            _spans[self.name] = [1, dt]
+        else:
+            entry[0] += 1
+            entry[1] += dt
+        return False
+
+
+def span(name: str):
+    """A context that records one entry of span ``name`` and its host
+    seconds while recording is on; off, the shared no-op context. The
+    check is :func:`enabled`'s, inlined: off, it is the whole cost."""
+    if not (_recording or _autograd_profiler._is_profiler_enabled):
+        return _NO_SPAN
+    return _Span(name)
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to counter ``name`` while recording is on."""
+    if _recording or _autograd_profiler._is_profiler_enabled:
+        _counters[name] = _counters.get(name, 0) + n
+
+
+def record() -> None:
+    """Turn recording on without a profiler, until :func:`stop`."""
+    global _recording
+    _recording = True
+
+
+def stop() -> None:
+    """Turn :func:`record`'s recording off (a profiler's goes on)."""
+    global _recording
+    _recording = False
+
+
+def snapshot() -> dict:
+    """A copy of the registry: ``{"spans": {name: {"entries": n,
+    "seconds": s}}, "counters": {name: total}}``."""
+    return {
+        "spans": {k: {"entries": n, "seconds": ns / 1e9} for k, (n, ns) in _spans.items()},
+        "counters": dict(_counters),
+    }
+
+
+def reset() -> None:
+    """Empty the registry."""
+    _spans.clear()
+    _counters.clear()
 
 
 @contextlib.contextmanager
@@ -22,7 +151,8 @@ def device_trace(logdir: str, device=None) -> Iterator[profile]:
     """Trace the block with torch.profiler and write ``logdir/trace.json``.
 
     The CPU is always traced; the CUDA device too when ``device`` is a CUDA
-    device, or when it is None and a card is present.
+    device, or when it is None and a card is present. The port's spans
+    show in it as ``ghf.*`` ranges.
     """
     cuda = (torch.cuda.is_available() if device is None
             else torch.device(device).type == "cuda")
@@ -84,10 +214,3 @@ class PhaseTimer:
             n = self.counts[name]
             lines.append(f"{name:24s} {total * 1e3:10.2f} ms total  {n:5d} calls")
         return "\n".join(lines)
-
-
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """Named region in traces (shows up in Perfetto)."""
-    with record_function(name):
-        yield

@@ -14,6 +14,10 @@ port's module of the same path, with these exceptions and their reasons:
 - ``resolve_precision`` (``utils/initializers.py``), as above;
 - ``shard_map`` (``parallel/edge_partition.py``, ``pipeline.py``): an alias
   of ``jax.shard_map``, whose bodies the port's functions are;
+- ``Throughput`` (``utils/metrics.py``): it counted the rate at which work
+  was enqueued, not completed, and nothing read it;
+- ``annotate`` (``utils/profiling.py``): the port's ``span`` stands in its
+  place, a ``ghf.*`` range and host seconds only while recording;
 - the TPU kernels' modules ``ops/pallas/*.py``: their counterparts are the
   CUDA kernels' wrappers under ``ops/cuda/`` (``KERNEL_COUNTERPARTS``;
   PERF.md's kernel table); their tile constants ``TILE_N``, ``CHUNK`` and
@@ -61,6 +65,8 @@ NO_COUNTERPART = {
     "utils/initializers.py": {"resolve_precision"},
     "parallel/edge_partition.py": {"shard_map"},
     "parallel/pipeline.py": {"shard_map"},
+    "utils/metrics.py": {"Throughput"},
+    "utils/profiling.py": {"annotate"},
     "ops/pallas/segment_sum.py": {"TILE_N", "CHUNK"},
     "ops/pallas/edge_transform.py": {"DEFAULT_TILE_E"},
 }
