@@ -111,8 +111,8 @@ JAX, and fails (non-zero exit, no result line) on any failed phase:
    against the same batch and negatives on the CPU, then 1 warm-up and 5
    timed steps, each split into host sampling, host-to-device copies and
    the device step (CUDA events), the backend ``auto`` picks (``grouped``,
-   as in JAX; no kernel launches), subgraph sizes, peak memory, and one
-   profiled device step;
+   as in JAX; no kernel in the model, kernel 1 once a step in the loss),
+   subgraph sizes, peak memory, and one profiled device step;
 11. parallel (``parallel/`` slices A and B): an NCCL process group of one
    rank through a ``file://`` rendezvous and ``make_mesh((1,), ("edge",))``
    on the card; at xl, relation-sharded generation of the banks (seed 0,
@@ -173,12 +173,14 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import importlib
 import json
 import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 
@@ -230,7 +232,7 @@ from graph_hypernetwork_forge_tpu_torch.ops.message_passing import (  # noqa: E4
     resolve_backend,
     two_stream_tail,
 )
-from graph_hypernetwork_forge_tpu_torch.ops.scoring import score_all_tails  # noqa: E402
+from graph_hypernetwork_forge_tpu_torch.ops.scoring import score_all_tails, score_pairs  # noqa: E402
 from graph_hypernetwork_forge_tpu_torch.models.text_encoder import (  # noqa: E402
     apply_text_encoder,
 )
@@ -266,6 +268,7 @@ from graph_hypernetwork_forge_tpu_torch.parallel.tensor_parallel import (  # noq
 )
 from graph_hypernetwork_forge_tpu_torch.training.objectives import (  # noqa: E402
     link_prediction_loss,
+    margin_ranking_loss,
 )
 from graph_hypernetwork_forge_tpu_torch.training import (  # noqa: E402
     DistributedMinibatchTrainer,
@@ -288,6 +291,9 @@ from graph_hypernetwork_forge_tpu_torch.utils.metrics import MetricsLogger  # no
 from graph_hypernetwork_forge_tpu_torch.utils.profiling import PhaseTimer  # noqa: E402
 from graph_hypernetwork_forge_tpu_torch.utils.shapes import pad_bucket_relations  # noqa: E402
 from graph_hypernetwork_forge_tpu_torch.utils.text import tokenize_texts  # noqa: E402
+
+# By module path: the package's name ``train`` is the function.
+train_module = importlib.import_module("graph_hypernetwork_forge_tpu_torch.training.train")
 
 # The xl config (benchmarks/scaling.py): N, E, U, text_dim, width, layers.
 XL_N, XL_E, XL_U, TEXT_DIM, WIDTH, LAYERS = 50_000, 1_000_000, 237, 64, 64, 2
@@ -455,8 +461,9 @@ TWO_STREAM_LAUNCHES = dict(
 # plan: per layer kernel 1 in the tail and for the h[src], h[dst] and bias
 # cotangents; the per-relation products are PyTorch matmuls.
 # A link-prediction step with uniform negatives: the model's launches of a
-# training step, and none in the loss (plain gathers, no sorted streams).
-LINKPRED_STEP_LAUNCHES = dict(STEP_LAUNCHES, csr_segment_sum=LAYERS * 4)
+# training step, and kernel 1 once in the loss's backward (its three
+# cotangent streams, sorted together on the card).
+LINKPRED_STEP_LAUNCHES = dict(STEP_LAUNCHES, csr_segment_sum=LAYERS * 4 + 1)
 GROUPED_LAUNCHES = dict({name: 0 for name in STEP_LAUNCHES}, csr_segment_sum=4 * LAYERS)
 GROUPED_TIMED = 3
 
@@ -2256,6 +2263,14 @@ def gather_config(config: HyperGNNConfig) -> HyperGNNConfig:
     return dataclasses.replace(config, backend="gather")
 
 
+def plain_link_prediction_loss(embs, src, dst, neg_dst, margin=1.0, edge_mask=None):
+    """The uniform loss with plain gathers, whose backward is PyTorch's
+    index backward: the ``gather`` oracle's, apart from the port's sorted
+    backward."""
+    return margin_ranking_loss(score_pairs(embs[src], embs[dst]),
+                               score_pairs(embs[src], embs[neg_dst]), margin, edge_mask)
+
+
 def layout_vs_references(dev, init, feats, graph, label: str) -> dict:
     """Kernels 1-3 on this dataset's train layout (its hub segments and
     relation runs) against references on the same inputs: the model with its
@@ -2263,10 +2278,11 @@ def layout_vs_references(dev, init, feats, graph, label: str) -> dict:
     ``sum(out * R)``) against a float64 run of the ``dense`` backend on the
     host (the kernels take no float64), and the first training step from
     ``init`` against the card's ``gather`` oracle with the same negatives
-    (loss, per-leaf gradients). At scale one the oracle itself is no
-    reference for the weight gradients: on an H100 its f32 sums over
-    WN18RR-like's ~6k-row relations came 2.9e-5 scaled from float64, the
-    kernels' 1.0e-6."""
+    (loss, per-leaf gradients; the oracle's loss is the plain one, whose
+    backward PyTorch's index backward sums, against the sorted one). At
+    scale one the oracle itself is no reference for the weight gradients:
+    on an H100 its f32 sums over WN18RR-like's ~6k-row relations came
+    2.9e-5 scaled from float64, the kernels' 1.0e-6."""
     config = linkpred_config()
     scaled = _scale_one(tree_map(lambda t: t.clone(), init))
     exact = _model_run(dataclasses.replace(config, backend="dense"),
@@ -2280,8 +2296,11 @@ def layout_vs_references(dev, init, feats, graph, label: str) -> dict:
     for cfg in (config, gather_config(config)):
         state = create_train_state(tree_map(lambda t: t.to(dev), init), adam(LEARNING_RATE))
         gen = torch.Generator(device=dev).manual_seed(1000)
-        loss = make_train_step(cfg)(state.params, state.opt_state, feats, *arrays, gen,
-                                    sort_plan=plan)[2]
+        # The gather oracle's loss is plain_link_prediction_loss.
+        loss_fn = link_prediction_loss if cfg is config else plain_link_prediction_loss
+        with mock.patch.object(train_module, "link_prediction_loss", loss_fn):
+            loss = make_train_step(cfg)(state.params, state.opt_state, feats, *arrays, gen,
+                                        sort_plan=plan)[2]
         runs[cfg.backend] = (loss.item(), _leaves(state.params, grads=True))
     (loss, grads), (r_loss, r_grads) = runs["cuda"], runs["gather"]
     loss_err = abs(loss - r_loss)
@@ -2555,10 +2574,12 @@ def phase_minibatch(dev, mb, graph_s: float) -> dict:
     check(all(np.isfinite(s["loss"]) for s in steps), "minibatch: a loss is not finite")
     # JAX's auto picks grouped on this subgraph (unsorted, U x N_pad x d
     # beyond the dense budget); the port's grouped runs cuBLAS per relation
-    # and no hand-written kernel.
+    # and no hand-written kernel in the model.
     check(all(s["backend"] == "grouped" for s in steps),
           "minibatch: auto did not pick grouped, as the JAX package does")
-    check(not any(launches.values()), f"minibatch: kernels launched: {launches}")
+    # No kernel in the model; kernel 1 once a step in the loss's backward.
+    want = dict({name: 0 for name in KERNELS}, csr_segment_sum=1 + MB_TIMED)
+    check(launches == want, f"minibatch: launches {launches} != {want}")
     profile = profile_device(
         "one minibatch device step",
         lambda: trainer.device_step(state.params, state.opt_state, tensors, gen))
@@ -3368,7 +3389,8 @@ def phase_experiments(dev) -> dict:
     evaluating every EXP_EVAL_EVERY), ``sweep_zeroshot.run_one`` with K=8,
     the cosine schedule and best-on-valid selection, and the port side of
     ``parity_zeroshot`` at scale 0.1, one seed each: ms/step, MRR and
-    zero-shot MRR as readouts, no kernel launch (``grouped``)."""
+    zero-shot MRR as readouts, no kernel launch in the models (``grouped``)
+    and kernel 1 once a step in the K = 1 losses' backward."""
     t_start = time.perf_counter()
     kernels.reset_launch_counts()
     out = {}
@@ -3408,8 +3430,11 @@ def phase_experiments(dev) -> dict:
         check(np.isfinite(e["final_loss"]) and 0.0 < e["mrr"] <= 1.0
               and e["zero_shot_mrr"] is not None,
               f"experiments {name}: a loss is not finite or a metric is missing")
-    check(not any(out["launches"].values()),
-          f"experiments: kernels launched: {out['launches']}")
+    # No kernel in the models; kernel 1 once a step in the loss's backward
+    # of train_linkpred and the parity run (one tail a positive), none in
+    # the sweep's K = 8 loss.
+    want = dict({name: 0 for name in KERNELS}, csr_segment_sum=2 * EXP_STEPS)
+    check(out["launches"] == want, f"experiments: launches {out['launches']} != {want}")
     log(f"experiments: phase in {out['seconds']:.1f} s (train_linkpred's ms/step without "
         "its evaluations; the sweep's and the parity run's from their rows' train_s, "
         "0.1 s resolution, the sweep's with its two valid evaluations)")

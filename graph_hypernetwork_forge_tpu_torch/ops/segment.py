@@ -167,6 +167,21 @@ def _reduce_sorted(g, perm_to_sorted, idx_sorted, splits, num_rows):
     return _sorted_sum(g, idx_sorted, num_rows, splits)
 
 
+def reduce_unsorted(g, idx, num_rows):
+    """``g``'s rows summed into ``num_rows`` table rows by ``idx``, the
+    cotangent of ``table[idx]``, with no atomics: a stable sort of ``idx``
+    and its CSR bounds, both on its device (no host read), then kernel 1 in
+    that fixed order. Bitwise deterministic, and a row that many entries of
+    ``idx`` name costs no more than its entries."""
+    idx_sorted, perm = torch.sort(idx, stable=True)
+    splits = torch.searchsorted(
+        idx_sorted,
+        torch.arange(num_rows + 1, device=idx.device, dtype=idx_sorted.dtype),
+        out_int32=True,
+    )
+    return _reduce_sorted(g, perm, idx_sorted, splits, num_rows)
+
+
 class _TakeRowsSorted(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table, idx, perm_to_sorted, idx_sorted, splits):

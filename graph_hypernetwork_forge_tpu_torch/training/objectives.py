@@ -8,19 +8,28 @@ with positives scored on real edges and negatives on corrupted tails.
 Padded edges are excluded through ``edge_mask`` (the mask-weighted mean
 equals the plain mean over real edges). While spans record, each loss adds
 the least bytes of its row gathers, forward and backward, to the
-``gather_bytes`` counter (``ops/segment.py`` :func:`count_gather`).
+``gather_bytes`` counter (``ops/segment.py`` :func:`count_gather`), and one
+to the count of its kind: ``loss_sorted_uniform`` for
+:func:`link_prediction_loss` through its sorted backward, ``loss_plain`` for
+the losses whose gathers PyTorch's index backward sums.
 """
 
 from __future__ import annotations
 
 import torch
 from torch.autograd.function import once_differentiable
+from torch.distributed.tensor import DTensor
 
 from graph_hypernetwork_forge_tpu_torch.ops.scoring import (
     score_candidate_sets,
     score_pairs,
 )
-from graph_hypernetwork_forge_tpu_torch.ops.segment import count_gather, sorted_segment_sum
+from graph_hypernetwork_forge_tpu_torch.ops.segment import (
+    count_gather,
+    reduce_unsorted,
+    sorted_segment_sum,
+)
+from graph_hypernetwork_forge_tpu_torch.utils.profiling import count
 
 
 def _masked_mean(per_edge: torch.Tensor, edge_mask: torch.Tensor | None) -> torch.Tensor:
@@ -39,6 +48,65 @@ def margin_ranking_loss(
     return _masked_mean(per_edge, edge_mask)
 
 
+# The steps the sorted losses share.
+
+
+def _mask_or_ones(edge_mask, src, embs):
+    if edge_mask is not None:
+        return edge_mask
+    return torch.ones(src.shape, dtype=embs.dtype, device=embs.device)
+
+
+def _hinge_mean(ctx, embs, h, t, n, edge_mask, margin, saved) -> torch.Tensor:
+    """The mask-weighted mean of ``max(0, margin − ⟨h,t⟩ + ⟨h,n⟩)``, as
+    :func:`margin_ranking_loss` gives it. Saves ``saved``, then what
+    :func:`_hinge_weights` reads."""
+    hinge = margin - score_pairs(h, t) + score_pairs(h, n)
+    denom = edge_mask.sum().clamp(min=1.0)
+    ctx.save_for_backward(*saved, edge_mask, hinge > 0.0, denom)
+    ctx.num_nodes, ctx.dtype = embs.shape[0], embs.dtype
+    return (hinge.clamp(min=0.0) * edge_mask).sum() / denom
+
+
+def _hinge_weights(ctx, g):
+    """``(saved, a [E, 1], edge_mask)``: the tensors :func:`_hinge_mean`
+    was given to save, and each edge's weight in the backward,
+    ``a = g / denom · mask · (hinge > 0)``."""
+    *saved, edge_mask, active, denom = ctx.saved_tensors
+    return saved, (g / denom * edge_mask * active)[:, None], edge_mask
+
+
+def _mask_cotangent(ctx, edge_mask, index):
+    # The reference gives edge_mask a ZERO cotangent, though the loss
+    # depends on it (ROADMAP §3): kept as it is, flagged here.
+    return torch.zeros_like(edge_mask) if ctx.needs_input_grad[index] else None
+
+
+class _LinkPredictionLossUniformSorted(torch.autograd.Function):
+    """Uniform-negative margin loss (K = 1) whose backward sums its three
+    cotangent streams as one sorted stream through kernel 1: no scatter."""
+
+    @staticmethod
+    def forward(ctx, embs, src, dst, neg_dst, edge_mask, margin):
+        h = embs.index_select(0, src)
+        t = embs.index_select(0, dst)
+        n = embs.index_select(0, neg_dst)
+        for idx in (src, dst, neg_dst):
+            count_gather(embs, idx)
+        return _hinge_mean(ctx, embs, h, t, n, edge_mask, margin, (h, t, n, src, dst, neg_dst))
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        (h, t, n, src, dst, neg_dst), a, edge_mask = _hinge_weights(ctx, g)
+        # dh_e = a_e·(n_e − t_e) keyed by src, dt_e = −a_e·h_e by dst and
+        # dn_e = a_e·h_e by neg_dst: 3E rows, summed in one pass.
+        ah = a * h
+        dembs = reduce_unsorted(torch.cat([a * (n - t), -ah, ah]),
+                                torch.cat([src, dst, neg_dst]), ctx.num_nodes)
+        return dembs.to(ctx.dtype), None, None, None, _mask_cotangent(ctx, edge_mask, 4), None
+
+
 def link_prediction_loss(
     embs: torch.Tensor,
     src: torch.Tensor,
@@ -47,7 +115,23 @@ def link_prediction_loss(
     margin: float = 1.0,
     edge_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Margin-ranking loss over (src→dst) positives vs (src→neg_dst) negatives."""
+    """Margin-ranking loss over (src→dst) positives vs (src→neg_dst) negatives.
+
+    The forward gathers ``embs[src]``, ``embs[dst]`` and ``embs[neg_dst]``
+    once each. The backward puts the three cotangent streams, keyed by
+    ``src``, ``dst`` and ``neg_dst``, in one stable sort on their device (no
+    host read) and sums each node's rows with kernel 1 in that order: no
+    scatter, bitwise deterministic, and a node that many rows name, such as
+    node 0 under a group-padded layout's pad rows, costs no more than its
+    rows. DTensors (the sharded step) take PyTorch's index backward, which
+    gives the same gradient up to the order of f32 sums.
+    """
+    if not isinstance(embs, DTensor):
+        count("loss_sorted_uniform", 1)
+        return _LinkPredictionLossUniformSorted.apply(
+            embs, src, dst, neg_dst, _mask_or_ones(edge_mask, src, embs), margin,
+        )
+    count("loss_plain", 1)
     for idx in (src, dst, src, neg_dst):
         count_gather(embs, idx, plain=True)
     pos = score_pairs(embs[src], embs[dst])
@@ -72,6 +156,7 @@ def multi_negative_loss(
     candidates, the weights detached from the graph (self-adversarial
     sampling); T = 0 is the uniform mean.
     """
+    count("loss_plain", 1)
     for idx in (src, dst, src, neg_dst):
         count_gather(embs, idx, plain=True)
     pos = score_pairs(embs[src], embs[dst])  # [B]
@@ -109,23 +194,16 @@ class _LinkPredictionLossSorted(torch.autograd.Function):
         neg_t = pos_t.index_select(0, fwd)
         for table, idx in ((embs, src), (embs, dst), (pos_t, fwd)):
             count_gather(table, idx)
-        hinge = margin - (pos_h * pos_t).sum(-1) + (pos_h * neg_t).sum(-1)
-        denom = edge_mask.sum().clamp(min=1.0)
-        loss = (hinge.clamp(min=0.0) * edge_mask).sum() / denom
-        ctx.save_for_backward(
-            pos_h, pos_t, src_perm, src_sorted, src_splits, dst_perm,
-            dst_sorted, dst_splits, shift, edge_mask, hinge > 0.0, denom,
-        )
-        ctx.num_nodes, ctx.dtype = embs.shape[0], embs.dtype
-        return loss
+        return _hinge_mean(ctx, embs, pos_h, pos_t, neg_t, edge_mask, margin, (
+            pos_h, pos_t, src_perm, src_sorted, src_splits, dst_perm, dst_sorted,
+            dst_splits, shift))
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        (pos_h, pos_t, src_perm, src_sorted, src_splits, dst_perm, dst_sorted,
-         dst_splits, shift, edge_mask, active, denom) = ctx.saved_tensors
+        ((pos_h, pos_t, src_perm, src_sorted, src_splits, dst_perm, dst_sorted,
+          dst_splits, shift), a, edge_mask) = _hinge_weights(ctx, g)
         e, dev = pos_h.shape[0], pos_h.device
-        a = (g / denom * edge_mask * active)[:, None]  # [E, 1]
         fwd, back = _roll_index(e, shift, dev), _roll_index(e, -shift, dev)
         # Stream 1 (src-sorted): dh_e = a_e · (t_{e+k} − t_e).
         t1 = a * (pos_t.index_select(0, fwd) - pos_t)
@@ -141,10 +219,8 @@ class _LinkPredictionLossSorted(torch.autograd.Function):
         dembs = sorted_segment_sum(
             stream_src, src_sorted, n, src_splits
         ) + sorted_segment_sum(stream_dst, dst_sorted, n, dst_splits)
-        # The reference gives edge_mask a ZERO cotangent, though the loss
-        # depends on it (ROADMAP §3): kept as it is, flagged here.
-        dmask = torch.zeros_like(edge_mask) if ctx.needs_input_grad[10] else None
-        return (dembs.to(ctx.dtype),) + (None,) * 9 + (dmask, None)
+        return (dembs.to(ctx.dtype),) + (None,) * 9 + (
+            _mask_cotangent(ctx, edge_mask, 10), None)
 
 
 def link_prediction_loss_sorted(
@@ -171,13 +247,9 @@ def link_prediction_loss_sorted(
     node 0); the positive-side ``edge_mask`` still governs which pairs
     enter the mean.
     """
-    mask = (
-        torch.ones(src.shape, dtype=embs.dtype, device=embs.device)
-        if edge_mask is None else edge_mask
-    )
     return _LinkPredictionLossSorted.apply(
         embs, src, dst,
         sort_plan.src_perm, sort_plan.src_sorted, sort_plan.src_splits,
         sort_plan.dst_perm, sort_plan.dst_sorted, sort_plan.dst_splits,
-        roll_shift, mask, margin,
+        roll_shift, _mask_or_ones(edge_mask, src, embs), margin,
     )

@@ -32,7 +32,9 @@ The port's spans: ``encode`` and its stages ``encode.dedup``,
 ``score`` (``score_all_tails``); ``collective.<op>`` (``parallel/``). Its
 counters: ``to_device_bytes`` (host arrays copied to the model's device),
 ``gather_bytes`` (the least bytes of every row gather and its backward,
-``ops/segment.py``), ``collective_calls``, ``collective_bytes`` and
+``ops/segment.py``), ``loss_sorted_uniform`` and ``loss_plain`` (calls
+of the link-prediction losses by how their backward sums,
+``training/objectives.py``), ``collective_calls``, ``collective_bytes`` and
 ``halo_rows`` (``parallel/``). A span's seconds are the host's: the device
 work it enqueued may run later, which a trace's ``ghf.*`` ranges show.
 

@@ -43,6 +43,11 @@ from graph_hypernetwork_forge_tpu_torch.ops.message_passing import (
     relational_message_passing,
     two_stream_tail,
 )
+from graph_hypernetwork_forge_tpu_torch.ops.scoring import score_pairs
+from graph_hypernetwork_forge_tpu_torch.training.objectives import (
+    link_prediction_loss,
+    margin_ranking_loss,
+)
 from graph_hypernetwork_forge_tpu_torch.training.train import (
     adam,
     create_train_state,
@@ -435,6 +440,46 @@ def test_training_step_on_the_card_matches_the_cpu(dev):
         # Adam's first step is about lr·sign(g); a gradient at rounding
         # noise may take the other sign on the card: at most 2·lr apart.
         torch.testing.assert_close(card[path][0], p_cpu, rtol=0, atol=2 * lr, msg=path)
+
+
+@pytest.mark.parametrize("masked", [True, False])
+def test_uniform_sorted_loss_backward_matches_index_put_and_is_deterministic(dev, masked):
+    # 31,000 rows at node 0 (a group-padded layout's pad rows; masked out
+    # of the loss, or not) before 60,000 uniform rows, at d = 64.
+    n, pad, e, d = 5000, 31_000, 60_000, 64
+    rng = np.random.default_rng(11)
+    src, dst = (np.concatenate([np.zeros(pad), rng.integers(0, n, e)]).astype(np.int32)
+                for _ in range(2))
+    mask = np.ones(pad + e, np.float32)
+    if masked:
+        mask[:pad] = 0.0
+    src_t, dst_t, mask_t = (torch.from_numpy(a).to(dev) for a in (src, dst, mask))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    neg = torch.randint(0, n, (pad + e,), generator=gen, device=dev, dtype=torch.int32)
+    embs = torch.randn((n, d), generator=gen, device=dev)
+
+    def sorted_grad():
+        x = embs.clone().requires_grad_(True)
+        link_prediction_loss(x, src_t, dst_t, neg, edge_mask=mask_t).backward()
+        return x.grad
+
+    kernels.reset_launch_counts()
+    # The streams' sort and bounds stay on the card: no host sync.
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a, b = sorted_grad(), sorted_grad()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    # Each backward: the three streams in one launch.
+    assert csr_segment_sum.launches == 2 and kernels.dual_sorted_segment_sum.launches == 0
+    # PyTorch's index backward (index_put_ with accumulate) of the same loss.
+    y = embs.clone().requires_grad_(True)
+    pos = score_pairs(y[src_t.long()], y[dst_t.long()])
+    margin_ranking_loss(pos, score_pairs(y[src_t.long()], y[neg.long()]), 1.0,
+                        mask_t).backward()
+    assert torch.equal(a, b), "two backwards differ"
+    torch.testing.assert_close(a, y.grad, rtol=1e-5, atol=1e-6 * float(y.grad.abs().max()))
 
 
 def test_hypergnn_on_the_card_matches_the_cpu(dev):
@@ -1143,7 +1188,9 @@ def test_minibatch_step_on_the_card_matches_the_cpu(dev):
         params, _, loss = trainer.device_step(state.params, state.opt_state,
                                               trainer.to_device(batch),
                                               neg_dst=neg.to(device))
-        assert csr_segment_sum.launches == 0  # grouped: no kernel on this path
+        # grouped: no kernel in the model; on the card the loss's backward
+        # launches kernel 1 once (a CPU tensor counts no launch).
+        assert csr_segment_sum.launches == (1 if device.type == "cuda" else 0)
         runs.append((loss.item(), {p: (t.detach().cpu(), t.grad.cpu())
                                    for p, t in named_leaves(params)}))
     (l_card, card), (l_cpu, cpu) = runs

@@ -270,6 +270,23 @@ def test_segment_functions_pass_gradcheck(with_splits):
         assert torch.autograd.gradcheck(fn, (inp,), eps=1e-6, atol=1e-8)
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_reduce_unsorted_sums_like_index_add(dtype):
+    # A long run at row 0 (a group-padded layout's pad rows), repeats, and
+    # the last 5 rows never named (empty segments).
+    rng = np.random.default_rng(14)
+    e, n, d = 300, 30, 5
+    idx = np.concatenate([np.zeros(120), rng.integers(0, n - 5, e - 120)]).astype(np.int32)
+    rng.shuffle(idx)
+    g = torch.from_numpy(rng.standard_normal((e, d))).to(dtype)
+    got = pseg.reduce_unsorted(g, torch.from_numpy(idx), n)
+    want = torch.zeros(n, d, dtype=torch.float64).index_add_(0, torch.from_numpy(idx).long(),
+                                                             g.double())
+    assert got.dtype == dtype and not got[n - 5:].any()
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    torch.testing.assert_close(got.double(), want, rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("with_splits", [False, True])
 def test_edge_transform_function_passes_gradcheck(with_splits):
     rng = np.random.default_rng(13)

@@ -166,9 +166,14 @@ def test_gather_bytes_of_one_training_step(loss):
         loss_bytes = 2 * _gather(n, N, row, 4) + _gather(n, n, row, 8)
         loss_bytes += 2 * _gather(n, n, row, 8) + 2 * _gather(n, n, row, 4)
         neg = torch.tensor(5)
+    elif loss == "uniform":
+        # The rows of src, dst and neg; back, the permute of the three
+        # cotangent streams' 3n rows by their sort (int64 indices).
+        loss_bytes = 3 * _gather(n, N, row, 4) + _gather(3 * n, 3 * n, row, 8)
     else:
         # embs[src] twice, embs[dst], embs[neg]: each forward and backward.
         loss_bytes = 2 * (3 * _gather(n, N, row, 4) + _gather(n * k, N, row, 4))
+    if loss != "roll":
         neg = torch.randint(0, N, (n, k) if k > 1 else (n,), dtype=torch.int32,
                             generator=torch.Generator().manual_seed(2))
     step = _step(graph, feats, neg, "roll" if loss == "roll" else "uniform", k)

@@ -8,6 +8,8 @@ atol 3e-5 after dividing by ``max(1, max|ref|)`` (a gradient sums many
 per-edge terms; tests/test_pallas_kernels.py:447-451 gates the same way).
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,6 +33,7 @@ from graph_hypernetwork_forge_tpu_torch.training.train import (
     make_train_step,
     train,
 )
+from graph_hypernetwork_forge_tpu_torch.utils import profiling
 from graph_hypernetwork_forge_tpu_torch.utils.initializers import (
     named_leaves,
     tree_leaves,
@@ -188,6 +191,110 @@ def test_sorted_loss_passes_gradcheck_and_gives_the_mask_a_zero_cotangent():
     pobj.link_prediction_loss_sorted(x, src, dst, plan, 7, edge_mask=m).backward()
     # Reference behaviour (JAX objectives.py:183), kept and flagged.
     assert m.grad is not None and not m.grad.any()
+
+
+def _uniform_case(seed=0, n=60, e=500, d=16):
+    """A group-padded layout, whose pad rows all point at node 0; a hub,
+    node 5, that a third of the tails name; and uniform negatives with
+    repeats that never draw the last 20 nodes (empty segments)."""
+    rng = np.random.default_rng(seed)
+    ei = np.stack([rng.integers(0, n, e),
+                   np.where(rng.random(e) < 0.3, 5, rng.integers(0, n - 10, e))])
+    texts = [f"rel {i}" for i in range(7)]
+    etexts = [texts[i] for i in rng.integers(0, 7, e)]
+    pg = encode_graph(ei, etexts, n, sort_by_relation=True, group_pad=256)
+    neg = rng.integers(0, n - 20, pg.src.shape[0]).astype(np.int32)
+    embs = rng.standard_normal((n, d)).astype(np.float32)
+    return pg, neg, embs
+
+
+def _plain_loss(embs, src, dst, neg_dst, margin=1.0, edge_mask=None):
+    """The uniform loss as PyTorch's autograd gives it: plain gathers,
+    whose backward is the index backward."""
+    return pobj.margin_ranking_loss(pobj.score_pairs(embs[src], embs[dst]),
+                                    pobj.score_pairs(embs[src], embs[neg_dst]),
+                                    margin, edge_mask)
+
+
+@pytest.mark.parametrize("margin", [1.0, 0.5])
+@pytest.mark.parametrize("with_mask", [True, False])
+def test_uniform_sorted_loss_matches_jax_and_the_plain_loss(with_mask, margin):
+    pg, neg, embs = _uniform_case()
+    pad = pg.edge_mask == 0
+    assert pad.sum() > 1000 and not pg.src[pad].any() and not pg.dst[pad].any()
+    src, dst, tneg = (torch.from_numpy(a) for a in (pg.src, pg.dst, neg))
+    mask = torch.from_numpy(pg.edge_mask) if with_mask else None
+    x = torch.from_numpy(embs).requires_grad_(True)
+    got = pobj.link_prediction_loss(x, src, dst, tneg, margin=margin, edge_mask=mask)
+    got.backward()
+    y = torch.from_numpy(embs).requires_grad_(True)
+    plain = _plain_loss(y, src, dst, tneg, margin=margin, edge_mask=mask)
+    plain.backward()
+    jmask = jnp.asarray(pg.edge_mask) if with_mask else None
+    want, jgrad = jax.value_and_grad(
+        lambda v: jobj.link_prediction_loss(
+            v, jnp.asarray(pg.src), jnp.asarray(pg.dst), jnp.asarray(neg), margin=margin,
+            edge_mask=jmask,
+        )
+    )(jnp.asarray(embs))
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-6)
+    np.testing.assert_allclose(got.item(), plain.item(), rtol=1e-6)
+    assert_scaled_close(x.grad.numpy(), jgrad)
+    assert_scaled_close(x.grad.numpy(), y.grad.numpy())
+
+
+def test_uniform_sorted_loss_passes_gradcheck_and_gives_the_mask_a_zero_cotangent():
+    pg, neg, embs = _uniform_case(seed=2, n=24, e=40, d=3)
+    src, dst, tneg = (torch.from_numpy(a) for a in (pg.src, pg.dst, neg))
+    mask = torch.from_numpy(pg.edge_mask).double()
+    x = torch.from_numpy(embs.astype(np.float64)).requires_grad_(True)
+    assert torch.autograd.gradcheck(
+        lambda v: pobj.link_prediction_loss(v, src, dst, tneg, edge_mask=mask),
+        (x,), eps=1e-6, atol=1e-8,
+    )
+    m = mask.clone().requires_grad_(True)
+    pobj.link_prediction_loss(x, src, dst, tneg, edge_mask=m).backward()
+    assert m.grad is not None and not m.grad.any()
+
+
+def test_uniform_steps_take_the_sorted_loss_and_k_above_one_the_plain(monkeypatch):
+    feats, _, pg = _graph(6)
+    _, pcfg = _configs(16, "pallas")
+    init = phg.init_hypergnn(pcfg, torch.Generator().manual_seed(3))
+    inputs = _port_inputs(feats, pg)
+    plan = pg.sort_plan.to("cpu")
+
+    def run(sort_plan, **kw):
+        state = create_train_state(tree_map(torch.clone, init), adam(1e-2))
+        step = make_train_step(pcfg, **kw)
+        gen = torch.Generator().manual_seed(8)
+        profiling.reset()
+        profiling.record()
+        try:
+            for _ in range(3):
+                step(state.params, state.opt_state, *inputs, gen, sort_plan=sort_plan)
+        finally:
+            profiling.stop()
+        counters = profiling.snapshot()["counters"]
+        profiling.reset()
+        return state.params, {k: counters.get(k, 0) for k in ("loss_sorted_uniform",
+                                                               "loss_plain")}
+
+    sorted_params, counts = run(plan)
+    assert counts == {"loss_sorted_uniform": 3, "loss_plain": 0}
+    # With or without a plan, and with sampled positives: one uniform tail
+    # a positive takes the sorted loss; K > 1 the plain multi-negative one.
+    for plan_or_none, kw, want in ((None, {}, (3, 0)), (plan, dict(num_pos_samples=64), (3, 0)),
+                                   (plan, dict(num_negatives=2), (0, 3))):
+        _, counts = run(plan_or_none, **kw)
+        assert (counts["loss_sorted_uniform"], counts["loss_plain"]) == want, kw
+    # The same steps with PyTorch's index backward in the loss (by module
+    # path: the package's name ``train`` is the function).
+    train_module = importlib.import_module("graph_hypernetwork_forge_tpu_torch.training.train")
+    monkeypatch.setattr(train_module, "link_prediction_loss", _plain_loss)
+    plain_params, _ = run(plan)
+    for a, b in zip(tree_leaves(sorted_params), tree_leaves(plain_params)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------
