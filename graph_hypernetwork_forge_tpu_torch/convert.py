@@ -98,10 +98,13 @@ def train_state_from_jax(
     )
     mu, nu = tree_leaves(params_from_jax(adam.mu)), tree_leaves(params_from_jax(adam.nu))
     count = int(np.asarray(adam.count))
-    leaves = state.opt_state.param_groups[0]["params"]
-    for p, m, v in zip(leaves, mu, nu, strict=True):
+    group = state.opt_state.param_groups[0]
+    # A capturable Adam (training.adam over CUDA leaves) keeps its step
+    # count on the device.
+    step_dev = dev if group.get("capturable") else None
+    for p, m, v in zip(group["params"], mu, nu, strict=True):
         state.opt_state.state[p] = {
-            "step": torch.tensor(float(count)), "exp_avg": m.to(dev),
+            "step": torch.tensor(float(count), device=step_dev), "exp_avg": m.to(dev),
             "exp_avg_sq": v.to(dev),
         }
     state.step = count

@@ -50,8 +50,26 @@ def reset_launch_counts() -> None:
         _common.reset_counts(fn)
 
 
+def launch_counts() -> dict:
+    """A copy of every count :func:`reset_launch_counts` zeroes:
+    ``{wrapper: (launches, launches_by_form)}``."""
+    return {fn: (fn.launches, dict(fn.launches_by_form)) for fn in (*_COUNTED, run_table)}
+
+
+def add_launch_counts(after: dict, before: dict, times: int = 1) -> None:
+    """Add ``times`` × the launches counted from ``before`` to ``after``
+    (two :func:`launch_counts`) to every wrapper's counts: a CUDA graph's
+    replay, which runs no wrapper, counts what its capture counted."""
+    for fn, (n, forms) in after.items():
+        n0, forms0 = before[fn]
+        fn.launches += times * (n - n0)
+        for form, k in forms.items():
+            fn.launches_by_form[form] += times * (k - forms0[form])
+
+
 __all__ = [
     "KERNEL_SOURCES",
+    "add_launch_counts",
     "csr_segment_sum",
     "csr_segment_sum_plain",
     "dual_sorted_segment_sum",
@@ -63,6 +81,7 @@ __all__ = [
     "edge_transform_sorted_combined",
     "edge_transform_sorted_combined_plain",
     "edge_transform_sorted_plain",
+    "launch_counts",
     "reset_launch_counts",
     "run_table",
     "segment_outer",

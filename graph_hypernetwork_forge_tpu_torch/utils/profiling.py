@@ -28,13 +28,16 @@ The port's spans: ``encode`` and its stages ``encode.dedup``,
 (``data/encoding.py``); ``forward.to_device`` (``HyperGNN.forward_encoded``);
 ``forward`` with ``text_encoder``, then ``generator`` and
 ``message_passing`` once a layer (``apply_hypergnn``); ``train_step`` with
-``loss`` (the forward and the loss), ``backward``, ``optimizer``;
+``loss`` (the forward and the loss), ``backward``, ``optimizer``
+(a step replayed from its CUDA graph enters ``train_step`` alone);
 ``score`` (``score_all_tails``); ``collective.<op>`` (``parallel/``). Its
 counters: ``to_device_bytes`` (host arrays copied to the model's device),
 ``gather_bytes`` (the least bytes of every row gather and its backward,
 ``ops/segment.py``), ``loss_sorted_uniform`` and ``loss_plain`` (calls
 of the link-prediction losses by how their backward sums,
-``training/objectives.py``), ``collective_calls``, ``collective_bytes`` and
+``training/objectives.py``), ``train_step_graph_captures``,
+``train_step_graph_replays`` and ``train_step_graph_fallbacks``
+(``training/train.py``), ``collective_calls``, ``collective_bytes`` and
 ``halo_rows`` (``parallel/``). A span's seconds are the host's: the device
 work it enqueued may run later, which a trace's ``ghf.*`` ranges show.
 
@@ -67,12 +70,14 @@ _recording = False
 # name -> [entries, total host nanoseconds]
 _spans: Dict[str, list] = {}
 _counters: Dict[str, int] = {}
+# The counts of the block under tally(), or None outside one.
+_tally = None
 
 
 def enabled() -> bool:
-    """Whether spans and counters record: under :func:`record`, or while
-    ``torch.profiler`` records (a module attribute it sets)."""
-    return _recording or _autograd_profiler._is_profiler_enabled
+    """Whether counters count: under :func:`record` or :func:`tally`, or
+    while ``torch.profiler`` records (a module attribute it sets)."""
+    return _recording or _tally is not None or _autograd_profiler._is_profiler_enabled
 
 
 # What span() returns while recording is off.
@@ -108,17 +113,35 @@ class _Span:
 
 def span(name: str):
     """A context that records one entry of span ``name`` and its host
-    seconds while recording is on; off, the shared no-op context. The
-    check is :func:`enabled`'s, inlined: off, it is the whole cost."""
-    if not (_recording or _autograd_profiler._is_profiler_enabled):
+    seconds while recording is on; off, and under :func:`tally`, the shared
+    no-op context. Off, the inlined check is the whole cost."""
+    if not (_recording or _autograd_profiler._is_profiler_enabled) or _tally is not None:
         return _NO_SPAN
     return _Span(name)
 
 
 def count(name: str, n: int) -> None:
-    """Add ``n`` to counter ``name`` while recording is on."""
-    if _recording or _autograd_profiler._is_profiler_enabled:
+    """Add ``n`` to counter ``name`` while recording is on; under
+    :func:`tally`, to the tally's counts instead."""
+    if _tally is not None:
+        _tally[name] = _tally.get(name, 0) + n
+    elif _recording or _autograd_profiler._is_profiler_enabled:
         _counters[name] = _counters.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def tally() -> Iterator[Dict[str, int]]:
+    """Take every count made inside the block into the dict it yields,
+    whether recording is on or not, and keep them, and the block's spans,
+    out of the registry. For work that is recorded once and run later
+    without its Python, as a CUDA graph's capture: each replay then adds
+    the tally with :func:`count`, so it counts what the work counts."""
+    global _tally
+    outer, _tally = _tally, {}
+    try:
+        yield _tally
+    finally:
+        _tally = outer
 
 
 def record() -> None:
