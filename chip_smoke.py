@@ -288,6 +288,7 @@ from graph_hypernetwork_forge_tpu_torch.utils.initializers import (  # noqa: E40
     tree_map,
 )
 from graph_hypernetwork_forge_tpu_torch.utils.metrics import MetricsLogger  # noqa: E402
+from graph_hypernetwork_forge_tpu_torch.utils import profiling  # noqa: E402
 from graph_hypernetwork_forge_tpu_torch.utils.profiling import PhaseTimer  # noqa: E402
 from graph_hypernetwork_forge_tpu_torch.utils.shapes import pad_bucket_relations  # noqa: E402
 from graph_hypernetwork_forge_tpu_torch.utils.text import tokenize_texts  # noqa: E402
@@ -468,7 +469,7 @@ GROUPED_LAUNCHES = dict({name: 0 for name in STEP_LAUNCHES}, csr_segment_sum=4 *
 GROUPED_TIMED = 3
 
 
-def two_stream_launches_by_form(form: str) -> dict:
+def two_stream_launches_per_form(form: str) -> dict:
     """Launches by form of one two-stream layer, forward and backward,
     counted from the code: kernels 5 and 6 twice each in the layer's form
     (as TWO_STREAM_LAUNCHES); kernel 1 four times, for the tail, dbias and
@@ -489,7 +490,7 @@ def mode_form(mode: dict) -> str:
     return "tf32" if mode.get("precision") == "default" else "f32"
 
 
-def step_launches_by_form(mode: dict) -> dict:
+def step_launches_per_form(mode: dict) -> dict:
     """Launches per training step by form, counted from the code: kernels
     2 and 3 once a layer in the mode's form. Kernel 1 as in STEP_LAUNCHES;
     in speed mode its rows are bf16 in the forward tail, the h[src] and
@@ -578,12 +579,17 @@ def check(ok: bool, msg: str) -> None:
         log(f"FAIL: {msg}")
 
 
-def launch_counts() -> dict:
-    return {name: getattr(kernels, name).launches for name in KERNELS}
+def kernel_launches_per_form(counts: dict) -> dict:
+    """Launches of each kernel by form, as the ``kernel.<name>.<form>``
+    counters of ``counts`` (a ``profiling.tally()``) read."""
+    return {name: {form: counts.get(f"kernel.{name}.{form}", 0) for form in FORMS}
+            for name in KERNELS}
 
 
-def launch_counts_by_form() -> dict:
-    return {name: dict(getattr(kernels, name).launches_by_form) for name in KERNELS}
+def kernel_launches(counts: dict) -> dict:
+    """Launches of each kernel in every form, from ``counts`` as above."""
+    return {name: sum(forms.values())
+            for name, forms in kernel_launches_per_form(counts).items()}
 
 
 def nonzero(by_form: dict) -> dict:
@@ -1522,27 +1528,27 @@ def phase_serving(dev) -> dict:
             etexts + [f"is colleague of, variant {k}"] * 2,
         ))
 
-    kernels.reset_launch_counts()
-    latencies, first = [], None
-    for ei_k, texts_k in requests:
-        t0 = time.perf_counter()
-        graph = model.preprocess(ei_k, texts_k, XL_N)
-        t1 = time.perf_counter()
-        embs = model.forward_encoded(feats, graph)
-        with torch.inference_mode():
-            scores, top = torch.topk(score_all_tails(embs, heads), TOP_K, dim=1)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        check(embs.shape == (XL_N, WIDTH) and bool(torch.isfinite(embs).all()),
-              "serving: embeddings not finite or of wrong shape")
-        check(bool(torch.isfinite(scores).all()) and top.shape == (QUERY_HEADS, TOP_K),
-              "serving: scores not finite or of wrong shape")
-        latencies.append(dict(host_encode_ms=(t1 - t0) * 1e3,
-                              device_ms=(t2 - t1) * 1e3,
-                              total_ms=(t2 - t0) * 1e3))
-        if first is None:
-            first = (graph, embs)
-    launches = launch_counts()
+    with profiling.tally() as counts:
+        latencies, first = [], None
+        for ei_k, texts_k in requests:
+            t0 = time.perf_counter()
+            graph = model.preprocess(ei_k, texts_k, XL_N)
+            t1 = time.perf_counter()
+            embs = model.forward_encoded(feats, graph)
+            with torch.inference_mode():
+                scores, top = torch.topk(score_all_tails(embs, heads), TOP_K, dim=1)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            check(embs.shape == (XL_N, WIDTH) and bool(torch.isfinite(embs).all()),
+                  "serving: embeddings not finite or of wrong shape")
+            check(bool(torch.isfinite(scores).all()) and top.shape == (QUERY_HEADS, TOP_K),
+                  "serving: scores not finite or of wrong shape")
+            latencies.append(dict(host_encode_ms=(t1 - t0) * 1e3,
+                                  device_ms=(t2 - t1) * 1e3,
+                                  total_ms=(t2 - t0) * 1e3))
+            if first is None:
+                first = (graph, embs)
+    launches = kernel_launches(counts)
     for i, lat in enumerate(latencies):
         log(f"serving request {i}: host encode {lat['host_encode_ms']:.1f} ms, "
             f"device {lat['device_ms']:.1f} ms, total {lat['total_ms']:.1f} ms")
@@ -1691,12 +1697,12 @@ def phase_training(dev, width: int = WIDTH, mode: dict | None = None) -> dict:
     warm = run()
     torch.cuda.synchronize()
 
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    losses = [run() for _ in range(TRAIN_STEPS)]
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches, by_form = launch_counts(), launch_counts_by_form()
+    with profiling.tally() as counts:
+        t0 = time.perf_counter()
+        losses = [run() for _ in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches, by_form = kernel_launches(counts), kernel_launches_per_form(counts)
     losses = [warm.item()] + [loss.item() for loss in losses]
     ms_step = seconds / TRAIN_STEPS * 1e3
     edges_s = XL_E * TRAIN_STEPS / seconds
@@ -1705,14 +1711,14 @@ def phase_training(dev, width: int = WIDTH, mode: dict | None = None) -> dict:
     log(f"training {name}: {ms_step:.3f} ms/step, {edges_s:,.0f} edges/s "
         f"({TRAIN_STEPS} steps, {XL_E:,} real edges of {graph.src.shape[0]:,} rows), "
         f"peak memory {peak_gb:.2f} GB")
-    tables = kernels.run_table.launches
+    tables = counts.get("kernel.run_table", 0)
     log(f"training {name} launches over {TRAIN_STEPS} steps: {launches}")
     log(f"training {name} launches by form: {by_form}")
     check(all(np.isfinite(losses)), f"training {name}: a loss is not finite")
     want = {k: v * TRAIN_STEPS for k, v in STEP_LAUNCHES.items()}
     check(launches == want, f"training {name} launch counts {launches} != {want}")
     want = {k: {f: v * TRAIN_STEPS for f, v in forms.items()}
-            for k, forms in step_launches_by_form(mode).items()}
+            for k, forms in step_launches_per_form(mode).items()}
     check(by_form == want, f"training {name} launches by form {by_form} != {want}")
     check(tables == 0, f"training {name}: {tables} run-table launches; the "
           "SortPlan's run tables were not handed down to kernel 3")
@@ -1729,7 +1735,7 @@ def phase_training(dev, width: int = WIDTH, mode: dict | None = None) -> dict:
         f"(profiled device time over unprofiled ms/step)")
     return dict(ms_per_step=ms_step, edges_per_s=edges_s, losses=losses,
                 peak_memory_gb=peak_gb, device_busy_share=busy,
-                launches=launches, launches_by_form=by_form, profile=profile)
+                launches=launches, launches_per_form=by_form, profile=profile)
 
 
 def _leaves(params, grads: bool) -> dict:
@@ -1813,10 +1819,10 @@ def phase_speed_forward(dev) -> dict:
             return apply_hypergnn(train_config(**mode), params, feats, *arrays,
                                   sort_plan=plan)
 
-    kernels.reset_launch_counts()
-    embs = forward(SPEED)
-    torch.cuda.synchronize()
-    by_form = launch_counts_by_form()
+    with profiling.tally() as counts:
+        embs = forward(SPEED)
+        torch.cuda.synchronize()
+    by_form = kernel_launches_per_form(counts)
     ref = forward({})
     rel_err = ((embs - ref).abs().max() / ref.abs().max()).item()
     log(f"speed-mode xl forward: vs f32 rel err {rel_err:.3e} (tol {SPEED_VS_F32_RTOL}) "
@@ -1829,7 +1835,7 @@ def phase_speed_forward(dev) -> dict:
     check(by_form == want, f"speed-mode forward launches {by_form} != {want}")
     profile = profile_device("one more speed-mode xl forward", lambda: forward(SPEED))
     ref_profile = profile_device("one f32 xl forward", lambda: forward({}))
-    return dict(rel_err_vs_f32=rel_err, launches_by_form=by_form, profile=profile,
+    return dict(rel_err_vs_f32=rel_err, launches_per_form=by_form, profile=profile,
                 f32_profile=ref_profile)
 
 
@@ -1936,11 +1942,11 @@ def phase_two_stream(dev, g, d: int) -> dict:
 
     report, f32_ref = {}, None
     for form, mode in (("f32", {}), ("bf16", SPEED), ("tf32", ONE_PASS)):
-        kernels.reset_launch_counts()
-        out, grads = fwd_bwd(two_stream(mode))
-        torch.cuda.synchronize()
-        launches, by_form = launch_counts(), launch_counts_by_form()
-        check(kernels.run_table.launches == 0,
+        with profiling.tally() as counts:
+            out, grads = fwd_bwd(two_stream(mode))
+            torch.cuda.synchronize()
+        launches, by_form = kernel_launches(counts), kernel_launches_per_form(counts)
+        check(counts.get("kernel.run_table", 0) == 0,
               f"two-stream layer d={d} [{form}]: the SortPlan's run tables were not "
               "handed down to kernel 6")
         ref, ref_grads = fwd_bwd(combined(mode))
@@ -1979,14 +1985,14 @@ def phase_two_stream(dev, g, d: int) -> dict:
         profile = profile_device(f"one more xl two-stream layer d={d} [{form}]",
                                  lambda: fwd_bwd(two_stream(mode)), rows=8)
         check(ok, f"two-stream layer d={d} [{form}] disagrees with the cuda backend")
-        want = two_stream_launches_by_form(form)
+        want = two_stream_launches_per_form(form)
         check(by_form == want, f"two-stream layer d={d} [{form}] launches by form "
               f"{nonzero(by_form)} != {nonzero(want)}")
         if form == "f32":
             check(launches == TWO_STREAM_LAUNCHES,
                   f"two-stream layer d={d} launch counts {launches} != {TWO_STREAM_LAUNCHES}")
         report[form] = dict(numbers, ms=ms, cuda_backend_ms=ref_ms, launches=launches,
-                            launches_by_form=by_form, profile=profile)
+                            launches_per_form=by_form, profile=profile)
         del out, grads, ref, ref_grads
     return report
 
@@ -2060,10 +2066,10 @@ def phase_grouped(dev) -> dict:
     grouped = _model_run(cfg, init, feats, sorted_graph, dev)
     padded = _model_run(train_config(), init, feats, padded_graph, dev)
 
-    kernels.reset_launch_counts()
-    got = grouped()
-    torch.cuda.synchronize()
-    launches = launch_counts()
+    with profiling.tally() as counts:
+        got = grouped()
+        torch.cuda.synchronize()
+    launches = kernel_launches(counts)
     err, grad_err = _compare_runs("grouped xl vs the cuda backend", got, padded())
     check(launches == GROUPED_LAUNCHES,
           f"grouped launch counts {launches} != {GROUPED_LAUNCHES}")
@@ -2227,17 +2233,17 @@ def _evaluate(dev, config, params, kg, feats, pairs, label) -> dict:
     node, all edges as the filter."""
     full = _kernel_layout(kg)
     arrays, plan = _on(dev, full)
-    kernels.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with torch.no_grad():
-        embs = apply_hypergnn(config, params, feats, *arrays, sort_plan=plan)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    metrics = evaluate_link_prediction(embs, pairs[0], pairs[1], filter_edges=kg.edge_index,
-                                       chunk_size=EVAL_CHUNK)
-    t2 = time.perf_counter()
-    launches = launch_counts()
+    with profiling.tally() as counts:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            embs = apply_hypergnn(config, params, feats, *arrays, sort_plan=plan)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        metrics = evaluate_link_prediction(embs, pairs[0], pairs[1], filter_edges=kg.edge_index,
+                                           chunk_size=EVAL_CHUNK)
+        t2 = time.perf_counter()
+    launches = kernel_launches(counts)
     check(launches == FORWARD_LAUNCHES,
           f"linkpred {label} forward launches {launches} != {FORWARD_LAUNCHES}")
     check(embs.shape == (kg.num_nodes, WIDTH) and bool(torch.isfinite(embs).all()),
@@ -2337,15 +2343,15 @@ def phase_linkpred(dev) -> dict:
 
     with tempfile.TemporaryDirectory(prefix="ghf_ckpt_") as ckpt_dir:
         state, logger, timer = fresh(), MetricsLogger(), PhaseTimer()
-        kernels.reset_launch_counts()
-        losses = _linkpred_steps(state, feats, arrays, plan, range(LINKPRED_RESUME_AT),
-                                 logger, timer)
-        t0 = time.perf_counter()
-        path = save_checkpoint(ckpt_dir, state.params, state.opt_state, step=state.step)
-        save_return_ms = (time.perf_counter() - t0) * 1e3
-        losses += _linkpred_steps(state, feats, arrays, plan,
-                                  range(LINKPRED_RESUME_AT, LINKPRED_STEPS), logger, timer)
-        launches = launch_counts()
+        with profiling.tally() as counts:
+            losses = _linkpred_steps(state, feats, arrays, plan, range(LINKPRED_RESUME_AT),
+                                     logger, timer)
+            t0 = time.perf_counter()
+            path = save_checkpoint(ckpt_dir, state.params, state.opt_state, step=state.step)
+            save_return_ms = (time.perf_counter() - t0) * 1e3
+            losses += _linkpred_steps(state, feats, arrays, plan,
+                                      range(LINKPRED_RESUME_AT, LINKPRED_STEPS), logger, timer)
+        launches = kernel_launches(counts)
         want = {k: v * LINKPRED_STEPS for k, v in LINKPRED_STEP_LAUNCHES.items()}
         check(launches == want, f"linkpred launches {launches} != {want}")
         check(all(np.isfinite(losses)), "linkpred: a loss is not finite")
@@ -2532,36 +2538,36 @@ def phase_minibatch(dev, mb, graph_s: float) -> dict:
     rng_np, gen = np.random.default_rng(1), torch.Generator(device=dev).manual_seed(2)
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.reset_peak_memory_stats(dev)
-    kernels.reset_launch_counts()
-    steps = []
-    for i in range(1 + MB_TIMED):
-        t0 = time.perf_counter()
-        batch = trainer.sample_batch(rng_np)
-        t1 = time.perf_counter()
-        tensors = trainer.to_device(batch)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        start.record()
-        _, _, loss = trainer.device_step(state.params, state.opt_state, tensors, gen)
-        stop.record()
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        graph = batch[1]
-        steps.append(dict(
-            loss=loss.item(), sample_ms=(t1 - t0) * 1e3, h2d_ms=(t2 - t1) * 1e3,
-            device_ms=start.elapsed_time(stop), step_wall_ms=(t3 - t2) * 1e3,
-            backend=_mb_backend(config, batch),
-            nodes=graph.num_nodes, nodes_padded=batch[0].shape[0],
-            edges=graph.num_edges, edges_padded=graph.src.shape[0],
-            relations=graph.num_relations,
-        ))
-        s = steps[-1]
-        log(f"minibatch step {i}{' (warm-up)' if i == 0 else ''}: loss {s['loss']:.6f}; "
-            f"host sampling {s['sample_ms']:.1f} ms, host-to-device {s['h2d_ms']:.2f} ms, "
-            f"device step {s['device_ms']:.2f} ms (CUDA events; wall {s['step_wall_ms']:.2f}); "
-            f"backend {s['backend']}; nodes {s['nodes']:,} of {s['nodes_padded']:,}, "
-            f"edges {s['edges']:,} of {s['edges_padded']:,}, relations {s['relations']}")
-    launches = launch_counts()
+    with profiling.tally() as counts:
+        steps = []
+        for i in range(1 + MB_TIMED):
+            t0 = time.perf_counter()
+            batch = trainer.sample_batch(rng_np)
+            t1 = time.perf_counter()
+            tensors = trainer.to_device(batch)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            start.record()
+            _, _, loss = trainer.device_step(state.params, state.opt_state, tensors, gen)
+            stop.record()
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            graph = batch[1]
+            steps.append(dict(
+                loss=loss.item(), sample_ms=(t1 - t0) * 1e3, h2d_ms=(t2 - t1) * 1e3,
+                device_ms=start.elapsed_time(stop), step_wall_ms=(t3 - t2) * 1e3,
+                backend=_mb_backend(config, batch),
+                nodes=graph.num_nodes, nodes_padded=batch[0].shape[0],
+                edges=graph.num_edges, edges_padded=graph.src.shape[0],
+                relations=graph.num_relations,
+            ))
+            s = steps[-1]
+            log(f"minibatch step {i}{' (warm-up)' if i == 0 else ''}: loss {s['loss']:.6f}; "
+                f"host sampling {s['sample_ms']:.1f} ms, host-to-device {s['h2d_ms']:.2f} ms, "
+                f"device step {s['device_ms']:.2f} ms (CUDA events; wall {s['step_wall_ms']:.2f}); "
+                f"backend {s['backend']}; nodes {s['nodes']:,} of {s['nodes_padded']:,}, "
+                f"edges {s['edges']:,} of {s['edges_padded']:,}, relations {s['relations']}")
+    launches = kernel_launches(counts)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     timed = steps[1:]
 
@@ -3007,12 +3013,12 @@ def _parallel_composed(dev, mesh, feats_np, g) -> tuple:
             else:
                 res = adam_step_errors(f"{label} vs contrib={COMPOSED_CONTRIBS[0]}",
                                        loss, state.params, *first)
-            kernels.reset_launch_counts()
-            ms = _events_ms(lambda: step(state.params, state.opt_state, *arrays, gen, neg=neg,
-                                         **ckw), COMPOSED_TIMED)
-            launches = launch_counts()
+            with profiling.tally() as counts:
+                ms = _events_ms(lambda: step(state.params, state.opt_state, *arrays, gen, neg=neg,
+                                             **ckw), COMPOSED_TIMED)
+            launches = kernel_launches(counts)
             per_step = {n: c // COMPOSED_TIMED for n, c in launches.items()}
-            tables = kernels.run_table.launches
+            tables = counts.get("kernel.run_table", 0)
             if contrib in ("pallas", "pallas_packed"):
                 log(f"{label}: launches per step {per_step} (expected {COMPOSED_LAUNCHES}), "
                     f"run_table launches {tables}")
@@ -3357,10 +3363,10 @@ def _dist_minibatch_xxl(dev, mesh, mb) -> dict:
         adam(LEARNING_RATE))
     rng_np, gen = np.random.default_rng(1), torch.Generator(device=dev).manual_seed(2)
     torch.cuda.reset_peak_memory_stats(dev)
-    kernels.reset_launch_counts()
-    steps = dist_minibatch_steps("distributed minibatch k=1", trainer, state, rng_np, gen,
-                                 dev, MB_TIMED)
-    launches = launch_counts()
+    with profiling.tally() as counts:
+        steps = dist_minibatch_steps("distributed minibatch k=1", trainer, state, rng_np, gen,
+                                     dev, MB_TIMED)
+    launches = kernel_launches(counts)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     med = medians(steps[1:])
     check(all(np.isfinite(s["loss"]) for s in steps),
@@ -3392,36 +3398,37 @@ def phase_experiments(dev) -> dict:
     zero-shot MRR as readouts, no kernel launch in the models (``grouped``)
     and kernel 1 once a step in the K = 1 losses' backward."""
     t_start = time.perf_counter()
-    kernels.reset_launch_counts()
     out = {}
-    with contextlib.redirect_stdout(sys.stderr):
-        r = train_linkpred.run(train_linkpred.parse_args([
-            "--dataset", "wn18rr-zeroshot", "--scale", str(EXP_SCALE), "--steps", str(EXP_STEPS),
-            "--eval-every", str(EXP_EVAL_EVERY), "--device", str(dev)]))
-    out["train_linkpred"] = dict(
-        steps=r["steps"], ms_per_step=r["train_s"] * 1e3 / r["steps"], eval_s=r["eval_s"],
-        final_loss=r["final_loss"], mrr=r["metrics"]["mrr"],
-        zero_shot_mrr=r["metrics"].get("zero_shot_mrr"))
-    kg = wn18rr_zero_shot_like(seed=0, scale=EXP_SCALE)
-    config = HyperGNNConfig(text_dim=TEXT_DIM, node_feat_dim=kg.node_features.shape[1],
-                            hidden_dim=WIDTH, num_layers=LAYERS, rel_sorted=True)
-    t0 = time.perf_counter()
-    row = sweep_zeroshot.run_one(kg, config, EXP_SWEEP_K, EXP_STEPS, LEARNING_RATE, 0,
-                                 lr_schedule="cosine", eval_every=EXP_EVAL_EVERY, device=dev)
-    out["sweep_zeroshot"] = dict(
-        num_negatives=EXP_SWEEP_K, steps=EXP_STEPS, wall_s=time.perf_counter() - t0,
-        train_s=row["train_s"], ms_per_step=row["train_s"] * 1e3 / EXP_STEPS,
-        final_loss=row["final_loss"], mrr=row["mrr"], zero_shot_mrr=row.get("zero_shot_mrr"),
-        sel_mrr=row.get("sel_mrr"), sel_zero_shot_mrr=row.get("sel_zero_shot_mrr"),
-        best_step=row.get("best_step"))
-    t0 = time.perf_counter()
-    row = parity_zeroshot.run_port(wn18rr_zero_shot_like(seed=0, scale=EXP_PARITY_SCALE),
-                                   EXP_STEPS, LEARNING_RATE, 0, 1, device=dev)
-    out["parity_zeroshot"] = dict(
-        scale=EXP_PARITY_SCALE, steps=EXP_STEPS, wall_s=time.perf_counter() - t0,
-        train_s=row["train_s"], ms_per_step=row["train_s"] * 1e3 / EXP_STEPS,
-        final_loss=row["final_loss"], mrr=row["mrr"], zero_shot_mrr=row.get("zero_shot_mrr"))
-    out["launches"] = launch_counts()
+    with profiling.tally() as counts:
+        with contextlib.redirect_stdout(sys.stderr):
+            r = train_linkpred.run(train_linkpred.parse_args([
+                "--dataset", "wn18rr-zeroshot", "--scale", str(EXP_SCALE),
+                "--steps", str(EXP_STEPS), "--eval-every", str(EXP_EVAL_EVERY),
+                "--device", str(dev)]))
+        out["train_linkpred"] = dict(
+            steps=r["steps"], ms_per_step=r["train_s"] * 1e3 / r["steps"], eval_s=r["eval_s"],
+            final_loss=r["final_loss"], mrr=r["metrics"]["mrr"],
+            zero_shot_mrr=r["metrics"].get("zero_shot_mrr"))
+        kg = wn18rr_zero_shot_like(seed=0, scale=EXP_SCALE)
+        config = HyperGNNConfig(text_dim=TEXT_DIM, node_feat_dim=kg.node_features.shape[1],
+                                hidden_dim=WIDTH, num_layers=LAYERS, rel_sorted=True)
+        t0 = time.perf_counter()
+        row = sweep_zeroshot.run_one(kg, config, EXP_SWEEP_K, EXP_STEPS, LEARNING_RATE, 0,
+                                     lr_schedule="cosine", eval_every=EXP_EVAL_EVERY, device=dev)
+        out["sweep_zeroshot"] = dict(
+            num_negatives=EXP_SWEEP_K, steps=EXP_STEPS, wall_s=time.perf_counter() - t0,
+            train_s=row["train_s"], ms_per_step=row["train_s"] * 1e3 / EXP_STEPS,
+            final_loss=row["final_loss"], mrr=row["mrr"], zero_shot_mrr=row.get("zero_shot_mrr"),
+            sel_mrr=row.get("sel_mrr"), sel_zero_shot_mrr=row.get("sel_zero_shot_mrr"),
+            best_step=row.get("best_step"))
+        t0 = time.perf_counter()
+        row = parity_zeroshot.run_port(wn18rr_zero_shot_like(seed=0, scale=EXP_PARITY_SCALE),
+                                       EXP_STEPS, LEARNING_RATE, 0, 1, device=dev)
+        out["parity_zeroshot"] = dict(
+            scale=EXP_PARITY_SCALE, steps=EXP_STEPS, wall_s=time.perf_counter() - t0,
+            train_s=row["train_s"], ms_per_step=row["train_s"] * 1e3 / EXP_STEPS,
+            final_loss=row["final_loss"], mrr=row["mrr"], zero_shot_mrr=row.get("zero_shot_mrr"))
+    out["launches"] = kernel_launches(counts)
     out["seconds"] = time.perf_counter() - t_start
     for name in ("train_linkpred", "sweep_zeroshot", "parity_zeroshot"):
         e = out[name]
@@ -3503,9 +3510,9 @@ def main() -> int:
 
     def form_launches(name, form):
         if name in ("edge_transform_sorted", "segment_outer"):
-            n = two_stream[64][form]["launches_by_form"][name][form]
+            n = two_stream[64][form]["launches_per_form"][name][form]
             return dict(launches=n, launches_per_two_stream_layer=n)
-        n = step_runs[form]["launches_by_form"][name][form]
+        n = step_runs[form]["launches_per_form"][name][form]
         return dict(launches=n, launches_per_training_step=n // TRAIN_STEPS)
 
     line = {"kernels": [

@@ -6,6 +6,8 @@ import ctypes
 
 import torch
 
+from graph_hypernetwork_forge_tpu_torch.utils import profiling
+
 # The data types the kernels take: float32 and bfloat16, the speed mode's
 # storage type.
 F32_BF16 = (torch.float32, torch.bfloat16)
@@ -18,16 +20,11 @@ F32_BF16 = (torch.float32, torch.bfloat16)
 FORMS = ("f32", "tf32", "bf16", "fast")
 
 
-def reset_counts(fn) -> None:
-    """Zero a wrapper's launch count and its count per form."""
-    fn.launches = 0
-    fn.launches_by_form = dict.fromkeys(FORMS, 0)
-
-
-def count_launch(fn, form: str) -> None:
-    """One launch of ``fn``'s kernel in ``form``."""
-    fn.launches += 1
-    fn.launches_by_form[form] += 1
+def count_launch(kernel: str, form: str | None = None) -> None:
+    """One launch of wrapper ``kernel``'s kernel in ``form``: the counter
+    ``kernel.<kernel>.<form>`` of ``utils/profiling.py`` (``kernel.<kernel>``
+    for a kernel of one form, the run table's), counted while recording."""
+    profiling.count(f"kernel.{kernel}" if form is None else f"kernel.{kernel}.{form}", 1)
 
 
 def tf32_passes(precision) -> int:

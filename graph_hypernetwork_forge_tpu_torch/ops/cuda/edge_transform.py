@@ -182,11 +182,8 @@ def _launch(two: bool, x_src, x_dst, rel_sorted, w_msg, w_self, bias,
     with torch.cuda.device(dev):
         code = launch(*ptrs, *sizes, vec, _common.stream_of(dev))
     _common.raise_on_error(name, code)
-    if two:
-        _common.count_launch(edge_transform_sorted, form)
-        return tuple(outs)
-    _common.count_launch(edge_transform_sorted_combined, form)
-    return outs[0]
+    _common.count_launch(name, form)
+    return tuple(outs) if two else outs[0]
 
 
 class _EdgeTransformSortedCombined(torch.autograd.Function):
@@ -259,9 +256,6 @@ def edge_transform_sorted_combined(
     return _EdgeTransformSortedCombined.apply(
         x_src, x_dst, rel_sorted, w_msg, w_self, bias, rel_splits, precision, runs
     )
-
-
-_common.reset_counts(edge_transform_sorted_combined)
 
 
 class _EdgeTransformSorted(torch.autograd.Function):
@@ -337,9 +331,6 @@ def edge_transform_sorted(
     return _EdgeTransformSorted.apply(
         x_src, x_dst, rel_sorted, w_msg, w_self, bias, precision, rel_splits, runs
     )
-
-
-_common.reset_counts(edge_transform_sorted)
 
 
 def edge_contributions_cuda_sorted(

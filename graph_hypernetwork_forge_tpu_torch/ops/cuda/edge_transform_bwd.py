@@ -119,8 +119,8 @@ def max_runs(num_edges: int, num_rel: int, run_tiles: int) -> int:
 def run_table(rel_sorted: torch.Tensor, num_rel: int, run_tiles: int) -> RunTable:
     """The :class:`RunTable` of ``rel_sorted`` (non-decreasing, on a 256-row
     tile layout) built on its device: one launch of the run-table kernel of
-    ``csrc/edge_transform_bwd.cu`` on a CUDA tensor, counted in
-    ``run_table.launches``; :func:`run_bounds` on a CPU tensor. Kernels 3
+    ``csrc/edge_transform_bwd.cu`` on a CUDA tensor, counted as
+    ``kernel.run_table``; :func:`run_bounds` on a CPU tensor. Kernels 3
     and 6 call it per call (runs of ``RUN_TILES`` tiles) only where no
     SortPlan hands its table down."""
     if rel_sorted.device.type == "cpu":
@@ -135,7 +135,7 @@ def run_table(rel_sorted: torch.Tensor, num_rel: int, run_tiles: int) -> RunTabl
             _common.ptr(rel_sorted), rel_sorted.shape[0], num_rel, run_tiles,
             _common.ptr(t_splits), _common.ptr(r_splits), _common.stream_of(dev))
     _common.raise_on_error("run_table", code)
-    run_table.launches += 1
+    _common.count_launch("run_table")
     return RunTable(t_splits, r_splits, run_tiles)
 
 
@@ -288,9 +288,5 @@ def edge_transform_combined_bwd(
         code = launch(*(_common.ptr(t) for t in data_ptrs), *sizes, vec,
                       _common.stream_of(dev))
     _common.raise_on_error(_NAME, code)
-    _common.count_launch(edge_transform_combined_bwd, form)
+    _common.count_launch(_NAME, form)
     return dx_src, dx_dst, dw[0], dw[1]
-
-
-_common.reset_counts(edge_transform_combined_bwd)
-_common.reset_counts(run_table)

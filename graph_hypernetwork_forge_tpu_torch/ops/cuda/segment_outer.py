@@ -137,8 +137,5 @@ def segment_outer(
             _common.stream_of(dev),
         )
     _common.raise_on_error(_NAME, code)
-    _common.count_launch(segment_outer, form)
+    _common.count_launch(_NAME, form)
     return dw
-
-
-_common.reset_counts(segment_outer)

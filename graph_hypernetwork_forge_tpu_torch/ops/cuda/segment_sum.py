@@ -168,11 +168,9 @@ def csr_segment_sum(
     _check_stream(_NAME, dev, x_sorted, splits, num_segments)
     (out,) = _launch(_NAME, getattr(_lib(), _ENTRY[form]), form, dev,
                      [(x_sorted, splits)], num_segments, int(x_sorted.shape[1]))
-    _common.count_launch(csr_segment_sum, form)
+    _common.count_launch(_NAME, form)
     return out
 
-
-_common.reset_counts(csr_segment_sum)
 
 _DUAL = "dual_sorted_segment_sum"
 
@@ -234,8 +232,5 @@ def dual_sorted_segment_sum(
     out_a, out_b = _launch(_DUAL, getattr(_lib(), _DUAL_ENTRY[form]), form, dev,
                            [(xa_sorted, splits_a), (xb_sorted, splits_b)],
                            num_segments, int(xa_sorted.shape[1]))
-    _common.count_launch(dual_sorted_segment_sum, form)
+    _common.count_launch(_DUAL, form)
     return out_a, out_b
-
-
-_common.reset_counts(dual_sorted_segment_sum)

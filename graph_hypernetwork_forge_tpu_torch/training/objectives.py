@@ -10,15 +10,15 @@ equals the plain mean over real edges). While spans record, each loss adds
 the least bytes of its row gathers, forward and backward, to the
 ``gather_bytes`` counter (``ops/segment.py`` :func:`count_gather`), and one
 to the count of its kind: ``loss_sorted_uniform`` for
-:func:`link_prediction_loss` through its sorted backward, ``loss_plain`` for
-the losses whose gathers PyTorch's index backward sums.
+:func:`link_prediction_loss`, whose backward sums through kernel 1 in
+sorted order, ``loss_plain`` for :func:`multi_negative_loss`, whose
+gathers PyTorch's index backward sums.
 """
 
 from __future__ import annotations
 
 import torch
 from torch.autograd.function import once_differentiable
-from torch.distributed.tensor import DTensor
 
 from graph_hypernetwork_forge_tpu_torch.ops.scoring import (
     score_candidate_sets,
@@ -123,20 +123,13 @@ def link_prediction_loss(
     host read) and sums each node's rows with kernel 1 in that order: no
     scatter, bitwise deterministic, and a node that many rows name, such as
     node 0 under a group-padded layout's pad rows, costs no more than its
-    rows. DTensors (the sharded step) take PyTorch's index backward, which
-    gives the same gradient up to the order of f32 sums.
+    rows. Every caller hands it plain tensors: the sharded step gathers its
+    sharded arrays at its entry.
     """
-    if not isinstance(embs, DTensor):
-        count("loss_sorted_uniform", 1)
-        return _LinkPredictionLossUniformSorted.apply(
-            embs, src, dst, neg_dst, _mask_or_ones(edge_mask, src, embs), margin,
-        )
-    count("loss_plain", 1)
-    for idx in (src, dst, src, neg_dst):
-        count_gather(embs, idx, plain=True)
-    pos = score_pairs(embs[src], embs[dst])
-    neg = score_pairs(embs[src], embs[neg_dst])
-    return margin_ranking_loss(pos, neg, margin=margin, edge_mask=edge_mask)
+    count("loss_sorted_uniform", 1)
+    return _LinkPredictionLossUniformSorted.apply(
+        embs, src, dst, neg_dst, _mask_or_ones(edge_mask, src, embs), margin,
+    )
 
 
 def multi_negative_loss(

@@ -34,7 +34,6 @@ from graph_hypernetwork_forge_tpu_torch.models.hypergnn import (
     HyperGNNConfig,
     apply_hypergnn,
 )
-from graph_hypernetwork_forge_tpu_torch.ops import cuda as kernels
 from graph_hypernetwork_forge_tpu_torch.training.objectives import (
     link_prediction_loss,
     link_prediction_loss_sorted,
@@ -229,7 +228,7 @@ def _graph_key(tensors: list, opt: torch.optim.Optimizer, neg_dst) -> tuple:
 class _Graph:
     """A captured step: its key, the graph, its static negatives and loss,
     the gradients it writes, and what its capture counted (the port's
-    counters, and the kernels' launches as two ``launch_counts``)."""
+    counters, the kernels' launches among them)."""
 
     key: tuple
     graph: Any
@@ -237,7 +236,6 @@ class _Graph:
     loss: torch.Tensor
     grads: list
     counts: dict
-    launches: tuple
 
 
 class _TrainStep:
@@ -296,12 +294,14 @@ class _TrainStep:
 
     def _capture(self, key, args, neg_dst, sort_plan) -> Optional[torch.Tensor]:
         """Capture the call's step and replay it; None where the capture
-        raised (the step then runs eagerly, this call and every later one)."""
+        raised (the step then runs eagerly, this call and every later one).
+        The capture runs under a tally, so what it counts, the kernels'
+        launches among it, stays out of the registry: the replays count it,
+        and a capture that raised counted nothing."""
         opt, dev = args[1], args[2].device
         self.graph = None
         neg = (neg_dst.clone() if isinstance(neg_dst, torch.Tensor)
                else torch.tensor(neg_dst, device=dev))
-        before = kernels.launch_counts()
         # The gradients of the capture are the graph's own, written anew by
         # every replay.
         opt.zero_grad(set_to_none=True)
@@ -310,18 +310,14 @@ class _TrainStep:
             with tally() as counts, torch.cuda.graph(graph, stream=self.stream):
                 loss = self.run(*args, neg, sort_plan)
         except RuntimeError as err:  # CUDA's refusals of work a capture cannot hold
-            kernels.add_launch_counts(kernels.launch_counts(), before, times=-1)
             self.eager = True
             count("train_step_graph_fallbacks", 1)
             warnings.warn(f"the training step could not be captured as a CUDA graph and "
                           f"runs eagerly from now on: {err}", RuntimeWarning, stacklevel=4)
             return None
-        launches = (kernels.launch_counts(), before)
-        # The capture launched nothing: the replays count its launches.
-        kernels.add_launch_counts(*launches, times=-1)
         grads = [(p, p.grad) for g in opt.param_groups for p in g["params"]
                  if p.grad is not None]
-        self.graph = _Graph(key, graph, neg, loss, grads, counts, launches)
+        self.graph = _Graph(key, graph, neg, loss, grads, counts)
         count("train_step_graph_captures", 1)
         return self._replay(None)
 
@@ -337,7 +333,6 @@ class _TrainStep:
         for p, grad in g.grads:
             if p.grad is not grad:
                 p.grad = grad
-        kernels.add_launch_counts(*g.launches)
         count("train_step_graph_replays", 1)
         for name, n in g.counts.items():
             count(name, n)
@@ -387,8 +382,8 @@ def make_train_step(
     the graph's own buffer. The inputs are told apart by the data pointer,
     shape, stride and dtype of every array, parameter leaf and Adam state
     tensor, and by Adam's hyperparameters: a change makes the next calls
-    capture again. A replay adds to the port's counters and to the kernels'
-    launch counts what the captured step counted. A capture that raises
+    capture again. A replay adds to the port's counters, the kernels'
+    launches among them, what the captured step counted. A capture that raises
     warns, counts ``train_step_graph_fallbacks`` and leaves the step eager
     for good; ``train_step_graph_captures`` and ``train_step_graph_replays``
     count the rest. Every other call (the CPU, the sharded step, negatives

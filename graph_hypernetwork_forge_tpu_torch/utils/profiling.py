@@ -38,13 +38,12 @@ of the link-prediction losses by how their backward sums,
 ``training/objectives.py``), ``train_step_graph_captures``,
 ``train_step_graph_replays`` and ``train_step_graph_fallbacks``
 (``training/train.py``), ``collective_calls``, ``collective_bytes`` and
-``halo_rows`` (``parallel/``). A span's seconds are the host's: the device
-work it enqueued may run later, which a trace's ``ghf.*`` ranges show.
-
-The kernel wrappers' launch counters (``ops/cuda/_common.count_launch``)
-are another thing: they count every launch of each kernel, always, so
-tests can check which kernels a path routes to. The counters here count
-work (bytes, calls, rows) and only while recording.
+``halo_rows`` (``parallel/``), and one a launch of a hand-written kernel,
+``kernel.<wrapper>.<form>`` (form as ``ops/cuda/_common.FORMS``) and
+``kernel.run_table`` (``ops/cuda/_common.count_launch``), by which the
+tests check which kernels a path routes to. A span's seconds are the
+host's: the device work it enqueued may run later, which a trace's
+``ghf.*`` ranges show.
 
 **Traces and timers.** :func:`device_trace` records a Chrome trace
 (Perfetto opens it) with ``torch.profiler``, and :class:`PhaseTimer` waits

@@ -70,6 +70,7 @@ from graph_hypernetwork_forge_tpu_torch.parallel.composed_tp import (  # noqa: E
     composed_tp_param_specs,
 )
 from graph_hypernetwork_forge_tpu_torch.parallel.sharding import local_shard  # noqa: E402
+from graph_hypernetwork_forge_tpu_torch.utils import profiling  # noqa: E402
 
 ATOL = 3e-5
 DEFAULT_RANKS = 4
@@ -235,13 +236,13 @@ def _composed(dev, mesh, k, feats_np, g) -> dict:
     state = cs._fresh(init, dev)
     step(state.params, state.opt_state, *arrays, gen, neg=shift, **kw)
     torch.cuda.reset_peak_memory_stats(dev)
-    cs.kernels.reset_launch_counts()
-    ms = cs._events_ms(lambda: step(state.params, state.opt_state, *arrays, gen, neg=shift,
-                                    **kw), cs.COMPOSED_TIMED)
-    launches = {n: c // cs.COMPOSED_TIMED for n, c in cs.launch_counts().items()}
+    with profiling.tally() as counts:
+        ms = cs._events_ms(lambda: step(state.params, state.opt_state, *arrays, gen, neg=shift,
+                                        **kw), cs.COMPOSED_TIMED)
+    launches = {n: c // cs.COMPOSED_TIMED for n, c in cs.kernel_launches(counts).items()}
     res["local_roll"] = dict(ms=ms, launches_per_step=launches,
                              launches_as_counted=launches == cs.COMPOSED_LAUNCHES,
-                             run_table_launches=cs.kernels.run_table.launches,
+                             run_table_launches=counts.get("kernel.run_table", 0),
                              peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
     # Where the step's time goes: its device time against its wall time.
     res["profile"] = cs.profile_device(f"composed k={k} step", lambda: step(
@@ -418,12 +419,12 @@ def _distributed_minibatch(dev, mesh, k) -> dict:
     state = cs._fresh(init, dev)
     rng_np, gen = np.random.default_rng(1), torch.Generator(device=dev).manual_seed(2)
     torch.cuda.reset_peak_memory_stats(dev)
-    cs.kernels.reset_launch_counts()
-    steps = cs.dist_minibatch_steps(f"distributed minibatch k={k} rank {dist.get_rank()}",
-                                    trainer, state, rng_np, gen, dev, cs.MB_TIMED)
+    with profiling.tally() as counts:
+        steps = cs.dist_minibatch_steps(f"distributed minibatch k={k} rank {dist.get_rank()}",
+                                        trainer, state, rng_np, gen, dev, cs.MB_TIMED)
     res.update(cs.medians(steps[1:]), steps=steps, graph_s=graph_s,
                peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
-               launches=cs.launch_counts())
+               launches=cs.kernel_launches(counts))
     # The dense v1's exchanges alone: a layer's all-gather of h and of the
     # three banks' rows.
     npp, u_loc = steps[-1]["nodes_per_shard"], steps[-1]["relations_padded"] // k

@@ -21,9 +21,9 @@ from graph_hypernetwork_forge_tpu.ops import message_passing as jmp
 from graph_hypernetwork_forge_tpu_torch.convert import params_from_jax
 from graph_hypernetwork_forge_tpu_torch.data.encoding import encode_graph
 from graph_hypernetwork_forge_tpu_torch.models import hypergnn as phg
-from graph_hypernetwork_forge_tpu_torch.ops import cuda as kernels
 from graph_hypernetwork_forge_tpu_torch.ops import message_passing as pmp
-from torch_cases import ATOL, assert_scaled_close
+from graph_hypernetwork_forge_tpu_torch.utils import profiling
+from torch_cases import ATOL, assert_scaled_close, kernel_counts
 
 N, U, E, D_IN, D_OUT = 48, 5, 300, 12, 16
 
@@ -114,16 +114,16 @@ def test_backend_matches_jax_values_and_gradients(backend, layout, tail, monkeyp
 
 
 def test_backends_run_no_kernel_off_the_plan_and_agree_with_gather():
-    kernels.reset_launch_counts()
-    _, pg, arrays, mask, r = _case(LAYOUTS["stored-order"], seed=3)
-    ref, ref_grads = _run_port(pg, arrays, mask, r, "gather", False)
-    for backend in ("dense", "grouped", "chunked"):
-        got, grads = _run_port(pg, arrays, mask, r, backend, False)
-        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0, atol=ATOL,
-                                   err_msg=backend)
-        for g, w in zip(grads, ref_grads):
-            assert_scaled_close(g.numpy(), w.numpy(), err_msg=backend)
-    assert kernels.csr_segment_sum.launches == 0
+    with profiling.tally() as counts:
+        _, pg, arrays, mask, r = _case(LAYOUTS["stored-order"], seed=3)
+        ref, ref_grads = _run_port(pg, arrays, mask, r, "gather", False)
+        for backend in ("dense", "grouped", "chunked"):
+            got, grads = _run_port(pg, arrays, mask, r, backend, False)
+            np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0, atol=ATOL,
+                                       err_msg=backend)
+            for g, w in zip(grads, ref_grads):
+                assert_scaled_close(g.numpy(), w.numpy(), err_msg=backend)
+    assert not kernel_counts(counts), counts
 
 
 # ROADMAP §3.1's inputs: (a) N=40, E=200, U=5, d=16 in the stored edge
@@ -159,17 +159,17 @@ def test_pallas_off_the_plan_matches_jax_pallas(n, e, layout):
     jg, pg, arrays, mask, r = _off_plan_case(n, e, layout)
     rel_sorted = layout["sort_by_relation"]
     want, jgrads = _run_jax(jg, arrays, mask, r, "pallas", rel_sorted, n=n)
-    kernels.reset_launch_counts()
-    got, pgrads = _run_port(pg, arrays, mask, r, "pallas", rel_sorted, n=n,
-                            group_padded="group_pad" in layout)
-    assert got.shape == (n, 16)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=ATOL)
-    for name, g, w in zip(("h", "w_msg", "w_self", "bias"), pgrads, jgrads):
-        assert tuple(g.shape) == w.shape, name
-        assert_scaled_close(g.numpy(), w, err_msg=name)
+    with profiling.tally() as counts:
+        got, pgrads = _run_port(pg, arrays, mask, r, "pallas", rel_sorted, n=n,
+                                group_padded="group_pad" in layout)
+        assert got.shape == (n, 16)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=ATOL)
+        for name, g, w in zip(("h", "w_msg", "w_self", "bias"), pgrads, jgrads):
+            assert tuple(g.shape) == w.shape, name
+            assert_scaled_close(g.numpy(), w, err_msg=name)
     # Off the sorted layout pallas is grouped; without a plan on the padded
     # layout it is the transform's plain version and index_add_ reductions.
-    assert kernels.csr_segment_sum.launches == 0
+    assert not kernel_counts(counts), counts
 
 
 def test_pallas_packed_still_refuses_what_jax_refuses():

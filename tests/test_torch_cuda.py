@@ -53,6 +53,7 @@ from graph_hypernetwork_forge_tpu_torch.training.train import (
     create_train_state,
     make_train_step,
 )
+from graph_hypernetwork_forge_tpu_torch.utils import profiling
 from graph_hypernetwork_forge_tpu_torch.utils.initializers import named_leaves, tree_map
 from torch_cases import (
     CSR_CASES,
@@ -60,6 +61,8 @@ from torch_cases import (
     csr_lanes_per_row,
     edge_case,
     emulate_csr_segment_sum,
+    launches,
+    launches_per_form,
     run_case,
     segment_case,
 )
@@ -70,6 +73,17 @@ pytestmark = pytest.mark.cuda
 # order-1 terms. Kernels 3 and 6's dW and the gradients: sums over hundreds
 # of rows, compared after dividing by max(1, max|plain|).
 ATOL = 1e-4
+
+
+@pytest.fixture(autouse=True)
+def recording():
+    """Every test records, so that the kernels' launches count in the
+    registry (``kernel.*``, read with ``launches`` of ``torch_cases``)."""
+    profiling.reset()
+    profiling.record()
+    yield
+    profiling.stop()
+    profiling.reset()
 
 
 @pytest.fixture
@@ -158,10 +172,10 @@ def test_csr_kernel_is_bitwise_its_partition_emulation(dev, name, d, form):
     # the one-element loads, 256 two column windows.
     xt, st, n, splits, widened, lanes = _csr_form_case(name, d, form, dev)
     mode = "fast" if form == "fast" else "exact"
-    kernels.reset_launch_counts()
+    profiling.reset()
     a, b = csr_segment_sum(xt, st, n, mode), csr_segment_sum(xt, st, n, mode)
     torch.cuda.synchronize()
-    assert csr_segment_sum.launches_by_form[form] == 2
+    assert launches(csr_segment_sum, form) == 2
     assert torch.equal(a, b), "two runs differ"
     want, _ = emulate_csr_segment_sum(widened, splits, n, lanes)
     assert torch.equal(a.cpu(), torch.from_numpy(want)), "not the emulation's bits"
@@ -199,10 +213,10 @@ def test_dual_kernel_is_bitwise_two_partition_emulations(dev, name, form):
     splits_b = np.searchsorted(ids, np.arange(n + 1)).astype(np.int32)
     xb = xa.flip(0).contiguous()
     mode = "fast" if form == "fast" else "exact"
-    kernels.reset_launch_counts()
+    profiling.reset()
     got = dual_sorted_segment_sum(xa, xb, n, sa, torch.from_numpy(splits_b).to(dev), mode)
     torch.cuda.synchronize()
-    assert kernels.dual_sorted_segment_sum.launches_by_form[form] == 1
+    assert launches(kernels.dual_sorted_segment_sum, form) == 1
     for out, x, splits in zip(got, (wa, wa[::-1].copy()), (splits_a, splits_b)):
         want, _ = emulate_csr_segment_sum(x, splits, n, lanes)
         assert torch.equal(out.cpu(), torch.from_numpy(want)), "not the emulation's bits"
@@ -225,10 +239,10 @@ def test_csr_kernel_over_a_million_segments_and_ten_rows(dev, form):
         x = x.bfloat16()
     mode = "fast" if form == "fast" else "exact"
     xt, st = x.to(dev), torch.from_numpy(splits).to(dev)
-    kernels.reset_launch_counts()
+    profiling.reset()
     a, b = csr_segment_sum(xt, st, n, mode), csr_segment_sum(xt, st, n, mode)
     torch.cuda.synchronize()
-    assert csr_segment_sum.launches_by_form[form] == 2
+    assert launches(csr_segment_sum, form) == 2
     assert torch.equal(a, b), "two runs differ"
     want = kernels.csr_segment_sum_plain(x, torch.from_numpy(splits), n, mode)
     assert torch.equal(a.cpu(), want), "not the plain version's sums"
@@ -275,14 +289,14 @@ def _close_scaled(got, want, msg):
 def test_edge_transform_bwd_kernel_matches_plain(dev, d, tail_cut):
     xs, xd, rel, wm, ws, _ = (torch.from_numpy(a).to(dev) for a in edge_case(10, d, tail_cut))
     g = torch.randn(xs.shape, generator=torch.Generator().manual_seed(d)).to(dev)
-    kernels.reset_launch_counts()
+    profiling.reset()
     got = edge_transform_combined_bwd(g, xs, xd, rel, wm, ws)
     again = edge_transform_combined_bwd(g, xs, xd, rel, wm, ws)
     torch.cuda.synchronize()
-    assert edge_transform_combined_bwd.launches == 2
+    assert launches(edge_transform_combined_bwd) == 2
     # dW is reduced inside kernel 3; without a plan each call builds its
     # run table in one launch.
-    assert csr_segment_sum.launches == 0 and kernels.run_table.launches == 2
+    assert launches(csr_segment_sum) == 0 and launches("run_table") == 2
     want = edge_transform_combined_bwd_plain(g, xs, xd, rel, wm, ws)
     for name, a, b, w in zip(("dx_src", "dx_dst", "dW_msg", "dW_self"), got, again, want):
         assert torch.equal(a, b), f"{name}: two runs differ"
@@ -364,12 +378,12 @@ def test_two_output_kernels_over_runs_of_tiles(dev, d_in, d_out, tail_cut):
     xs, xd, rel, wm, ws, b = (
         torch.from_numpy(a).to(dev) for a in run_case(23, d_in, d_out, tail_cut))
     g = torch.randn((xs.shape[0], d_out), generator=torch.Generator().manual_seed(6)).to(dev)
-    kernels.reset_launch_counts()
+    profiling.reset()
     outs = kernels.edge_transform_sorted(xs, xd, rel, wm, ws, b)
     got, again = segment_outer(xs, g, rel, 8), segment_outer(xs, g, rel, 8)
     torch.cuda.synchronize()
-    assert kernels.edge_transform_sorted.launches == 1
-    assert segment_outer.launches == 2 and csr_segment_sum.launches == 0
+    assert launches(kernels.edge_transform_sorted) == 1
+    assert launches(segment_outer) == 2 and launches(csr_segment_sum) == 0
     for name, a, w in zip(("msg", "selfc"), outs,
                           kernels.edge_transform_sorted_plain(xs, xd, rel, wm, ws, b)):
         torch.testing.assert_close(a.cpu(), w.cpu(), rtol=0, atol=ATOL, msg=name)
@@ -388,13 +402,13 @@ def test_edge_transform_kernels_over_runs_of_tiles(dev, d_in, d_out, tail_cut):
     xs, xd, rel, wm, ws, b = (
         torch.from_numpy(a).to(dev) for a in run_case(18, d_in, d_out, tail_cut))
     g = torch.randn((xs.shape[0], d_out), generator=torch.Generator().manual_seed(4)).to(dev)
-    kernels.reset_launch_counts()
+    profiling.reset()
     out = edge_transform_sorted_combined(xs, xd, rel, wm, ws, b)
     got = edge_transform_combined_bwd(g, xs, xd, rel, wm, ws)
     again = edge_transform_combined_bwd(g, xs, xd, rel, wm, ws)
     torch.cuda.synchronize()
-    assert edge_transform_sorted_combined.launches == 1
-    assert edge_transform_combined_bwd.launches == 2 and csr_segment_sum.launches == 0
+    assert launches(edge_transform_sorted_combined) == 1
+    assert launches(edge_transform_combined_bwd) == 2 and launches(csr_segment_sum) == 0
     torch.testing.assert_close(
         out.cpu(), edge_transform_sorted_combined_plain(xs, xd, rel, wm, ws, b).cpu(),
         rtol=0, atol=ATOL)
@@ -417,7 +431,7 @@ def test_training_step_on_the_card_matches_the_cpu(dev):
         state = create_train_state(tree_map(lambda t: t.to(device), init), adam(lr))
         feats = torch.as_tensor(kg.node_features, dtype=torch.float32, device=device)
         arrays = [torch.as_tensor(a, device=device) for a in graph.arrays]
-        kernels.reset_launch_counts()
+        profiling.reset()
         params, _, loss = make_train_step(cfg, neg_mode="roll")(
             state.params, state.opt_state, feats, *arrays,
             torch.Generator(device=device), neg_dst=3,
@@ -426,11 +440,11 @@ def test_training_step_on_the_card_matches_the_cpu(dev):
             # One step at 2 layers: kernel 1 in 2 forward tails, per layer 2
             # gather cotangents + dbias, and 2 in the loss; kernel 3 reduces
             # its dW itself, over the plan's run table.
-            launches = (csr_segment_sum.launches,
-                        edge_transform_sorted_combined.launches,
-                        edge_transform_combined_bwd.launches,
-                        kernels.run_table.launches)
-            assert launches == (10, 2, 2, 0)
+            got = (launches(csr_segment_sum),
+                   launches(edge_transform_sorted_combined),
+                   launches(edge_transform_combined_bwd),
+                   launches("run_table"))
+            assert got == (10, 2, 2, 0)
         runs.append((loss.item(), {p: (t.detach().cpu(), t.grad.cpu())
                                    for p, t in named_leaves(params)}))
     (l_card, card), (l_cpu, cpu) = runs
@@ -463,7 +477,7 @@ def test_uniform_sorted_loss_backward_matches_index_put_and_is_deterministic(dev
         link_prediction_loss(x, src_t, dst_t, neg, edge_mask=mask_t).backward()
         return x.grad
 
-    kernels.reset_launch_counts()
+    profiling.reset()
     # The streams' sort and bounds stay on the card: no host sync.
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -472,7 +486,7 @@ def test_uniform_sorted_loss_backward_matches_index_put_and_is_deterministic(dev
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     # Each backward: the three streams in one launch.
-    assert csr_segment_sum.launches == 2 and kernels.dual_sorted_segment_sum.launches == 0
+    assert launches(csr_segment_sum) == 2 and launches(kernels.dual_sorted_segment_sum) == 0
     # PyTorch's index backward (index_put_ with accumulate) of the same loss.
     y = embs.clone().requires_grad_(True)
     pos = score_pairs(y[src_t.long()], y[dst_t.long()])
@@ -484,11 +498,11 @@ def test_uniform_sorted_loss_backward_matches_index_put_and_is_deterministic(dev
 
 def test_hypergnn_on_the_card_matches_the_cpu(dev):
     kg = ToyKnowledgeGraph()
-    kernels.reset_launch_counts()
+    profiling.reset()
     on_card = HyperGNN(64, 16, 32, seed=3, device=None).eval()
     assert on_card.device.type == "cuda"
     got = on_card(kg.node_features, kg.edge_index, kg.edge_texts)
-    assert csr_segment_sum.launches == edge_transform_sorted_combined.launches == 2
+    assert launches(csr_segment_sum) == launches(edge_transform_sorted_combined) == 2
     want = HyperGNN(64, 16, 32, seed=3, device="cpu").eval()(
         kg.node_features, kg.edge_index, kg.edge_texts
     )
@@ -507,14 +521,14 @@ def test_edge_transform_sorted_kernel_and_its_backward_match_plain(dev, d_in, d_
     for device in (dev, torch.device("cpu")):
         xs, xd, rel, wm, ws, b = (torch.from_numpy(a).to(device) for a in arrays)
         leaves = [t.requires_grad_(True) for t in (xs, xd, wm, ws, b)]
-        kernels.reset_launch_counts()
+        profiling.reset()
         outs = kernels.edge_transform_sorted(xs, xd, rel, wm, ws, b)
         torch.autograd.backward(outs, [t.to(device) for t in g])
         if device.type == "cuda":
             torch.cuda.synchronize()
-            assert kernels.edge_transform_sorted.launches == 2
-            assert segment_outer.launches == 2
-            assert csr_segment_sum.launches == 1
+            assert launches(kernels.edge_transform_sorted) == 2
+            assert launches(segment_outer) == 2
+            assert launches(csr_segment_sum) == 1
         runs.append(([o.detach().cpu() for o in outs], [t.grad.cpu() for t in leaves]))
     (outs, grads), (outs_cpu, grads_cpu) = runs
     for name, a, w in zip(("msg", "selfc"), outs, outs_cpu):
@@ -528,10 +542,10 @@ def test_edge_transform_sorted_kernel_and_its_backward_match_plain(dev, d_in, d_
 def test_segment_outer_kernel_matches_plain(dev, d_in, d_out, tail_cut):
     xs, _, rel, *_ = (torch.from_numpy(a).to(dev) for a in edge_case(12, d_in, tail_cut))
     g = torch.randn((xs.shape[0], d_out), generator=torch.Generator().manual_seed(2)).to(dev)
-    kernels.reset_launch_counts()
+    profiling.reset()
     got, again = segment_outer(xs, g, rel, 8), segment_outer(xs, g, rel, 8)
     torch.cuda.synchronize()
-    assert segment_outer.launches == 2 and csr_segment_sum.launches == 0
+    assert launches(segment_outer) == 2 and launches(csr_segment_sum) == 0
     assert torch.equal(got, again), "two runs differ"
     assert not got[6:].any(), "relations without rows must be exactly zero"
     _close_scaled(got.cpu(), segment_outer_plain(xs, g, rel, 8).cpu(), "dW")
@@ -544,12 +558,12 @@ def test_dual_kernel_matches_plain_and_is_deterministic(dev, d, skew):
     xa, _, sa = segment_case(13, 5000, 300, d, skew)
     xb, _, sb = segment_case(14, 5000, 300, d, not skew)
     t = [torch.from_numpy(a).to(dev) for a in (xa, xb, sa, sb)]
-    kernels.reset_launch_counts()
+    profiling.reset()
     got = dual_sorted_segment_sum(t[0], t[1], 300, t[2], t[3])
     again = dual_sorted_segment_sum(t[0], t[1], 300, t[2], t[3])
     torch.cuda.synchronize()
-    assert kernels.dual_sorted_segment_sum.launches == 2
-    assert csr_segment_sum.launches == 0
+    assert launches(kernels.dual_sorted_segment_sum) == 2
+    assert launches(csr_segment_sum) == 0
     for a, b, x, splits in zip(got, again, (xa, xb), (sa, sb)):
         assert torch.equal(a, b), "two runs differ"
         _check_sums(a, x, splits, 300)
@@ -653,10 +667,10 @@ def test_csr_kernel_bf16_form_matches_plain_and_is_deterministic(dev, d, skew):
     x, _, splits = segment_case(31, 5000, 300, d, skew)
     xt = torch.from_numpy(x).to(dev).bfloat16()
     st = torch.from_numpy(splits).to(dev)
-    kernels.reset_launch_counts()
+    profiling.reset()
     a, b = csr_segment_sum(xt, st, 300), csr_segment_sum(xt, st, 300)
     torch.cuda.synchronize()
-    assert csr_segment_sum.launches_by_form == {"f32": 0, "tf32": 0, "bf16": 2, "fast": 0}
+    assert launches_per_form(csr_segment_sum) == {"f32": 0, "tf32": 0, "bf16": 2, "fast": 0}
     assert a.dtype == torch.float32 and torch.equal(a, b), "two runs differ"
     _check_sums(a, xt.float().cpu().numpy(), splits, 300)
     assert not a[-3:].any()
@@ -671,10 +685,10 @@ def test_edge_transform_kernel_bf16_form_matches_plain(dev, d_in, d_out, tail_cu
     # 36 -> 30 takes the 2-byte copies; the rest the 16-byte ones.
     args = [torch.from_numpy(a).to(dev) for a in run_case(24, d_in, d_out, tail_cut)]
     args = [a.bfloat16() if a.is_floating_point() else a for a in args]
-    kernels.reset_launch_counts()
+    profiling.reset()
     got = edge_transform_sorted_combined(*args)
     torch.cuda.synchronize()
-    assert edge_transform_sorted_combined.launches_by_form["bf16"] == 1
+    assert launches(edge_transform_sorted_combined, "bf16") == 1
     assert got.dtype == torch.bfloat16
     _within_ulp(got.cpu(), edge_transform_sorted_combined_plain(*args).cpu(), "out")
 
@@ -687,12 +701,12 @@ def test_edge_transform_bwd_kernel_bf16_form_matches_plain(dev, d_in, d_out, tai
     g = torch.randn((xs.shape[0], d_out), generator=torch.Generator().manual_seed(7))
     args = [t.to(dev).bfloat16() if t.is_floating_point() else t
             for t in (g, xs, xd, rel, wm, ws)]
-    kernels.reset_launch_counts()
+    profiling.reset()
     got = edge_transform_combined_bwd(*args)
     again = edge_transform_combined_bwd(*args)
     torch.cuda.synchronize()
-    assert edge_transform_combined_bwd.launches_by_form["bf16"] == 2
-    assert csr_segment_sum.launches == 0  # dW is reduced inside kernel 3
+    assert launches(edge_transform_combined_bwd, "bf16") == 2
+    assert launches(csr_segment_sum) == 0  # dW is reduced inside kernel 3
     want = edge_transform_combined_bwd_plain(*args)
     for name, a, b, w in zip(("dx_src", "dx_dst", "dW_msg", "dW_self"), got, again, want):
         assert torch.equal(a, b), f"{name}: two runs differ"
@@ -719,10 +733,10 @@ def test_bf16_forms_refuse_mixed_dtypes_and_kernel_5(dev):
     with pytest.raises(TypeError, match="dtype"):
         dual_sorted_segment_sum(x.bfloat16(), x, 2, splits, splits)
     bf16 = [a.bfloat16() if a.is_floating_point() else a for a in args]
-    kernels.reset_launch_counts()
+    profiling.reset()
     msg, selfc = kernels.edge_transform_sorted(*bf16)
     assert msg.dtype == selfc.dtype == torch.bfloat16
-    assert kernels.edge_transform_sorted.launches_by_form["bf16"] == 1
+    assert launches(kernels.edge_transform_sorted, "bf16") == 1
 
 
 @pytest.mark.parametrize("d_in,d_out", [(64, 64), (128, 128), (40, 72)])
@@ -732,15 +746,15 @@ def test_one_tf32_pass_modes_are_bf16_class(dev, d_in, d_out):
     xs, xd, rel, wm, ws, b = (torch.from_numpy(a).to(dev)
                               for a in run_case(27, d_in, d_out, 100))
     g = torch.randn((xs.shape[0], d_out), generator=torch.Generator().manual_seed(8)).to(dev)
-    kernels.reset_launch_counts()
+    profiling.reset()
     [(err2, _)] = _errors_against_float64(
         lambda *a: edge_transform_sorted_combined(*a, precision="default"),
         edge_transform_sorted_combined_plain, (xs, xd, rel, wm, ws, b), scaled=(0,))
     errs3 = _errors_against_float64(
         lambda *a: edge_transform_combined_bwd(*a, precision="default"),
         edge_transform_combined_bwd_plain, (g, xs, xd, rel, wm, ws), scaled=(0, 1, 2, 3))
-    assert edge_transform_sorted_combined.launches_by_form["tf32"] == 1
-    assert edge_transform_combined_bwd.launches_by_form["tf32"] == 1
+    assert launches(edge_transform_sorted_combined, "tf32") == 1
+    assert launches(edge_transform_combined_bwd, "tf32") == 1
     assert err2 < ONE_PASS_SCALED, err2
     for name, (err, _) in zip(("dx_src", "dx_dst", "dW_msg", "dW_self"), errs3):
         assert err < ONE_PASS_SCALED, (name, err)
@@ -760,7 +774,7 @@ def test_speed_mode_training_step_on_the_card_matches_the_cpu(dev, mode):
         state = create_train_state(tree_map(lambda t: t.to(device), init), adam(1e-3))
         feats = torch.as_tensor(kg.node_features, dtype=torch.float32, device=device)
         arrays = [torch.as_tensor(a, device=device) for a in graph.arrays]
-        kernels.reset_launch_counts()
+        profiling.reset()
         params, _, loss = make_train_step(cfg, neg_mode="roll")(
             state.params, state.opt_state, feats, *arrays,
             torch.Generator(device=device), neg_dst=3,
@@ -772,9 +786,9 @@ def test_speed_mode_training_step_on_the_card_matches_the_cpu(dev, mode):
             k1 = {"f32": 10, "tf32": 0, "bf16": 0, "fast": 0}
             if form == "bf16":
                 k1 = {"f32": 2, "tf32": 0, "bf16": 8, "fast": 0}
-            assert csr_segment_sum.launches_by_form == k1
+            assert launches_per_form(csr_segment_sum) == k1
             for fn in (edge_transform_sorted_combined, edge_transform_combined_bwd):
-                assert fn.launches_by_form[form] == fn.launches == 2
+                assert launches(fn, form) == launches(fn) == 2
         assert loss.dtype == torch.float32
         runs.append((loss.item(), {p: t.grad.detach().cpu().double().flatten()
                                    for p, t in named_leaves(params)}))
@@ -801,10 +815,10 @@ def test_edge_transform_sorted_kernel_bf16_form_matches_plain(dev, d_in, d_out, 
     # backward's dx runs it transposed); 36 -> 30 takes the 2-byte copies.
     args = [torch.from_numpy(a).to(dev) for a in run_case(28, d_in, d_out, tail_cut)]
     args = [a.bfloat16() if a.is_floating_point() else a for a in args]
-    kernels.reset_launch_counts()
+    profiling.reset()
     got = kernels.edge_transform_sorted(*args)
     torch.cuda.synchronize()
-    assert kernels.edge_transform_sorted.launches_by_form["bf16"] == 1
+    assert launches(kernels.edge_transform_sorted, "bf16") == 1
     for name, a, w in zip(("msg", "selfc"), got, kernels.edge_transform_sorted_plain(*args)):
         assert a.dtype == torch.bfloat16, name
         _within_ulp(a.cpu(), w.cpu(), name)
@@ -830,10 +844,10 @@ def test_bf16_transform_body_stages_every_slab_width(dev, d_out, tail_cut, kerne
     fn, plain = ((edge_transform_sorted_combined, edge_transform_sorted_combined_plain)
                  if kernel == "combined"
                  else (kernels.edge_transform_sorted, kernels.edge_transform_sorted_plain))
-    kernels.reset_launch_counts()
+    profiling.reset()
     got, again = fn(*args), fn(*args)
     torch.cuda.synchronize()
-    assert fn.launches_by_form["bf16"] == 2
+    assert launches(fn, "bf16") == 2
     got, again, want = ((t,) if kernel == "combined" else t
                         for t in (got, again, plain(*args)))
     for a, a2, w in zip(got, again, want):
@@ -850,11 +864,11 @@ def test_segment_outer_kernel_bf16_form_matches_plain(dev, d_in, d_out, tail_cut
     xs, _, rel, *_ = (torch.from_numpy(a).to(dev) for a in run_case(29, d_in, d_out, tail_cut))
     g = torch.randn((xs.shape[0], d_out), generator=torch.Generator().manual_seed(9))
     xs, g = xs.bfloat16(), g.to(dev).bfloat16()
-    kernels.reset_launch_counts()
+    profiling.reset()
     got, again = segment_outer(xs, g, rel, 8), segment_outer(xs, g, rel, 8)
     torch.cuda.synchronize()
-    assert segment_outer.launches_by_form["bf16"] == 2
-    assert csr_segment_sum.launches == 0  # dW is reduced inside kernel 6
+    assert launches(segment_outer, "bf16") == 2
+    assert launches(csr_segment_sum) == 0  # dW is reduced inside kernel 6
     assert got.dtype == torch.float32 and torch.equal(got, again), "two runs differ"
     assert not got[[4, 6, 7]].any(), "relations without rows must be exactly zero"
     _close_scaled(got.cpu(), segment_outer_plain(xs, g, rel, 8).cpu(), "dW")
@@ -867,15 +881,15 @@ def test_two_stream_one_tf32_pass_modes_are_bf16_class(dev, d_in, d_out):
     xs, xd, rel, wm, ws, b = (torch.from_numpy(a).to(dev)
                               for a in run_case(30, d_in, d_out, 100))
     g = torch.randn((xs.shape[0], d_out), generator=torch.Generator().manual_seed(10)).to(dev)
-    kernels.reset_launch_counts()
+    profiling.reset()
     errs5 = _errors_against_float64(
         lambda *a: kernels.edge_transform_sorted(*a, precision="default"),
         kernels.edge_transform_sorted_plain, (xs, xd, rel, wm, ws, b), scaled=(0, 1))
     [(err6, _)] = _errors_against_float64(
         lambda *a: segment_outer(*a, precision="default"),
         segment_outer_plain, (xs, g, rel, 8), scaled=(0,))
-    assert kernels.edge_transform_sorted.launches_by_form["tf32"] == 1
-    assert segment_outer.launches_by_form["tf32"] == 1
+    assert launches(kernels.edge_transform_sorted, "tf32") == 1
+    assert launches(segment_outer, "tf32") == 1
     for name, err in (("msg", errs5[0][0]), ("selfc", errs5[1][0]), ("dW", err6)):
         assert 1e-6 < err < ONE_PASS_SCALED, (name, err)  # one pass, bf16-class
 
@@ -892,7 +906,7 @@ def test_segment_sum_kernel_forms_match_plain_and_are_deterministic(dev, kernel,
     t = [torch.from_numpy(a).to(dev) for a in (xa, xb, sa, sb)]
     if form == "bf16":
         t[:2] = [a.bfloat16() for a in t[:2]]
-    kernels.reset_launch_counts()
+    profiling.reset()
     if kernel == "K1":
         got, again = [csr_segment_sum(t[0], t[2], 300, mode=mode) for _ in range(2)]
         got, again = [got], [again]
@@ -901,7 +915,7 @@ def test_segment_sum_kernel_forms_match_plain_and_are_deterministic(dev, kernel,
         again = dual_sorted_segment_sum(*t[:2], 300, *t[2:], mode=mode)
     torch.cuda.synchronize()
     fn = csr_segment_sum if kernel == "K1" else dual_sorted_segment_sum
-    assert fn.launches_by_form[form] == fn.launches == 2
+    assert launches(fn, form) == launches(fn) == 2
     for a, b, x, splits in zip(got, again, (xa, xb), (sa, sb)):
         assert a.dtype == torch.float32 and torch.equal(a, b), "two runs differ"
         _check_sums(a, torch.from_numpy(x).bfloat16().float().numpy(), splits, 300)
@@ -919,7 +933,7 @@ def test_two_stream_layer_forms_on_the_card_match_the_cuda_backend(dev, mode):
     runs = []
     for two_stream in (True, False):
         leaves, (src, dst, rel, mask), plan, r = _toy_layer_inputs(dev, _PADDED)
-        kernels.reset_launch_counts()
+        profiling.reset()
         if two_stream:
             h, wm, ws, b = (t.bfloat16() for t in leaves) if speed else leaves
             msg, selfc = kernels.edge_contributions_cuda_sorted(
@@ -936,13 +950,13 @@ def test_two_stream_layer_forms_on_the_card_match_the_cuda_backend(dev, mode):
         torch.cuda.synchronize()
         if two_stream:
             form = "bf16" if speed else "tf32"
-            assert kernels.edge_transform_sorted.launches_by_form[form] == 2
-            assert segment_outer.launches_by_form[form] == 2
+            assert launches(kernels.edge_transform_sorted, form) == 2
+            assert launches(segment_outer, form) == 2
             # Kernel 1: the tail, dbias and the two gather cotangents over
             # the streams' rows; kernel 6 reduces its dW itself.
             k1 = {"f32": 0, "tf32": 0, "bf16": 4, "fast": 0} if speed else \
                 {"f32": 4, "tf32": 0, "bf16": 0, "fast": 0}
-            assert csr_segment_sum.launches_by_form == k1
+            assert launches_per_form(csr_segment_sum) == k1
             assert out.dtype == torch.float32
         runs.append((out.detach().cpu(), [t.grad.cpu() for t in leaves]))
     (out, grads), (ref, ref_grads) = runs
@@ -977,11 +991,11 @@ def test_edge_transform_bwd_kernel_bf16_form_at_any_d_out(dev, d_in, d_out, tail
     g = torch.randn((xs.shape[0], d_out), generator=torch.Generator().manual_seed(11))
     args = [t.to(dev).bfloat16() if t.is_floating_point() else t
             for t in (g, xs, xd, rel, wm, ws)]
-    kernels.reset_launch_counts()
+    profiling.reset()
     got = edge_transform_combined_bwd(*args)
     again = edge_transform_combined_bwd(*args)
     torch.cuda.synchronize()
-    assert edge_transform_combined_bwd.launches_by_form["bf16"] == 2
+    assert launches(edge_transform_combined_bwd, "bf16") == 2
     want = edge_transform_combined_bwd_plain(*args)
     for name, a, b, w in zip(("dx_src", "dx_dst", "dW_msg", "dW_self"), got, again, want):
         assert torch.equal(a, b), f"{name}: two runs differ"
@@ -1038,14 +1052,14 @@ def test_kernels_3_and_6_over_more_than_32_runs_in_every_form(dev, form, d):
     # run order by the last arriver; 3 calls bitwise equal; relations
     # without rows exactly 0; single-run relations written directly.
     (xs, xd, rel, wm, ws, g), precision = _form_args(_long_run_case(32, d, d), form, dev)
-    kernels.reset_launch_counts()
+    profiling.reset()
     k3 = [edge_transform_combined_bwd(g, xs, xd, rel, wm, ws, precision=precision)
           for _ in range(3)]
     k6 = [segment_outer(xs, g, rel, 7, precision=precision) for _ in range(3)]
     torch.cuda.synchronize()
-    assert edge_transform_combined_bwd.launches_by_form[form] == 3
-    assert segment_outer.launches_by_form[form] == 3
-    assert csr_segment_sum.launches == 0
+    assert launches(edge_transform_combined_bwd, form) == 3
+    assert launches(segment_outer, form) == 3
+    assert launches(csr_segment_sum) == 0
     for outs in k3[1:]:
         assert all(torch.equal(a, b) for a, b in zip(k3[0], outs)), "calls differ"
     for out in k6[1:]:
@@ -1112,7 +1126,7 @@ def test_run_tables_on_the_card_equal_run_bounds(dev):
     many = np.repeat(many, GROUP_PAD)
     layouts = [(graph.rel_ids, u_pad), (run_case(0, 4, 4, 0)[2], 8),
                (run_case(0, 4, 4, 100)[2], 8), (many[:-37], 3001)]
-    kernels.reset_launch_counts()
+    profiling.reset()
     for rel_np, u in layouts:
         rel = torch.as_tensor(rel_np, device=dev)
         for run_tiles in (1, 2, 4, 7):
@@ -1121,7 +1135,7 @@ def test_run_tables_on_the_card_equal_run_bounds(dev):
             torch.cuda.synchronize()
             assert torch.equal(got.tile_splits, want[0]), (u, run_tiles)
             assert torch.equal(got.run_splits, want[1]), (u, run_tiles)
-    assert kernels.run_table.launches == 4 * len(layouts)
+    assert launches("run_table") == 4 * len(layouts)
 
 
 def test_no_run_table_launch_where_a_sort_plan_is_given(dev):
@@ -1129,7 +1143,7 @@ def test_no_run_table_launch_where_a_sort_plan_is_given(dev):
     # tables to kernels 3 and 6: no per-call launch builds one.
     leaves, (src, dst, rel, mask), plan, r = _toy_layer_inputs(dev, _PADDED)
     for two_stream in (False, True):
-        kernels.reset_launch_counts()
+        profiling.reset()
         if two_stream:
             msg, selfc = kernels.edge_contributions_cuda_sorted(
                 leaves[0], src, dst, rel, *leaves[1:], sort_plan=plan)
@@ -1141,9 +1155,9 @@ def test_no_run_table_launch_where_a_sort_plan_is_given(dev):
                 rel_sorted=True, group_padded=True, sort_plan=plan)
         (out * r).sum().backward()
         torch.cuda.synchronize()
-        assert kernels.run_table.launches == 0
-        assert (segment_outer.launches == 2 if two_stream
-                else edge_transform_combined_bwd.launches == 1)
+        assert launches("run_table") == 0
+        assert (launches(segment_outer) == 2 if two_stream
+                else launches(edge_transform_combined_bwd) == 1)
 
 
 # ---------------------------------------------------------------------------
@@ -1184,13 +1198,13 @@ def test_minibatch_step_on_the_card_matches_the_cpu(dev):
                                    kg.node_features, spec, device=device)
         batch = batch or trainer.sample_batch(np.random.default_rng(4))
         state = create_train_state(tree_map(lambda t: t.to(device), init), adam(lr))
-        kernels.reset_launch_counts()
+        profiling.reset()
         params, _, loss = trainer.device_step(state.params, state.opt_state,
                                               trainer.to_device(batch),
                                               neg_dst=neg.to(device))
         # grouped: no kernel in the model; on the card the loss's backward
         # launches kernel 1 once (a CPU tensor counts no launch).
-        assert csr_segment_sum.launches == (1 if device.type == "cuda" else 0)
+        assert launches(csr_segment_sum) == (1 if device.type == "cuda" else 0)
         runs.append((loss.item(), {p: (t.detach().cpu(), t.grad.cpu())
                                    for p, t in named_leaves(params)}))
     (l_card, card), (l_cpu, cpu) = runs

@@ -22,15 +22,12 @@ from graph_hypernetwork_forge_tpu_torch.data.encoding import encode_graph
 from graph_hypernetwork_forge_tpu_torch.data.knowledge_graph import ToyKnowledgeGraph
 from graph_hypernetwork_forge_tpu_torch.models import hypergnn as phg
 from graph_hypernetwork_forge_tpu_torch.ops import scoring
-from graph_hypernetwork_forge_tpu_torch.ops.cuda import (
-    csr_segment_sum,
-    edge_transform_sorted_combined,
-    reset_launch_counts,
-)
 from graph_hypernetwork_forge_tpu_torch.ops.message_passing import (
     relational_message_passing,
     resolve_backend,
 )
+from graph_hypernetwork_forge_tpu_torch.utils import profiling
+from torch_cases import kernel_counts
 
 ATOL = 3e-5
 N, F, U, E = 48, 16, 5, 300
@@ -91,16 +88,16 @@ _KERNEL_LAYOUT = dict(sort_by_relation=True, with_sort_plan=True, group_pad=256)
     [(128, "pallas"), (64, "pallas"), (64, "pallas_packed")],
 )
 def test_cuda_backend_matches_jax_kernel_backends_per_layer(d, jax_backend):
-    reset_launch_counts()
-    got, want = _run_both(d, jax_backend, "cuda", _KERNEL_LAYOUT)
-    assert len(got) == len(want) == 2
-    for layer, (g, w) in enumerate(zip(got, want)):
-        assert g.shape == (N, d)
-        np.testing.assert_allclose(
-            g.numpy(), np.asarray(w), rtol=0, atol=ATOL, err_msg=f"layer {layer}"
-        )
+    with profiling.tally() as counts:
+        got, want = _run_both(d, jax_backend, "cuda", _KERNEL_LAYOUT)
+        assert len(got) == len(want) == 2
+        for layer, (g, w) in enumerate(zip(got, want)):
+            assert g.shape == (N, d)
+            np.testing.assert_allclose(
+                g.numpy(), np.asarray(w), rtol=0, atol=ATOL, err_msg=f"layer {layer}"
+            )
     # The plain versions ran: CPU tensors launch nothing.
-    assert csr_segment_sum.launches == edge_transform_sorted_combined.launches == 0
+    assert not kernel_counts(counts), counts
 
 
 @pytest.mark.parametrize("d", [64, 128])

@@ -26,7 +26,6 @@ from graph_hypernetwork_forge_tpu.ops.pallas.segment_sum import (
     sorted_segment_sum_packed64,
     sorted_segment_sum_pallas,
 )
-from graph_hypernetwork_forge_tpu_torch.ops import cuda as kernels
 from graph_hypernetwork_forge_tpu_torch.ops.cuda import _common
 from graph_hypernetwork_forge_tpu_torch.ops.cuda.edge_transform import (
     edge_transform_sorted_combined,
@@ -43,7 +42,15 @@ from graph_hypernetwork_forge_tpu_torch.ops.cuda.segment_sum import (
 )
 from graph_hypernetwork_forge_tpu_torch.ops import segment as pseg
 from graph_hypernetwork_forge_tpu_torch.ops.segment import sorted_segment_sum
-from torch_cases import ATOL, assert_scaled_close, edge_case, run_case, segment_case
+from graph_hypernetwork_forge_tpu_torch.utils import profiling
+from torch_cases import (
+    ATOL,
+    assert_scaled_close,
+    edge_case,
+    kernel_counts,
+    run_case,
+    segment_case,
+)
 
 
 @pytest.mark.parametrize("skew", [False, True])
@@ -115,27 +122,25 @@ def test_edge_transform_tile_takes_its_first_rows_relation():
 
 
 def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
-    kernels.reset_launch_counts()
-    x, _, splits = segment_case(5, 200, 16, 64, False)
-    out = csr_segment_sum(torch.from_numpy(x), torch.from_numpy(splits), 16)
-    torch.testing.assert_close(
-        out, csr_segment_sum_plain(torch.from_numpy(x), torch.from_numpy(splits), 16),
-        rtol=0, atol=0,
-    )
-    args = [torch.from_numpy(a) for a in edge_case(6, 64, 0)]
-    torch.testing.assert_close(
-        edge_transform_sorted_combined(*args),
-        edge_transform_sorted_combined_plain(*args), rtol=0, atol=0,
-    )
-    g = torch.ones(args[0].shape)
-    for got, want in zip(
-        edge_transform_combined_bwd(g, *args[:5]),
-        edge_transform_combined_bwd_plain(g, *args[:5]),
-    ):
-        torch.testing.assert_close(got, want, rtol=0, atol=0)
-    assert csr_segment_sum.launches == 0
-    assert edge_transform_sorted_combined.launches == 0
-    assert edge_transform_combined_bwd.launches == 0
+    with profiling.tally() as counts:
+        x, _, splits = segment_case(5, 200, 16, 64, False)
+        out = csr_segment_sum(torch.from_numpy(x), torch.from_numpy(splits), 16)
+        torch.testing.assert_close(
+            out, csr_segment_sum_plain(torch.from_numpy(x), torch.from_numpy(splits), 16),
+            rtol=0, atol=0,
+        )
+        args = [torch.from_numpy(a) for a in edge_case(6, 64, 0)]
+        torch.testing.assert_close(
+            edge_transform_sorted_combined(*args),
+            edge_transform_sorted_combined_plain(*args), rtol=0, atol=0,
+        )
+        g = torch.ones(args[0].shape)
+        for got, want in zip(
+            edge_transform_combined_bwd(g, *args[:5]),
+            edge_transform_combined_bwd_plain(g, *args[:5]),
+        ):
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert not kernel_counts(counts), counts
 
 
 def test_inputs_that_want_a_gradient_are_refused():

@@ -1,12 +1,12 @@
 """The training step's CUDA graph (``training/train.py`` ``make_train_step``).
 
 On the CPU: which calls stay eager (nothing captured), where :func:`adam`
-is capturable, the profiling tally a capture counts into, the launch-count
-arithmetic of a replay, and what tells two calls' inputs apart. On the card
+is capturable, the profiling tally a capture counts into, where a kernel's
+launch counts, and what tells two calls' inputs apart. On the card
 (``cuda`` marker; each test skips without an NVIDIA GPU): graphed steps
 against eager ones, bit for bit, in both negative modes; a kept loss; a new
-input capturing again; the counters and launch counts of a replay; a
-capture that raises. This file imports no JAX::
+input capturing again; the counters of a replay, the kernels' launches
+among them; a capture that raises. This file imports no JAX::
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_train_graph.py
 """
@@ -22,7 +22,7 @@ import torch.distributed as dist
 from graph_hypernetwork_forge_tpu_torch.data.datasets import generate_synthetic_kg
 from graph_hypernetwork_forge_tpu_torch.data.encoding import encode_graph
 from graph_hypernetwork_forge_tpu_torch.models.hypergnn import HyperGNNConfig, init_hypergnn
-from graph_hypernetwork_forge_tpu_torch.ops import cuda as kernels
+from graph_hypernetwork_forge_tpu_torch.ops.cuda import _common
 from graph_hypernetwork_forge_tpu_torch.ops.cuda.segment_sum import csr_segment_sum
 from graph_hypernetwork_forge_tpu_torch.training.train import (
     adam,
@@ -33,6 +33,7 @@ from graph_hypernetwork_forge_tpu_torch.training.train import (
 )
 from graph_hypernetwork_forge_tpu_torch.utils import profiling
 from graph_hypernetwork_forge_tpu_torch.utils.initializers import named_leaves, tree_map
+from torch_cases import launches
 
 # The module, which the package's ``train`` function shadows.
 tr = importlib.import_module("graph_hypernetwork_forge_tpu_torch.training.train")
@@ -237,20 +238,25 @@ def test_the_tally_takes_counts_and_spans_out_of_the_registry(recording):
         assert snap == {"spans": {}, "counters": {}}
 
 
-def test_launch_counts_add_and_undo():
-    kernels.reset_launch_counts()
-    before = kernels.launch_counts()
-    for form in ("f32", "f32", "bf16"):
-        kernels._common.count_launch(csr_segment_sum, form)
-    kernels.run_table.launches += 1
-    after = kernels.launch_counts()
-    kernels.add_launch_counts(after, before, times=-1)
-    assert kernels.launch_counts() == before
-    kernels.add_launch_counts(after, before, times=2)
-    assert csr_segment_sum.launches == 6
-    assert csr_segment_sum.launches_by_form == {"f32": 4, "tf32": 0, "bf16": 2, "fast": 0}
-    assert kernels.run_table.launches == 2
-    kernels.reset_launch_counts()
+@pytest.mark.parametrize("recording", [False, True])
+def test_a_launch_is_counted_in_the_tally_and_not_in_the_registry(recording):
+    # A capture's launches land in its tally alone, recording or not; the
+    # replays add them to the registry as any other counter.
+    if recording:
+        profiling.record()
+    with profiling.tally() as counts:
+        for form in ("f32", "f32", "bf16"):
+            _common.count_launch("csr_segment_sum", form)
+        _common.count_launch("run_table")
+    assert counts == {"kernel.csr_segment_sum.f32": 2, "kernel.csr_segment_sum.bf16": 1,
+                      "kernel.run_table": 1}
+    assert launches(csr_segment_sum, counts=counts) == 3
+    assert launches(csr_segment_sum, "bf16", counts) == 1
+    assert profiling.snapshot() == {"spans": {}, "counters": {}}
+    # Outside a tally a launch counts only while recording.
+    _common.count_launch("csr_segment_sum", "tf32")
+    want = {"kernel.csr_segment_sum.tf32": 1} if recording else {}
+    assert profiling.snapshot()["counters"] == want
 
 
 # ---------------------------------------------------------------------------
@@ -323,29 +329,27 @@ def test_new_features_capture_again(kg_graph, dev):
     assert counters["train_step_graph_replays"] == 4
 
 
-def _one_step_counts(run: _Run, k: int) -> tuple:
-    kernels.reset_launch_counts()
+def _one_step_counts(run: _Run, k: int) -> dict:
+    """The counters of step k, the kernels' launches among them."""
     profiling.reset()
     profiling.record()
     run(run.negatives(k))
     profiling.stop()
-    snap = profiling.snapshot()
-    launches = {fn.__name__: v for fn, v in kernels.launch_counts().items()}
-    return snap["counters"], launches
+    return profiling.snapshot()["counters"]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("neg_mode", ["roll", "uniform"])
 def test_a_replay_counts_what_an_eager_step_counts(kg_graph, dev, neg_mode):
     run = _Run(kg_graph, dev, neg_mode)
-    eager_counts, eager_launches = _one_step_counts(run, 0)
+    eager_counts = _one_step_counts(run, 0)
     assert "train_step_graph_replays" not in eager_counts
-    assert eager_launches["csr_segment_sum"][0] > 0
+    assert launches(csr_segment_sum, counts=eager_counts) > 0
     for k in (1, 2):  # the capture's call, then a replay alone
-        counts, launches = _one_step_counts(run, k)
+        counts = _one_step_counts(run, k)
         assert counts.pop("train_step_graph_replays") == 1
         counts.pop("train_step_graph_captures", None)
-        assert counts == eager_counts and launches == eager_launches
+        assert counts == eager_counts
         spans = profiling.snapshot()["spans"]
         assert spans["train_step"]["entries"] == 1
         assert "loss" not in spans and "backward" not in spans and "optimizer" not in spans

@@ -27,7 +27,6 @@ from graph_hypernetwork_forge_tpu.ops.pallas.segment_sum import (
     dual_sorted_segment_sum_pallas,
 )
 from graph_hypernetwork_forge_tpu_torch.data.encoding import encode_graph
-from graph_hypernetwork_forge_tpu_torch.ops import cuda as kernels
 from graph_hypernetwork_forge_tpu_torch.ops.cuda.edge_transform import (
     edge_contributions_cuda_sorted,
     edge_transform_sorted,
@@ -41,7 +40,8 @@ from graph_hypernetwork_forge_tpu_torch.ops.cuda.segment_sum import (
     dual_sorted_segment_sum,
     dual_sorted_segment_sum_plain,
 )
-from torch_cases import ATOL, assert_scaled_close, edge_case
+from graph_hypernetwork_forge_tpu_torch.utils import profiling
+from torch_cases import ATOL, assert_scaled_close, edge_case, kernel_counts
 
 HIGHEST = jax.lax.Precision.HIGHEST
 
@@ -201,21 +201,19 @@ def test_dual_plain_matches_pallas(dh):
 
 
 def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
-    kernels.reset_launch_counts()
-    xs, xd, rel, wm, ws, b = _torch(*edge_case(29, 16, 100, 24))
-    for got, want in zip(edge_transform_sorted(xs, xd, rel, wm, ws, b),
-                         edge_transform_sorted_plain(xs, xd, rel, wm, ws, b)):
-        torch.testing.assert_close(got, want, rtol=0, atol=0)
-    g = torch.ones(xs.shape[0], 24)
-    torch.testing.assert_close(segment_outer(xs, g, rel, 8),
-                               segment_outer_plain(xs, g, rel, 8), rtol=0, atol=0)
-    splits = torch.searchsorted(rel, torch.arange(9, dtype=torch.int32), out_int32=True)
-    for got, want in zip(dual_sorted_segment_sum(xs, xd, 8, splits, splits),
-                         dual_sorted_segment_sum_plain(xs, xd, 8, splits, splits)):
-        torch.testing.assert_close(got, want, rtol=0, atol=0)
-    assert kernels.edge_transform_sorted.launches == 0
-    assert kernels.segment_outer.launches == 0
-    assert kernels.dual_sorted_segment_sum.launches == 0
+    with profiling.tally() as counts:
+        xs, xd, rel, wm, ws, b = _torch(*edge_case(29, 16, 100, 24))
+        for got, want in zip(edge_transform_sorted(xs, xd, rel, wm, ws, b),
+                             edge_transform_sorted_plain(xs, xd, rel, wm, ws, b)):
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+        g = torch.ones(xs.shape[0], 24)
+        torch.testing.assert_close(segment_outer(xs, g, rel, 8),
+                                   segment_outer_plain(xs, g, rel, 8), rtol=0, atol=0)
+        splits = torch.searchsorted(rel, torch.arange(9, dtype=torch.int32), out_int32=True)
+        for got, want in zip(dual_sorted_segment_sum(xs, xd, 8, splits, splits),
+                             dual_sorted_segment_sum_plain(xs, xd, 8, splits, splits)):
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert not kernel_counts(counts), counts
 
 
 def test_dual_segment_sum_is_forward_only():

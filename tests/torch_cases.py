@@ -4,9 +4,34 @@ seed. Imports no JAX, so the card tests can use them where JAX is absent."""
 import numpy as np
 
 from graph_hypernetwork_forge_tpu_torch.data.encoding import encode_graph
+from graph_hypernetwork_forge_tpu_torch.ops.cuda._common import FORMS
+from graph_hypernetwork_forge_tpu_torch.utils import profiling
 
 # The parity gate: f32 atol 3e-5 per layer (CLAUDE.md:50-61).
 ATOL = 3e-5
+
+
+def launches(kernel, form=None, counts=None) -> int:
+    """The launches of ``kernel`` (a kernel wrapper, or its name:
+    ``"run_table"`` for the run-table kernel) in ``form``, or in every form,
+    as the ``kernel.*`` counters of ``counts`` (a ``profiling.tally()``, or
+    the registry's counters where None) read."""
+    if counts is None:
+        counts = profiling.snapshot()["counters"]
+    name = f"kernel.{kernel if isinstance(kernel, str) else kernel.__name__}"
+    if form is not None:
+        return counts.get(f"{name}.{form}", 0)
+    return sum(n for k, n in counts.items() if k == name or k.startswith(name + "."))
+
+
+def launches_per_form(kernel, counts=None) -> dict:
+    """``{form: launches}`` of ``kernel`` over every form, zeros included."""
+    return {form: launches(kernel, form, counts) for form in FORMS}
+
+
+def kernel_counts(counts: dict) -> dict:
+    """The ``kernel.*`` counters of ``counts``: the kernels' launches."""
+    return {k: n for k, n in counts.items() if k.startswith("kernel.")}
 
 
 def assert_scaled_close(got, want, err_msg=""):
