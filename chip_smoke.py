@@ -11,9 +11,11 @@ JAX, and fails (non-zero exit, no result line) on any failed phase:
    native: build ``native/ghf_native.cpp`` with g++ and load it (the host
    encoder's dedup, tokenizer and sorts, the sampler's hops); fail without
    it, and print which path encodes;
-2. build: compile the four CUDA sources of ``csrc/`` with nvcc, in
+2. build: compile the five CUDA sources of ``csrc/`` with nvcc, in
    parallel;
-3. kernels: each of the six kernels against its plain PyTorch version at
+3. kernels: each of the six kernels, and the row-gather kernel (on a
+   layer's [E, d] permute, bit for bit ``index_select``, its plain version
+   and library call), against its plain PyTorch version at
    the xl shapes (N=50,000 nodes, E_pad≈1.03M group-padded edge rows,
    U_pad=240) at d=64 and d=128, on a layout with an empty relation and a
    node with no in-edges: max abs error against the stated tolerance,
@@ -223,6 +225,7 @@ from graph_hypernetwork_forge_tpu_torch.models.hypergnn import (  # noqa: E402
 from graph_hypernetwork_forge_tpu_torch.ops import cuda as kernels  # noqa: E402
 from graph_hypernetwork_forge_tpu_torch.ops.cuda import build  # noqa: E402
 from graph_hypernetwork_forge_tpu_torch.ops.cuda._common import FORMS  # noqa: E402
+from graph_hypernetwork_forge_tpu_torch.ops.cuda.gather_rows import VECTOR_BYTES  # noqa: E402
 from graph_hypernetwork_forge_tpu_torch.ops.cuda.edge_transform_bwd import (  # noqa: E402
     plan_runs,
     run_bounds,
@@ -233,6 +236,7 @@ from graph_hypernetwork_forge_tpu_torch.ops.message_passing import (  # noqa: E4
     two_stream_tail,
 )
 from graph_hypernetwork_forge_tpu_torch.ops.scoring import score_all_tails, score_pairs  # noqa: E402
+from graph_hypernetwork_forge_tpu_torch.ops.segment import gather_bytes  # noqa: E402
 from graph_hypernetwork_forge_tpu_torch.models.text_encoder import (  # noqa: E402
     apply_text_encoder,
 )
@@ -425,14 +429,33 @@ KERNELS = {
             "dual_sorted_segment_sum_pallas (pallas_call in _dual_impl :396)"
         ),
     ),
+    "gather_rows": dict(
+        source="graph_hypernetwork_forge_tpu_torch/csrc/gather_rows.cu",
+        replaces=(
+            "no TPU kernel: XLA's gathers there (jnp.take in graph_hypernetwork_forge_tpu/"
+            "ops/segment.py and training/objectives.py); in the port, PyTorch's "
+            "index_select (vectorized_gather_kernel)"
+        ),
+    ),
 }
+# The gather kernel's forms: the bytes a lane moves at a time.
+GATHER_FORMS = tuple(f"v{v}" for v in VECTOR_BYTES)
+
+
+def forms_of(name: str) -> tuple:
+    return GATHER_FORMS if name == "gather_rows" else FORMS
 
 # Launches of each kernel per training step, counted from the code: kernel
 # 2 once per layer; kernel 3 once per layer (edge transform backward, its
 # dW reduced inside the kernel over the SortPlan's run table); kernel 1 per
 # layer once in the forward's aggregation tail and three times in the
 # backward (the h[src] and h[dst] cotangents, dbias), plus twice in the
-# loss backward (src- and dst-sorted streams).
+# loss backward (src- and dst-sorted streams). The gather kernel per layer
+# once for the h[src], h[dst] pair and once for the aggregation's permute,
+# and in the backward for the pair's two cotangent permutes, the
+# aggregation's [E] index composition (4-byte rows: form v4) and its row
+# gather; in the rolled loss once for the src and dst rows, once for the
+# rolled tails, and in its backward for the two rolls and two permutes.
 STEP_LAUNCHES = {
     "csr_segment_sum": LAYERS * 4 + 2,
     "edge_transform_sorted_combined": LAYERS,
@@ -440,32 +463,39 @@ STEP_LAUNCHES = {
     "edge_transform_sorted": 0,
     "segment_outer": 0,
     "dual_sorted_segment_sum": 0,
+    "gather_rows": LAYERS * 6 + 6,
 }
-# The composed step with the cuda contribution: kernels 1-3 as a training
-# step's layers launch them; its loss (local or uniform scoring) gathers
-# rows with PyTorch and launches no kernel.
-COMPOSED_LAUNCHES = dict(STEP_LAUNCHES, csr_segment_sum=LAYERS * 4)
-# A forward (serving) runs kernels 1 and 2 once per layer.
-FORWARD_LAUNCHES = {
-    name: LAYERS if name in ("csr_segment_sum", "edge_transform_sorted_combined") else 0
-    for name in STEP_LAUNCHES
-}
+# The composed step with the cuda contribution: kernels 1-3 and the gather
+# kernel as a training step's layers launch them; its loss (local or
+# uniform scoring) gathers rows with PyTorch and launches no kernel.
+COMPOSED_LAUNCHES = dict(STEP_LAUNCHES, csr_segment_sum=LAYERS * 4, gather_rows=LAYERS * 6)
+# A forward (serving) runs kernels 1 and 2 once per layer, and the gather
+# kernel twice (the h[src], h[dst] pair and the aggregation's permute).
+FORWARD_LAUNCHES = dict(
+    {name: 0 for name in STEP_LAUNCHES},
+    csr_segment_sum=LAYERS, edge_transform_sorted_combined=LAYERS, gather_rows=2 * LAYERS,
+)
 # One two-stream layer, forward and backward: kernel 5 in the forward and
 # once more for dx; kernel 6 for dW_msg and dW_self (each reducing its own
 # dW); kernel 1 in the tail, for dbias and for the h[src] and h[dst]
-# cotangents.
+# cotangents; the gather kernel as one layer of a training step.
 TWO_STREAM_LAUNCHES = dict(
     {name: 0 for name in STEP_LAUNCHES},
-    csr_segment_sum=4, edge_transform_sorted=2, segment_outer=2,
+    csr_segment_sum=4, edge_transform_sorted=2, segment_outer=2, gather_rows=6,
 )
 # One forward and backward of the model on the grouped backend with a sort
 # plan: per layer kernel 1 in the tail and for the h[src], h[dst] and bias
-# cotangents; the per-relation products are PyTorch matmuls.
+# cotangents; the gather kernel as a training step's layer and once more
+# for the bias rows (whose cotangent needs no permute); the per-relation
+# products are PyTorch matmuls.
 # A link-prediction step with uniform negatives: the model's launches of a
 # training step, and kernel 1 once in the loss's backward (its three
-# cotangent streams, sorted together on the card).
-LINKPRED_STEP_LAUNCHES = dict(STEP_LAUNCHES, csr_segment_sum=LAYERS * 4 + 1)
-GROUPED_LAUNCHES = dict({name: 0 for name in STEP_LAUNCHES}, csr_segment_sum=4 * LAYERS)
+# cotangent streams, sorted together on the card); the gather kernel once
+# for the loss's three rows and once for the permute of its streams.
+LINKPRED_STEP_LAUNCHES = dict(STEP_LAUNCHES, csr_segment_sum=LAYERS * 4 + 1,
+                              gather_rows=LAYERS * 6 + 2)
+GROUPED_LAUNCHES = dict({name: 0 for name in STEP_LAUNCHES}, csr_segment_sum=4 * LAYERS,
+                        gather_rows=7 * LAYERS)
 GROUPED_TIMED = 3
 
 
@@ -473,9 +503,11 @@ def two_stream_launches_per_form(form: str) -> dict:
     """Launches by form of one two-stream layer, forward and backward,
     counted from the code: kernels 5 and 6 twice each in the layer's form
     (as TWO_STREAM_LAUNCHES); kernel 1 four times, for the tail, dbias and
-    the two gather cotangents, in speed mode over bf16 rows."""
-    out = {name: dict.fromkeys(FORMS, 0) for name in KERNELS}
+    the two gather cotangents, in speed mode over bf16 rows; the gather
+    kernel 16 bytes a lane, but on the [E] index composition's 4-byte rows."""
+    out = {name: dict.fromkeys(forms_of(name), 0) for name in KERNELS}
     out["edge_transform_sorted"][form] = out["segment_outer"][form] = 2
+    out["gather_rows"].update(v16=TWO_STREAM_LAUNCHES["gather_rows"] - 1, v4=1)
     if form == "bf16":
         out["csr_segment_sum"]["bf16"] = TWO_STREAM_LAUNCHES["csr_segment_sum"]
     else:
@@ -494,8 +526,11 @@ def step_launches_per_form(mode: dict) -> dict:
     """Launches per training step by form, counted from the code: kernels
     2 and 3 once a layer in the mode's form. Kernel 1 as in STEP_LAUNCHES;
     in speed mode its rows are bf16 in the forward tail, the h[src] and
-    h[dst] cotangents and dbias (4 a layer), and f32 in the f32 loss (2)."""
-    out = {name: dict.fromkeys(FORMS, 0) for name in KERNELS}
+    h[dst] cotangents and dbias (4 a layer), and f32 in the f32 loss (2).
+    The gather kernel moves 16 bytes a lane in every mode, but 4 on the [E]
+    index composition's rows (one a layer)."""
+    out = {name: dict.fromkeys(forms_of(name), 0) for name in KERNELS}
+    out["gather_rows"].update(v16=STEP_LAUNCHES["gather_rows"] - LAYERS, v4=LAYERS)
     form = mode_form(mode)
     if form == "bf16":
         out["csr_segment_sum"].update(bf16=4 * LAYERS, f32=2)
@@ -582,7 +617,7 @@ def check(ok: bool, msg: str) -> None:
 def kernel_launches_per_form(counts: dict) -> dict:
     """Launches of each kernel by form, as the ``kernel.<name>.<form>``
     counters of ``counts`` (a ``profiling.tally()``) read."""
-    return {name: {form: counts.get(f"kernel.{name}.{form}", 0) for form in FORMS}
+    return {name: {form: counts.get(f"kernel.{name}.{form}", 0) for form in forms_of(name)}
             for name in KERNELS}
 
 
@@ -1008,6 +1043,26 @@ def phase_kernels(dev, g) -> dict:
             bound_ms=b_ms, bound_by=b_by, **csr_own(lambda: fn(*args)),
         )
         del xa, xb, args, out, again, plain
+        torch.cuda.empty_cache()
+
+        # The gather kernel on a layer's [E, d] permute into dst order by the
+        # plan (int32 indices), against index_select, which is both its plain
+        # version and the library call, bit for bit.
+        x = torch.randn(e_rows, d, device=dev, generator=gen)
+        perm = plan.dst_perm
+        fn = kernels.gather_rows
+        (out,) = fn(x, perm)
+        want = kernels.gather_rows_plain(x, perm)[0]
+        torch.cuda.synchronize()
+        check(torch.equal(out, want), f"gather_rows d={d}: differs from index_select")
+        b_ms, b_by = bound(gather_bytes(x, perm), 0)
+        plain_ms = cuda_ms(lambda: kernels.gather_rows_plain(x, perm))
+        results[("gather_rows", d)] = dict(
+            max_abs_err=(out - want).abs().max().item(), ms=cuda_ms(lambda: fn(x, perm)),
+            kernel_ms=kernel_ms(lambda: fn(x, perm), "gather_rows_kernel"),
+            plain_ms=plain_ms, library_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        )
+        del x, out, want
         torch.cuda.empty_cache()
 
     for (name, d), r in results.items():
@@ -1830,8 +1885,9 @@ def phase_speed_forward(dev) -> dict:
     check(embs.dtype == torch.float32 and embs.shape == (XL_N, WIDTH)
           and bool(torch.isfinite(embs).all()), "speed-mode forward: not finite f32")
     check(rel_err < SPEED_VS_F32_RTOL, "speed-mode forward: too far from f32")
-    want = {name: dict.fromkeys(FORMS, 0) for name in KERNELS}
+    want = {name: dict.fromkeys(forms_of(name), 0) for name in KERNELS}
     want["csr_segment_sum"]["bf16"] = want["edge_transform_sorted_combined"]["bf16"] = LAYERS
+    want["gather_rows"]["v16"] = FORWARD_LAUNCHES["gather_rows"]
     check(by_form == want, f"speed-mode forward launches {by_form} != {want}")
     profile = profile_device("one more speed-mode xl forward", lambda: forward(SPEED))
     ref_profile = profile_device("one f32 xl forward", lambda: forward({}))
@@ -2583,8 +2639,10 @@ def phase_minibatch(dev, mb, graph_s: float) -> dict:
     # and no hand-written kernel in the model.
     check(all(s["backend"] == "grouped" for s in steps),
           "minibatch: auto did not pick grouped, as the JAX package does")
-    # No kernel in the model; kernel 1 once a step in the loss's backward.
-    want = dict({name: 0 for name in KERNELS}, csr_segment_sum=1 + MB_TIMED)
+    # No kernel in the model; kernel 1 once a step in the loss's backward,
+    # the gather kernel twice (the loss's rows, the permute of its streams).
+    want = dict({name: 0 for name in KERNELS}, csr_segment_sum=1 + MB_TIMED,
+                gather_rows=2 * (1 + MB_TIMED))
     check(launches == want, f"minibatch: launches {launches} != {want}")
     profile = profile_device(
         "one minibatch device step",
@@ -3438,9 +3496,11 @@ def phase_experiments(dev) -> dict:
               and e["zero_shot_mrr"] is not None,
               f"experiments {name}: a loss is not finite or a metric is missing")
     # No kernel in the models; kernel 1 once a step in the loss's backward
-    # of train_linkpred and the parity run (one tail a positive), none in
-    # the sweep's K = 8 loss.
-    want = dict({name: 0 for name in KERNELS}, csr_segment_sum=2 * EXP_STEPS)
+    # of train_linkpred and the parity run (one tail a positive), and the
+    # gather kernel twice there (the loss's rows, the permute of its
+    # streams); none in the sweep's K = 8 loss.
+    want = dict({name: 0 for name in KERNELS}, csr_segment_sum=2 * EXP_STEPS,
+                gather_rows=4 * EXP_STEPS)
     check(out["launches"] == want, f"experiments: launches {out['launches']} != {want}")
     log(f"experiments: phase in {out['seconds']:.1f} s (train_linkpred's ms/step without "
         "its evaluations; the sweep's and the parity run's from their rows' train_s, "

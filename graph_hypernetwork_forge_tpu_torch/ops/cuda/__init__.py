@@ -19,6 +19,10 @@ from graph_hypernetwork_forge_tpu_torch.ops.cuda.edge_transform_bwd import (
     edge_transform_combined_bwd_plain,
     run_table,
 )
+from graph_hypernetwork_forge_tpu_torch.ops.cuda.gather_rows import (
+    gather_rows,
+    gather_rows_plain,
+)
 from graph_hypernetwork_forge_tpu_torch.ops.cuda.segment_outer import (
     segment_outer,
     segment_outer_plain,
@@ -30,7 +34,8 @@ from graph_hypernetwork_forge_tpu_torch.ops.cuda.segment_sum import (
     dual_sorted_segment_sum_plain,
 )
 
-KERNEL_SOURCES = ("segment_sum", "edge_transform", "edge_transform_bwd", "segment_outer")
+KERNEL_SOURCES = ("segment_sum", "edge_transform", "edge_transform_bwd", "segment_outer",
+                  "gather_rows")
 
 __all__ = [
     "KERNEL_SOURCES",
@@ -45,6 +50,8 @@ __all__ = [
     "edge_transform_sorted_combined",
     "edge_transform_sorted_combined_plain",
     "edge_transform_sorted_plain",
+    "gather_rows",
+    "gather_rows_plain",
     "run_table",
     "segment_outer",
     "segment_outer_plain",

@@ -16,7 +16,9 @@ F32_BF16 = (torch.float32, torch.bfloat16)
 # 3xTF32 on the tensor cores), "tf32" (f32 data, the matrix kernels in one
 # TF32 pass, precision="default"), "bf16" (bf16 data, f32 sums) and "fast"
 # (the sums of kernels 1 and 7 over f32 rows in mode="fast": each value
-# rounded to bf16 as it is read, then summed in f32).
+# rounded to bf16 as it is read, then summed in f32). The gather kernel,
+# which moves bytes of any type, has forms of its own: the bytes a lane
+# moves at a time (``ops/cuda/gather_rows.py``).
 FORMS = ("f32", "tf32", "bf16", "fast")
 
 

@@ -11,7 +11,10 @@ The sorted building blocks are ``torch.autograd.Function``s with the JAX
 package's gather-only backwards (its ``ops/segment.py:197-382``): no
 backward scatters with unsorted indices. A gather's cotangent is permuted
 into sorted order by the plan and reduced through the CSR segment-sum; a
-segment-sum's cotangent is one row gather.
+segment-sum's cotangent is one row gather. Every row gather of these
+Functions, forward and backward, goes through
+:func:`~graph_hypernetwork_forge_tpu_torch.ops.cuda.gather_rows.gather_rows`:
+the gather kernel on the card, ``index_select`` on the CPU.
 
 While spans record (``utils/profiling.py``), every row gather here, forward
 and backward, adds its least bytes to the ``gather_bytes`` counter
@@ -25,6 +28,7 @@ import math
 import torch
 from torch.autograd.function import once_differentiable
 
+from graph_hypernetwork_forge_tpu_torch.ops.cuda.gather_rows import gather_rows
 from graph_hypernetwork_forge_tpu_torch.ops.cuda.segment_sum import csr_segment_sum
 from graph_hypernetwork_forge_tpu_torch.utils.profiling import count, enabled
 
@@ -115,7 +119,8 @@ class _SortedSegmentSum(torch.autograd.Function):
     def backward(ctx, g):
         (ids_sorted,) = ctx.saved_tensors
         count_gather(g, ids_sorted)
-        return g.index_select(0, ids_sorted).to(ctx.dtype), None, None, None
+        (rows,) = gather_rows(g, ids_sorted)
+        return rows.to(ctx.dtype), None, None, None
 
 
 def sorted_segment_sum(
@@ -140,14 +145,16 @@ class _PermuteRows(torch.autograd.Function):
     def forward(ctx, x, perm, inv_perm):
         ctx.save_for_backward(inv_perm)
         count_gather(x, perm)
-        return x.index_select(0, perm)
+        (rows,) = gather_rows(x, perm)
+        return rows
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         (inv_perm,) = ctx.saved_tensors
         count_gather(g, inv_perm)
-        return g.index_select(0, inv_perm), None, None
+        (rows,) = gather_rows(g, inv_perm)
+        return rows, None, None
 
 
 def permute_rows(
@@ -163,7 +170,7 @@ def _reduce_sorted(g, perm_to_sorted, idx_sorted, splits, num_rows):
     (``perm_to_sorted`` None means already sorted), then segment-sum."""
     if perm_to_sorted is not None:
         count_gather(g, perm_to_sorted)
-        g = g.index_select(0, perm_to_sorted)
+        (g,) = gather_rows(g, perm_to_sorted)
     return _sorted_sum(g, idx_sorted, num_rows, splits)
 
 
@@ -188,7 +195,8 @@ class _TakeRowsSorted(torch.autograd.Function):
         ctx.save_for_backward(perm_to_sorted, idx_sorted, splits)
         ctx.num_rows, ctx.dtype = table.shape[0], table.dtype
         count_gather(table, idx)
-        return table.index_select(0, idx)
+        (rows,) = gather_rows(table, idx)
+        return rows
 
     @staticmethod
     @once_differentiable
@@ -224,7 +232,7 @@ class _TakeRowsPair(torch.autograd.Function):
         ctx.num_rows, ctx.dtype = table.shape[0], table.dtype
         count_gather(table, idx_a)
         count_gather(table, idx_b)
-        return table.index_select(0, idx_a), table.index_select(0, idx_b)
+        return gather_rows(table, idx_a, idx_b)
 
     @staticmethod
     @once_differentiable
@@ -264,7 +272,7 @@ class _SortedSegmentSumByPlan(torch.autograd.Function):
         ctx.save_for_backward(inv_perm, ids_sorted)
         ctx.dtype = values.dtype
         count_gather(values, perm_to_sorted)
-        values_sorted = values.index_select(0, perm_to_sorted)
+        (values_sorted,) = gather_rows(values, perm_to_sorted)
         return _sorted_sum(values_sorted, ids_sorted, num_segments, splits)
 
     @staticmethod
@@ -273,10 +281,11 @@ class _SortedSegmentSumByPlan(torch.autograd.Function):
         inv_perm, ids_sorted = ctx.saved_tensors
         # One [E] index gather composes the two row gathers into one
         # (JAX ops/segment.py:373-379): dvalues[i] = g[ids_sorted[inv_perm[i]]].
-        idx = ids_sorted.index_select(0, inv_perm)
+        (idx,) = gather_rows(ids_sorted, inv_perm)
         count_gather(ids_sorted, inv_perm)
         count_gather(g, idx)
-        return g.index_select(0, idx).to(ctx.dtype), None, None, None, None, None
+        (rows,) = gather_rows(g, idx)
+        return rows.to(ctx.dtype), None, None, None, None, None
 
 
 def sorted_segment_sum_by_plan(

@@ -12,7 +12,9 @@ the least bytes of its row gathers, forward and backward, to the
 to the count of its kind: ``loss_sorted_uniform`` for
 :func:`link_prediction_loss`, whose backward sums through kernel 1 in
 sorted order, ``loss_plain`` for :func:`multi_negative_loss`, whose
-gathers PyTorch's index backward sums.
+gathers PyTorch's index backward sums. The two sorted losses take their
+rows, forward and backward, through the gather kernel
+(``ops/cuda/gather_rows.py``; ``index_select`` on the CPU).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
+from graph_hypernetwork_forge_tpu_torch.ops.cuda.gather_rows import gather_rows
 from graph_hypernetwork_forge_tpu_torch.ops.scoring import (
     score_candidate_sets,
     score_pairs,
@@ -88,9 +91,7 @@ class _LinkPredictionLossUniformSorted(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, embs, src, dst, neg_dst, edge_mask, margin):
-        h = embs.index_select(0, src)
-        t = embs.index_select(0, dst)
-        n = embs.index_select(0, neg_dst)
+        h, t, n = gather_rows(embs, src, dst, neg_dst)
         for idx in (src, dst, neg_dst):
             count_gather(embs, idx)
         return _hinge_mean(ctx, embs, h, t, n, edge_mask, margin, (h, t, n, src, dst, neg_dst))
@@ -118,7 +119,7 @@ def link_prediction_loss(
     """Margin-ranking loss over (src→dst) positives vs (src→neg_dst) negatives.
 
     The forward gathers ``embs[src]``, ``embs[dst]`` and ``embs[neg_dst]``
-    once each. The backward puts the three cotangent streams, keyed by
+    once each, in one launch of the gather kernel on the card. The backward puts the three cotangent streams, keyed by
     ``src``, ``dst`` and ``neg_dst``, in one stable sort on their device (no
     host read) and sums each node's rows with kernel 1 in that order: no
     scatter, bitwise deterministic, and a node that many rows name, such as
@@ -182,9 +183,8 @@ class _LinkPredictionLossSorted(torch.autograd.Function):
         e = src.shape[0]
         shift = torch.as_tensor(roll_shift, device=embs.device).long()
         fwd = _roll_index(e, shift, embs.device)
-        pos_h = embs.index_select(0, src)
-        pos_t = embs.index_select(0, dst)
-        neg_t = pos_t.index_select(0, fwd)
+        pos_h, pos_t = gather_rows(embs, src, dst)
+        (neg_t,) = gather_rows(pos_t, fwd)
         for table, idx in ((embs, src), (embs, dst), (pos_t, fwd)):
             count_gather(table, idx)
         return _hinge_mean(ctx, embs, pos_h, pos_t, neg_t, edge_mask, margin, (
@@ -198,14 +198,15 @@ class _LinkPredictionLossSorted(torch.autograd.Function):
           dst_splits, shift), a, edge_mask) = _hinge_weights(ctx, g)
         e, dev = pos_h.shape[0], pos_h.device
         fwd, back = _roll_index(e, shift, dev), _roll_index(e, -shift, dev)
-        # Stream 1 (src-sorted): dh_e = a_e · (t_{e+k} − t_e).
-        t1 = a * (pos_t.index_select(0, fwd) - pos_t)
+        # Stream 1 (src-sorted): dh_e = a_e · (t_{e+k} − t_e). The rolled
+        # rows are temporaries, freed as each line ends.
+        t1 = a * (gather_rows(pos_t, fwd)[0] - pos_t)
         # Stream 2 (dst-sorted): dt_e = a_{e−k}·h_{e−k} − a_e·h_e.
         t2 = a * pos_h
-        t3 = t2.index_select(0, back) - t2
+        t3 = gather_rows(t2, back)[0] - t2
         n = ctx.num_nodes
-        stream_src = t1 if src_perm is None else t1.index_select(0, src_perm)
-        stream_dst = t3 if dst_perm is None else t3.index_select(0, dst_perm)
+        stream_src = t1 if src_perm is None else gather_rows(t1, src_perm)[0]
+        stream_dst = t3 if dst_perm is None else gather_rows(t3, dst_perm)[0]
         for table, idx in ((pos_t, fwd), (t2, back), (t1, src_perm), (t3, dst_perm)):
             if idx is not None:
                 count_gather(table, idx)

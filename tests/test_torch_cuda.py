@@ -31,6 +31,7 @@ from graph_hypernetwork_forge_tpu_torch.ops.cuda.edge_transform_bwd import (
     plan_runs,
     run_table,
 )
+from graph_hypernetwork_forge_tpu_torch.ops.cuda.gather_rows import gather_rows, vector_bytes
 from graph_hypernetwork_forge_tpu_torch.ops.cuda.segment_outer import (
     segment_outer,
     segment_outer_plain,
@@ -57,10 +58,12 @@ from graph_hypernetwork_forge_tpu_torch.utils import profiling
 from graph_hypernetwork_forge_tpu_torch.utils.initializers import named_leaves, tree_map
 from torch_cases import (
     CSR_CASES,
+    GATHER_CASES,
     csr_case,
     csr_lanes_per_row,
     edge_case,
     emulate_csr_segment_sum,
+    gather_case,
     launches,
     launches_per_form,
     run_case,
@@ -249,6 +252,68 @@ def test_csr_kernel_over_a_million_segments_and_ten_rows(dev, form):
     empty = torch.from_numpy(np.diff(splits) == 0).to(dev)
     assert int(empty.sum()) == n - 8
     assert not a[empty].any() and not a[empty].signbit().any()
+
+
+def _gather_table_on(dev, table, aligned_to_4):
+    """``table`` on the card; where ``aligned_to_4``, 4 bytes past the start
+    of its allocation, so that only 4-byte loads fit its address."""
+    if not aligned_to_4:
+        return table.to(dev)
+    flat = torch.empty(table.numel() + 1, dtype=table.dtype, device=dev)
+    placed = flat[1:].view(table.shape)
+    placed.copy_(table)
+    return placed
+
+
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("name", sorted(GATHER_CASES))
+def test_gather_kernel_is_bitwise_index_select(dev, name, index_dtype):
+    table, indices = gather_case(name, index_dtype)
+    table = _gather_table_on(dev, table, name == "aligned_4")
+    indices = [idx.to(dev) for idx in indices]
+    got = gather_rows(table, *indices)
+    torch.cuda.synchronize()
+    for out, idx in zip(got, indices):
+        assert torch.equal(out, table.index_select(0, idx)), name
+    # One launch for every index of the call; none where there is no row.
+    row_bytes = table[0].numel() * table.element_size()
+    form = f"v{vector_bytes(row_bytes, table)}"
+    narrow = dict(aligned_4="v4", f32_d63="v4", int32_rows="v4", f32_d6="v8", bf16_d3="v2",
+                  uint8_d5="v1")
+    assert form == narrow.get(name, "v16")
+    assert launches(gather_rows) == launches(gather_rows, form) == int(name != "empty")
+
+
+def test_gather_kernel_over_a_table_and_an_output_past_two_gigabytes(dev):
+    # 8,392,704 rows of 256 bytes each side: byte offsets past 2^31.
+    rows = 2**31 // 256 + 4096
+    table = (torch.arange(rows, device=dev, dtype=torch.float32)[:, None] * 64
+             + torch.arange(64, device=dev, dtype=torch.float32))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    idx = torch.randint(0, rows, (rows,), device=dev, generator=gen, dtype=torch.int32)
+    idx[-4096:] = torch.arange(rows - 4096, rows, device=dev, dtype=torch.int32)
+    (out,) = gather_rows(table, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(out, table.index_select(0, idx))
+
+
+def test_gather_kernel_replays_in_a_captured_cuda_graph(dev):
+    table, indices = gather_case("three_streams", torch.int32)
+    table, indices = table.to(dev), [idx.to(dev) for idx in indices]
+    gather_rows(table, *indices)  # built and loaded before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = gather_rows(table, *indices)
+    for seed in (1, 2):
+        new_table, new_indices = gather_case("three_streams", torch.int32, seed)
+        table.copy_(new_table)
+        for idx, new in zip(indices, new_indices):
+            idx.copy_(new)
+        graph.replay()
+        torch.cuda.synchronize()
+        for out, idx in zip(outs, indices):
+            assert torch.equal(out, table.index_select(0, idx)), seed
 
 
 @pytest.mark.parametrize("d", [40, 64, 128])

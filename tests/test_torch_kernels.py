@@ -36,6 +36,10 @@ from graph_hypernetwork_forge_tpu_torch.ops.cuda.edge_transform_bwd import (
     edge_transform_combined_bwd_plain,
     run_bounds,
 )
+from graph_hypernetwork_forge_tpu_torch.ops.cuda.gather_rows import (
+    gather_rows,
+    vector_bytes,
+)
 from graph_hypernetwork_forge_tpu_torch.ops.cuda.segment_sum import (
     csr_segment_sum,
     csr_segment_sum_plain,
@@ -45,8 +49,10 @@ from graph_hypernetwork_forge_tpu_torch.ops.segment import sorted_segment_sum
 from graph_hypernetwork_forge_tpu_torch.utils import profiling
 from torch_cases import (
     ATOL,
+    GATHER_CASES,
     assert_scaled_close,
     edge_case,
+    gather_case,
     kernel_counts,
     run_case,
     segment_case,
@@ -141,6 +147,38 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
         ):
             torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert not kernel_counts(counts), counts
+
+
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("name", sorted(GATHER_CASES))
+def test_gather_rows_on_the_cpu_is_index_select_in_every_stream_form(name, index_dtype):
+    table, indices = gather_case(name, index_dtype)
+    with profiling.tally() as counts:
+        got = gather_rows(table, *indices)
+    assert len(got) == len(indices)
+    for out, idx in zip(got, indices):
+        assert out.dtype == table.dtype and torch.equal(out, table.index_select(0, idx))
+    assert kernel_counts(counts) == {}
+
+
+def test_gather_rows_takes_one_to_three_indices():
+    table, (idx,) = gather_case("f32_d64", torch.int32)
+    for indices in ((), (idx,) * 4):
+        with pytest.raises(ValueError, match="1 to 3 indices"):
+            gather_rows(table, *indices)
+
+
+def test_the_gather_kernels_form_is_the_widest_vector_row_and_addresses_allow():
+    # The form each card launch would take: 16 bytes for f32 rows at d=64
+    # or bf16 at d=64, 4 for a 252-byte row, a 4-byte row or a table 4
+    # bytes off its allocation, 2 for bf16 rows of three values.
+    rows = torch.zeros(10, 64)
+    assert vector_bytes(256, rows) == vector_bytes(128, rows.bfloat16()) == 16
+    assert vector_bytes(252, rows) == vector_bytes(4, rows) == 4
+    assert vector_bytes(256, rows.view(-1)[1:]) == 4
+    assert vector_bytes(256, rows.view(-1)[2:]) == 8
+    assert vector_bytes(6, rows.bfloat16()) == 2
+    assert vector_bytes(3, rows.to(torch.uint8)) == 1
 
 
 def test_inputs_that_want_a_gradient_are_refused():

@@ -6,18 +6,21 @@ launch counts, and what tells two calls' inputs apart. On the card
 (``cuda`` marker; each test skips without an NVIDIA GPU): graphed steps
 against eager ones, bit for bit, in both negative modes; a kept loss; a new
 input capturing again; the counters of a replay, the kernels' launches
-among them; a capture that raises. This file imports no JAX::
+among them; the row gathers of an xl-shaped replayed step, all in the
+gather kernel; a capture that raises. This file imports no JAX::
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_train_graph.py
 """
 
 import copy
 import importlib
+import time
 
 import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
+from torch.profiler import ProfilerActivity, profile
 
 from graph_hypernetwork_forge_tpu_torch.data.datasets import generate_synthetic_kg
 from graph_hypernetwork_forge_tpu_torch.data.encoding import encode_graph
@@ -33,7 +36,7 @@ from graph_hypernetwork_forge_tpu_torch.training.train import (
 )
 from graph_hypernetwork_forge_tpu_torch.utils import profiling
 from graph_hypernetwork_forge_tpu_torch.utils.initializers import named_leaves, tree_map
-from torch_cases import launches
+from torch_cases import GATHER_LAUNCHES, launches
 
 # The module, which the package's ``train`` function shadows.
 tr = importlib.import_module("graph_hypernetwork_forge_tpu_torch.training.train")
@@ -353,6 +356,51 @@ def test_a_replay_counts_what_an_eager_step_counts(kg_graph, dev, neg_mode):
         spans = profiling.snapshot()["spans"]
         assert spans["train_step"]["entries"] == 1
         assert "loss" not in spans and "backward" not in spans and "optimizer" not in spans
+
+
+@pytest.fixture(scope="module")
+def xl_graph():
+    """A graph of xl's sizes: 50,000 nodes, 1,000,000 edges, 237 relations."""
+    kg = generate_synthetic_kg(50_000, 1_000_000, 237, feat_dim=16, seed=1)
+    graph = encode_graph(kg.edge_index, kg.edge_texts, kg.num_nodes, sort_by_relation=True,
+                         with_sort_plan=True, group_pad=256)
+    return kg, graph
+
+
+def _device_kernels(fn) -> dict:
+    """``{kernel name: launches}`` of one call of ``fn`` by torch.profiler;
+    a window handed back empty (it happens now and then) is profiled again,
+    six times at most."""
+    for attempt in range(6):
+        time.sleep(0.1 * attempt)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = {e.key: e.count for e in prof.key_averages()
+                   if e.device_type != torch.autograd.DeviceType.CPU}
+        if kernels:
+            return kernels
+    raise AssertionError("torch.profiler recorded no kernel in six windows")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("neg_mode", sorted(GATHER_LAUNCHES))
+def test_an_xl_shaped_replayed_step_gathers_its_rows_with_the_gather_kernel(
+        xl_graph, dev, neg_mode):
+    run = _Run(xl_graph, dev, neg_mode, hidden_dim=64)
+    for k in range(2):  # eager, then captured and replayed
+        run(run.negatives(k))
+    counts = _one_step_counts(run, 2)
+    assert counts["train_step_graph_replays"] == 1
+    # 18 a roll step, 14 a uniform one.
+    assert launches("gather_rows", counts=counts) == GATHER_LAUNCHES[neg_mode]
+    kernels = _device_kernels(lambda: run(run.negatives(3)))
+    ours = sum(n for name, n in kernels.items() if "gather_rows_kernel" in name)
+    theirs = {name: n for name, n in kernels.items() if "vectorized_gather_kernel" in name}
+    assert ours == GATHER_LAUNCHES[neg_mode], kernels
+    # PyTorch's gather is left to one launch, off the kernel path: the text
+    # encoder's character embedding, char_emb[char_ids] (int64 ids).
+    assert list(theirs.values()) == [1] and "<16, long>" in next(iter(theirs)), theirs
 
 
 @pytest.mark.cuda

@@ -25,6 +25,8 @@ from graph_hypernetwork_forge_tpu_torch.convert import params_from_jax
 from graph_hypernetwork_forge_tpu_torch.data.encoding import encode_graph
 from graph_hypernetwork_forge_tpu_torch.models import hypergnn as phg
 from graph_hypernetwork_forge_tpu_torch.models import weight_generator as pwg
+from graph_hypernetwork_forge_tpu_torch.ops import segment as pseg
+from graph_hypernetwork_forge_tpu_torch.ops.cuda.gather_rows import gather_rows_plain
 from graph_hypernetwork_forge_tpu_torch.training import objectives as pobj
 from graph_hypernetwork_forge_tpu_torch.training.train import (
     adam,
@@ -39,7 +41,7 @@ from graph_hypernetwork_forge_tpu_torch.utils.initializers import (
     tree_leaves,
     tree_map,
 )
-from torch_cases import ATOL, assert_scaled_close
+from torch_cases import ATOL, GATHER_LAUNCHES, assert_scaled_close
 
 N, F, U, E = 48, 16, 5, 300
 LAYOUT = dict(sort_by_relation=True, with_sort_plan=True, group_pad=256)
@@ -295,6 +297,43 @@ def test_uniform_steps_take_the_sorted_loss_and_k_above_one_the_plain(monkeypatc
     plain_params, _ = run(plan)
     for a, b in zip(tree_leaves(sorted_params), tree_leaves(plain_params)):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("neg_mode", sorted(GATHER_LAUNCHES))
+def test_every_row_gather_of_a_step_goes_through_the_gather_kernels_wrapper(
+        monkeypatch, neg_mode):
+    """Each call of ``gather_rows`` is one launch of the gather kernel on
+    the card: a step makes GATHER_LAUNCHES of them, and their least bytes are
+    the step's ``gather_bytes``, so the counter counts what the kernel
+    moves and nothing else."""
+    calls = []
+
+    def spy(table, *indices):
+        calls.append(sum(pseg.gather_bytes(table, idx) for idx in indices))
+        return gather_rows_plain(table, *indices)
+
+    monkeypatch.setattr(pseg, "gather_rows", spy)
+    monkeypatch.setattr(pobj, "gather_rows", spy)
+    feats, _, pg = _graph(6)
+    _, pcfg = _configs(16, "pallas")
+    state = create_train_state(phg.init_hypergnn(pcfg, torch.Generator().manual_seed(3)),
+                               adam(1e-2))
+    rows = pg.src.shape[0]
+    neg = (torch.tensor(7) if neg_mode == "roll"
+           else torch.randint(0, N, (rows,), dtype=torch.int32,
+                              generator=torch.Generator().manual_seed(2)))
+    step = make_train_step(pcfg, neg_mode=neg_mode)
+    profiling.reset()
+    profiling.record()
+    try:
+        step(state.params, state.opt_state, *_port_inputs(feats, pg), torch.Generator(),
+             neg_dst=neg, sort_plan=pg.sort_plan.to("cpu"))
+    finally:
+        profiling.stop()
+    counters = profiling.snapshot()["counters"]
+    profiling.reset()
+    assert len(calls) == GATHER_LAUNCHES[neg_mode]
+    assert sum(calls) == counters["gather_bytes"]
 
 
 # ---------------------------------------------------------------------------

@@ -2,6 +2,7 @@
 seed. Imports no JAX, so the card tests can use them where JAX is absent."""
 
 import numpy as np
+import torch
 
 from graph_hypernetwork_forge_tpu_torch.data.encoding import encode_graph
 from graph_hypernetwork_forge_tpu_torch.ops.cuda._common import FORMS
@@ -376,3 +377,62 @@ def csr_case(name, seed=0, trailing=SHARD_TRAILING_EMPTY):
 
 CSR_CASES = ("pad_segment", "all_empty", "splits0_positive", "one_segment",
              "ends_on_span_and_block_rows", "dbias_like", "long_empty_runs")
+
+
+# Launches of the gather kernel (calls of its wrapper) in one training step
+# of a 2-layer model on the group-padded layout with a SortPlan: per layer
+# the h[src], h[dst] pair in one call and the contributions' dst-sorted
+# permute; backward, the pair's two cotangent permutes, the segment sum's
+# index composition and its row gather. The rolled loss: the src and dst
+# rows in one call, the rolled tails; backward, the two rolls and the two
+# plan permutes. The uniform loss: its three rows in one call; backward,
+# the permute of its three cotangent streams.
+GATHER_LAUNCHES = dict(roll=2 * 6 + 6, uniform=2 * 6 + 2)
+
+
+# The row gathers the gather kernel is held to, bit for bit against
+# index_select: ``name: (table rows, row shape, dtype, index lengths)``.
+# "int32_rows" is the segment sum's [E] index composition (4-byte rows),
+# "f32_d63" a 252-byte row; "f32_d6", "bf16_d3" and "uint8_d5" rows of 24,
+# 6 and 5 bytes, which the kernel moves 8, 2 and 1 bytes a lane at a time;
+# "pad_row_0" an index with 31,000 repeats of
+# row 0 in its middle (a group-padded layout's pad rows), "aligned_4" a
+# table whose address is aligned to 4 bytes only (the card tests place it
+# so), and the stream forms one, two and three indices in one call, the
+# third always int64 (the uniform loss's own negatives may be).
+GATHER_CASES = {
+    "f32_d64": (3000, (64,), "float32", (5000,)),
+    "f32_d128": (3000, (128,), "float32", (5000,)),
+    "bf16_d64": (3000, (64,), "bfloat16", (5000,)),
+    "int32_rows": (5000, (), "int32", (5000,)),
+    "f32_d63": (3000, (63,), "float32", (5000,)),
+    "f32_d6": (3000, (6,), "float32", (5000,)),
+    "bf16_d3": (3000, (3,), "bfloat16", (5000,)),
+    "uint8_d5": (3000, (5,), "uint8", (5000,)),
+    "empty": (3000, (64,), "float32", (0,)),
+    "pad_row_0": (3000, (64,), "float32", (33_000,)),
+    "aligned_4": (3000, (64,), "float32", (5000,)),
+    "two_streams": (3000, (64,), "float32", (4000, 1234)),
+    "three_streams": (3000, (64,), "float32", (4000, 1, 2500)),
+}
+
+
+def gather_case(name, index_dtype, seed=0):
+    """``(table, indices)`` of a named case of ``GATHER_CASES``, CPU tensors
+    made from a seed; ``index_dtype`` is ``torch.int32`` or ``torch.int64``."""
+    rows, shape, dtype, lengths = GATHER_CASES[name]
+    rng = np.random.default_rng(seed)
+    if dtype == "int32":
+        table = torch.as_tensor(rng.permutation(rows).astype(np.int32))
+    elif dtype == "uint8":
+        table = torch.as_tensor(rng.integers(0, 256, (rows, *shape)).astype(np.uint8))
+    else:
+        values = rng.standard_normal((rows, *shape)).astype(np.float32)
+        table = torch.as_tensor(values).to(getattr(torch, dtype))
+    indices = []
+    for k, n in enumerate(lengths):
+        idx = rng.integers(0, rows, n)
+        if name == "pad_row_0":
+            idx[1000:32_000] = 0
+        indices.append(torch.as_tensor(idx).to(torch.int64 if k == 2 else index_dtype))
+    return table, indices
